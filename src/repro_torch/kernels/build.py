@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface and loaded with
+``ctypes`` — no PyTorch headers, no ninja.  Libraries go to
+``build/torch_kernels/`` at the repository root, named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one
+is reused.  All missing libraries of one call are compiled in parallel
+(one ``nvcc`` process per source).
+
+The flags leave ``--use_fast_math`` off: float division must stay IEEE
+(nvcc's default ``-prec-div=true``) or the stochastic quantizer's knob
+indices drift from the reference.
+
+Nothing here runs at import: the tests import every module on machines
+without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().with_name('csrc')
+BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'torch_kernels'
+ARCH = 'arch=compute_90a,code=sm_90a'
+NVCC_FLAGS = ('-gencode', ARCH, '-std=c++17', '-O3', '-shared',
+              '-Xcompiler', '-fPIC')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint32
+
+# kernel name -> (C entry point, argtypes); every entry returns the
+# cudaError_t of its launch (cudaGetLastError) as an int
+SIGNATURES = {
+    'quantize_pack': ('spfl_quantize_pack',
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    'spfl_accumulate': ('spfl_accumulate',
+                        [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _P]),
+    'corrupt_fold': ('spfl_corrupt_fold',
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _P]),
+    'fold_words': ('spfl_fold_words', [_P, _LL, _P, _I, _I, _P]),
+}
+KERNELS = tuple(SIGNATURES)
+
+_loaded: Dict[str, Tuple[ctypes.CDLL, object]] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    path = Path(home) / 'bin' / 'nvcc'
+    if path.exists():
+        return str(path)
+    raise RuntimeError('nvcc not found: the CUDA kernels are built on a '
+                       'machine with the CUDA toolkit')
+
+
+def source(name: str) -> Path:
+    return CSRC / f'{name}.cu'
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f'{name}-{digest[:16]}.so'
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every named kernel whose library is missing, all at once
+    (one nvcc process each); -> {name: library path}.  Raises with the
+    compiler's output if any build fails."""
+    paths = {name: library_path(name) for name in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = {}
+    for name, path in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [exe, *NVCC_FLAGS, '-o', tmp, str(source(name))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp)
+    errors = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            os.unlink(tmp)
+            errors.append(f'{name}: nvcc exit {proc.returncode}\n'
+                          f'{out.decode(errors="replace")}')
+        else:
+            os.replace(tmp, todo[name])   # atomic: concurrent builders agree
+    if errors:
+        raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
+    return paths
+
+
+def kernel(name: str):
+    """The C entry point of kernel ``name`` (built at first use)."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        entry, argtypes = SIGNATURES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = (lib, fn)       # the CDLL stays referenced
+    return _loaded[name][1]

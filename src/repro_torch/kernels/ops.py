@@ -1,0 +1,220 @@
+"""Wrappers around the hand-written CUDA kernels (the port of
+``repro.kernels.ops`` for the four kernels of the packed, bit-level round).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, and then:
+
+* for tensors on a CUDA card, launches its kernel on the current stream
+  (building it at first use, ``kernels.build``) and raises if the launch
+  fails — it never falls back;
+* for tensors on the CPU, calls the plain version in ``kernels.ref``.
+
+``launch_counts`` counts successful kernel launches per kernel; a run
+resets it with :func:`reset_launch_counts` and reads it afterwards to
+show that its path went through the kernels.  Plain-version calls are not
+counted.
+
+Words are int32 tensors holding uint32 bit patterns (``wire.format``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantize import knob_step
+from repro_torch.kernels import build, ref
+from repro_torch.wire import corrupt as wire_corrupt
+from repro_torch.wire import format as fmt
+
+Tensor = torch.Tensor
+
+MAX_VOTE_CLIENTS = 32        # vote word capacity: one bit per client
+
+launch_counts = {name: 0 for name in build.KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _on_card(*tensors: Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; anything else, or a
+    mix of devices, raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f'tensors on several devices: {sorted(map(str, devices))}')
+    dev = devices.pop()
+    if dev.type not in ('cuda', 'cpu'):
+        raise ValueError(f'unsupported device {dev}')
+    return dev.type == 'cuda'
+
+
+def _expect(t: Tensor, name: str, dtype, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
+                         f'got {tuple(t.shape)}')
+
+
+def _rows(t: Tensor, name: str) -> int:
+    """Row stride of a (K, W) tensor whose rows are unit-stride."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f'{name}: expected (K, W) rows with unit stride')
+    return t.stride(0)
+
+
+def _contig(t: Tensor, name: str) -> Tensor:
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')
+    return t
+
+
+def _launch(name: str, t: Tensor, *args) -> None:
+    fn = build.kernel(name)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with error {rc}')
+    launch_counts[name] += 1
+
+
+def _col(x, k: int, dtype, device) -> Tensor:
+    """Per-client scalars (K,) as a contiguous tensor of ``dtype``."""
+    return torch.as_tensor(x, device=device).to(dtype).reshape(k).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# client side: fused quantize + pack
+# ---------------------------------------------------------------------------
+
+def quantize_pack_flat(g: Tensor, rand: Tensor, gmin, gmax, bits: int
+                       ) -> Tuple[Tensor, Tensor]:
+    """Fused client pass for K clients: (K, n) f32 gradients and uniforms,
+    per-client ranges (K,) -> packed (sign words (K, G), knob words
+    (K, G * bits)), G = ceil(n / 32)."""
+    if g.dim() != 2:
+        raise ValueError('g: expected (K, n)')
+    k, n = g.shape
+    _expect(g, 'g', torch.float32)
+    _expect(rand, 'rand', torch.float32, g.shape)
+    if not 1 <= bits <= 16:
+        raise ValueError(f'bits must be in [1, 16], got {bits}')
+    gmin = _col(gmin, k, torch.float32, g.device)
+    gmax = _col(gmax, k, torch.float32, g.device)
+    if _on_card(g, rand, gmin, gmax):
+        _contig(g, 'g'), _contig(rand, 'rand')
+        groups = fmt.n_groups(n)
+        sw = torch.empty((k, groups), dtype=torch.int32, device=g.device)
+        qw = torch.empty((k, groups * bits), dtype=torch.int32,
+                         device=g.device)
+        _launch('quantize_pack', g, g.data_ptr(), rand.data_ptr(),
+                gmin.data_ptr(), gmax.data_ptr(), sw.data_ptr(),
+                qw.data_ptr(), k, n, bits)
+    else:
+        sw, qw = ref.quantize_pack(g, rand, gmin, gmax, bits)
+    return sw, qw
+
+
+# ---------------------------------------------------------------------------
+# PS side: decode-once aggregation
+# ---------------------------------------------------------------------------
+
+def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
+                          gbar: Tensor, gmin, gmax, mod_ok, weight,
+                          sign_ok, n: int, bits: int
+                          ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Decode-once PS aggregation, eq. (15)-(17), from the packed domain:
+
+        (sum_k w_k * s(g_k) ⊙ (mod_ok_k ? Q_v(g_k) : gbar),  sign votes)
+
+    ``sign_payload`` (K, ceil(n/32)) and ``qidx_payload``
+    (K, ceil(n/32) * bits) are payload words (rows may be strided views
+    of framed packets); ``gbar`` is (n,) shared or (K, n) per client; the
+    per-client scalars are (K,).  Votes (int32, per-coordinate count of
+    accepted +1 signs) are ``None`` when K exceeds the 32-client vote
+    word.  The knob step is computed here with
+    ``quantize.knob_step`` (IEEE division), as the reference does."""
+    k = sign_payload.shape[0]
+    groups = fmt.n_groups(n)
+    _expect(sign_payload, 'sign_payload', torch.int32, (k, groups))
+    _expect(qidx_payload, 'qidx_payload', torch.int32, (k, groups * bits))
+    _expect(gbar, 'gbar', torch.float32)
+    if tuple(gbar.shape) not in ((n,), (k, n)):
+        raise ValueError(f'gbar: expected ({n},) or ({k}, {n}), '
+                         f'got {tuple(gbar.shape)}')
+    with_votes = k <= MAX_VOTE_CLIENTS
+    dev = sign_payload.device
+    gmin = _col(gmin, k, torch.float32, dev)
+    step = knob_step(gmin, _col(gmax, k, torch.float32, dev), bits)
+    mod_ok = _col(mod_ok, k, torch.float32, dev)
+    weight = _col(weight, k, torch.float32, dev)
+    gate = _col(sign_ok, k, torch.int32, dev)
+    if not _on_card(sign_payload, qidx_payload, gbar, gmin):
+        return ref.spfl_accumulate(sign_payload, qidx_payload, gbar, gmin,
+                                   step, mod_ok, weight, gate, n, bits,
+                                   with_votes)
+    _contig(gbar, 'gbar')
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    votes = (torch.empty((n,), dtype=torch.int32, device=dev)
+             if with_votes else None)
+    _launch('spfl_accumulate', sign_payload, sign_payload.data_ptr(),
+            _rows(sign_payload, 'sign_payload'), qidx_payload.data_ptr(),
+            _rows(qidx_payload, 'qidx_payload'), gbar.data_ptr(),
+            n if gbar.dim() == 2 else 0, gmin.data_ptr(), step.data_ptr(),
+            mod_ok.data_ptr(), weight.data_ptr(), gate.data_ptr(),
+            out.data_ptr(), votes.data_ptr() if with_votes else None,
+            k, n, bits)
+    return out, votes
+
+
+# ---------------------------------------------------------------------------
+# the bit channel and the PS CRC verify
+# ---------------------------------------------------------------------------
+
+def corrupt_fold_words(seeds: Tuple[int, int], words: Tensor, ber,
+                       word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+    """Fused bit-channel pass over (K, W) word buffers at per-client BER
+    ``ber`` (scalar or (K,)) with the counter PRF keyed by the two uint32
+    ``seeds``; ``word0`` offsets the global word counter.
+    -> (received (K, W), per-client flip-mask xor-fold (K,), per-client
+    flip count (K,)), all int32."""
+    _expect(words, 'words', torch.int32)
+    if words.dim() != 2:
+        raise ValueError('words: expected (K, W)')
+    k, w = words.shape
+    thresh, allf = wire_corrupt.flip_threshold(
+        torch.as_tensor(ber, dtype=torch.float32,
+                        device=words.device).expand(k))
+    thresh = fmt.to_words(thresh).contiguous()
+    allf = allf.to(torch.int32).contiguous()
+    s0, s1 = (int(s) & fmt.MASK32 for s in seeds)
+    word0 = int(word0) & fmt.MASK32
+    if not _on_card(words, thresh):
+        return ref.corrupt_fold((s0, s1), words, thresh, allf, word0)
+    _contig(words, 'words')
+    rx = torch.empty_like(words)
+    fold = torch.zeros((k,), dtype=torch.int32, device=words.device)
+    flips = torch.zeros((k,), dtype=torch.int32, device=words.device)
+    _launch('corrupt_fold', words, words.data_ptr(), rx.data_ptr(),
+            thresh.data_ptr(), allf.data_ptr(), fold.data_ptr(),
+            flips.data_ptr(), k, w, s0, s1, word0)
+    return rx, fold, flips
+
+
+def fold_words(words: Tensor) -> Tensor:
+    """Per-client xor-fold of (K, W) word buffers -> (K,) int32: the PS
+    CRC reduction of the bit-level transport."""
+    _expect(words, 'words', torch.int32)
+    if words.dim() != 2:
+        raise ValueError('words: expected (K, W)')
+    k, w = words.shape
+    if not _on_card(words):
+        return ref.fold_words(words)
+    out = torch.empty((k,), dtype=torch.int32, device=words.device)
+    _launch('fold_words', words, words.data_ptr(), _rows(words, 'words'),
+            out.data_ptr(), k, w)
+    return out

@@ -1,0 +1,252 @@
+"""Instruction mix of the built kernels, by Hopper execution pipe.
+
+    python -m repro_torch.kernels.sass [--dump DIR]
+
+builds the kernels (``kernels.build``), disassembles each library with
+``cuobjdump -sass`` and prints, per kernel, its SASS instructions grouped
+by the pipe that executes them: the straight-line code, and each loop
+(a backward branch) on its own, with its nesting depth.  ``--dump`` also
+writes each kernel's disassembly to ``DIR/<kernel>.sass``.
+
+The pipes and their rates, in thread-instructions per clock per SM, are
+those of compute capability 9.0 in the CUDA C++ Programming Guide's table
+of arithmetic instruction throughput:
+
+========  ====  =====================================================
+pipe      rate  instructions
+========  ====  =====================================================
+fp32      128   FADD, FMUL, FFMA
+imad      64    IMAD, IMUL (the multiply-add half of the FMA pipe)
+alu       64    LOP3, SHF, IADD3, ISETP, SEL, LEA, PRMT, ... (INT32)
+xu        16    I2F, F2I, POPC, FLO, BREV, MUFU (conversions, bit count)
+shfl      32    SHFL
+other     --    memory, control, moves, uniform datapath: issue only
+========  ====  =====================================================
+
+An SM issues at most 4 warp-instructions per clock (128
+thread-instructions), and fp32 and imad share the FMA pipe.  An
+instruction whose pipe is not known here is counted as ``other``, so
+:func:`bound_clocks` stays a lower bound.
+
+Nothing here runs at import: the tests import every module on machines
+without the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+from collections import Counter
+from pathlib import Path
+from typing import Dict, List, Mapping, NamedTuple
+
+PIPE_RATES = {'issue': 128, 'fp32': 128, 'imad': 64, 'alu': 64, 'xu': 16,
+              'shfl': 32}
+_PIPES = {
+    'fp32': ('FADD', 'FMUL', 'FFMA', 'FADD32I', 'FMUL32I', 'FFMA32I'),
+    'imad': ('IMAD', 'IMUL', 'IMAD32I', 'IMUL32I', 'IDP'),
+    'alu': ('LOP3', 'LOP', 'SHF', 'SHL', 'SHR', 'IADD3', 'IADD', 'ISETP',
+            'ICMP', 'SEL', 'FSEL', 'FSETP', 'FMNMX', 'IMNMX', 'LEA', 'PRMT',
+            'IABS', 'BMSK', 'SGXT', 'PLOP3', 'LOP32I', 'IADD32I'),
+    'xu': ('I2F', 'F2I', 'I2FP', 'F2IP', 'F2F', 'I2I', 'FRND', 'POPC', 'FLO',
+           'BREV', 'MUFU'),
+    'shfl': ('SHFL',),
+}
+PIPE_OF = {op: pipe for pipe, ops in _PIPES.items() for op in ops}
+
+_FUNC = re.compile(r'Function\s*:\s*(\S+)')
+_INSTR = re.compile(r'/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)'
+                    r'([.A-Z0-9_]*)\s*([^;]*);')
+_TARGET = re.compile(r'0x([0-9a-f]+)')
+
+
+class Instr(NamedTuple):
+    addr: int
+    op: str          # base opcode, e.g. 'IMAD'
+    text: str        # the whole instruction
+
+
+class Region(NamedTuple):
+    depth: int       # 0 = straight-line code, 1 = a loop, 2 = a loop in it
+    start: int       # first address (the branch target of a loop)
+    end: int         # last address (the backward branch of a loop)
+    mix: Counter     # pipe -> instructions, excluding nested loops
+
+
+def cuobjdump() -> str:
+    found = shutil.which('cuobjdump')
+    if found:
+        return found
+    path = Path(os.environ.get('CUDA_HOME', '/usr/local/cuda')) / 'bin' / 'cuobjdump'
+    if path.exists():
+        return str(path)
+    raise RuntimeError('cuobjdump not found: it comes with the CUDA toolkit')
+
+
+def disassemble(lib: Path) -> Dict[str, List[Instr]]:
+    """-> {mangled kernel name: its SASS instructions in address order}."""
+    return parse(subprocess.run([cuobjdump(), '-sass', str(lib)],
+                                check=True, capture_output=True,
+                                text=True).stdout)
+
+
+def parse(text: str) -> Dict[str, List[Instr]]:
+    """``cuobjdump -sass`` output -> {kernel name: instructions}."""
+    out: Dict[str, List[Instr]] = {}
+    current = None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = _INSTR.search(line)
+        if m and current is not None:
+            current.append(Instr(int(m.group(1), 16), m.group(3),
+                                 ' '.join(m.group(0).split())))
+    return out
+
+
+def pipe(op: str) -> str:
+    return PIPE_OF.get(op, 'other')
+
+
+def regions(instrs: List[Instr]) -> List[Region]:
+    """Straight-line code and each loop, found as a branch to an earlier
+    address; each region's mix excludes the loops nested in it."""
+    spans = []
+    for ins in instrs:
+        if ins.op in ('BRA', 'BRX', 'JMP'):
+            m = _TARGET.search(ins.text.split(ins.op, 1)[1])
+            if m and int(m.group(1), 16) < ins.addr:
+                spans.append((int(m.group(1), 16), ins.addr))
+    spans.sort(key=lambda s: (s[0], -s[1]))
+
+    def depth(span):
+        return 1 + sum(1 for o in spans
+                       if o != span and o[0] <= span[0] and span[1] <= o[1])
+
+    def innermost(addr):
+        inside = [s for s in spans if s[0] <= addr <= s[1]]
+        return min(inside, key=lambda s: s[1] - s[0]) if inside else None
+
+    mixes = {None: Counter()}
+    mixes.update({s: Counter() for s in spans})
+    for ins in instrs:
+        mixes[innermost(ins.addr)][pipe(ins.op)] += 1
+    first, last = instrs[0].addr, instrs[-1].addr
+    return ([Region(0, first, last, mixes[None])]
+            + [Region(depth(s), s[0], s[1], mixes[s]) for s in spans])
+
+
+def resource_clocks(mix: Mapping[str, float]) -> Dict[str, float]:
+    """Clocks of one SM that ``mix`` (pipe -> thread-instructions) needs
+    of each resource: the issue slots, each pipe, and the FMA pipe that
+    fp32 and imad share."""
+    clocks = {'issue': sum(mix.values()) / PIPE_RATES['issue'],
+              'fma': (mix.get('fp32', 0) + mix.get('imad', 0))
+              / PIPE_RATES['fp32']}
+    clocks.update({p: mix.get(p, 0) / PIPE_RATES[p] for p in PIPE_RATES
+                   if p != 'issue'})
+    return clocks
+
+
+def bound_clocks(mix: Mapping[str, float]) -> float:
+    """Least clocks of one SM for ``mix``: its busiest resource."""
+    return max(resource_clocks(mix).values())
+
+
+def path_mix(instrs: List[Instr], spans) -> Counter:
+    """Pipe mix of the instructions in the inclusive address ``spans``."""
+    mix = Counter()
+    for ins in instrs:
+        if any(lo <= ins.addr <= hi for lo, hi in spans):
+            mix[pipe(ins.op)] += 1
+    return mix
+
+
+def fingerprint(instrs: List[Instr]) -> str:
+    return hashlib.sha256('\n'.join(i.text for i in instrs).encode()
+                          ).hexdigest()[:16]
+
+
+# The path one unit of work takes through each kernel on the main path
+# (K=20 clients, bits=3, vote counts on, shared gbar, every float
+# division on its fast path), as inclusive SASS address spans.  They were
+# read off the disassembly of the build whose fingerprint is given (nvcc
+# 12.9, sm_90a): a changed source or compiler moves the addresses, and
+# ``--paths`` then reports the mismatch so the spans can be read anew.
+MAIN_PATHS = {
+    'quantize_pack': ('7add59f63273aaf8', {
+        # 32-bit warp / n_groups, both divisions fast, step > 0, then the
+        # bits = 3 remainder loop of the ballot planes
+        'coordinate': ((0x0000, 0x0140), (0x0180, 0x0600),
+                       (0x0650, 0x0730), (0x0780, 0x0980),
+                       (0x0b80, 0x0ba0), (0x0c50, 0x0d10)),
+        'plane': ((0x0bb0, 0x0c40),),
+    }),
+    'spfl_accumulate': ('007fe80714e951ae', {
+        # the bits > 0, votes-on version: set-up and the stores once per
+        # coordinate, and per client the sign bit plus the bits % 4 = 3
+        # tail of the knob unpack, decode, accumulate and vote
+        'coordinate': ((0x0000, 0x0160), (0x1da0, 0x1e40),
+                       (0x3230, 0x3310)),
+        'client': ((0x1e50, 0x1fc0), (0x2cb0, 0x3220)),
+    }),
+    'corrupt_fold': ('79c693dce76122ab', {
+        # straight-line: the 32-plane PRF, the xor, the warp reductions
+        'word': ((0x0000, 0x1c70),),
+    }),
+    'fold_words': ('7ca8746aaf9b0a3e', {
+        # every thread: set-up and the warp fold; every word: one trip of
+        # the strided loop; warp 0 of each block: the cross-warp fold
+        'thread': ((0x0000, 0x00d0), (0x0190, 0x02d0)),
+        'word': ((0x00e0, 0x0180),),
+        'warp0_thread': ((0x02e0, 0x0480),),
+    }),
+}
+
+
+def main_path_mixes(name: str, instrs: List[Instr]) -> Dict[str, Counter]:
+    """{unit of work: its pipe mix} of kernel ``name`` on the main path;
+    raises if ``instrs`` is not the disassembly the spans were read from."""
+    want, units = MAIN_PATHS[name]
+    got = fingerprint(instrs)
+    if got != want:
+        raise RuntimeError(f'{name}: SASS fingerprint {got} != {want}: read '
+                           'the main-path spans anew from --dump')
+    return {unit: path_mix(instrs, spans) for unit, spans in units.items()}
+
+
+def main() -> None:
+    from repro_torch.kernels import build
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--dump', type=Path, default=None,
+                        help='write each disassembly to DIR/<kernel>.sass')
+    parser.add_argument('--paths', action='store_true',
+                        help='also print the main-path mix of each unit '
+                             'of work (MAIN_PATHS)')
+    args = parser.parse_args()
+    for name, lib in build.build().items():
+        funcs = disassemble(lib)
+        if args.dump is not None:
+            args.dump.mkdir(parents=True, exist_ok=True)
+            (args.dump / f'{name}.sass').write_text('\n'.join(
+                f'{fn}\n' + '\n'.join(i.text for i in instrs)
+                for fn, instrs in funcs.items()) + '\n')
+        for fn, instrs in funcs.items():
+            print(f'{name} ({fn}): {len(instrs)} instructions, '
+                  f'fingerprint {fingerprint(instrs)}')
+            for r in regions(instrs):
+                kind = 'straight-line' if r.depth == 0 else f'loop depth {r.depth}'
+                print(f'  {kind} [{r.start:#06x}, {r.end:#06x}]: '
+                      + ', '.join(f'{p} {c}' for p, c in sorted(r.mix.items())))
+            if args.paths:
+                for unit, mix in main_path_mixes(name, instrs).items():
+                    print(f'  main path per {unit}: {dict(sorted(mix.items()))}')
+
+
+if __name__ == '__main__':
+    main()

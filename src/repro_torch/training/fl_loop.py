@@ -1,0 +1,332 @@
+"""Paper-scale wireless FL simulator — Algorithm 2 in a host loop (the
+port of ``repro.training.fl_loop`` with ``round_fusion='none'``).
+
+Per round n:
+  1. each device computes g_{k,n} = ∇F_k(w_n): one batched
+     ``torch.func.vmap`` of the gradient over the K clients, taken with
+     respect to the flat reference-order parameter vector;
+  2. the PS solves eq. (28) on the host in float64 NumPy
+     (``core.allocation``, the reference's 'numpy' backend) -> (q, p);
+  3. the uplink runs through ``core.transport.spfl_aggregate`` (on the
+     packed, bit-level wire: the four CUDA kernels);
+  4. SGD update w <- w - eta ghat, and the compensation vector rolls.
+
+The CNN runs in full float32: constructing a simulator sets
+``torch.backends.cudnn.allow_tf32 = False`` and
+``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), since
+TF32 convolutions keep about three decimal digits.
+
+Randomness comes from two ``torch.Generator``s seeded from the run seed:
+one on the device for the (K, l) quantizer uniforms, one on the host for
+the geometry, the initial weights, the bit-channel seed words and the
+Bernoulli outcomes.  The draws differ from the reference's ``jax.random``
+streams, so whole-run agreement with the reference is statistical; one
+round given the same draws agrees exactly (``tests/test_torch_slice.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call, grad_and_value, vmap
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core import allocation as alloc
+from repro_torch.core import channel, convergence, transport
+from repro_torch.core.quantize import expected_quant_mse
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models.cnn import CNN, cnn_loss, init_params, module_params
+from repro_torch.obs.record import RoundTelemetry, sign_agreement
+
+# knobs the port does not run yet -> the ROADMAP.md item that brings them
+_NOT_YET = (
+    (lambda fl: fl.transport not in ('spfl', 'spfl_retx'),
+     'transport {fl.transport!r}: the baselines dds/onebit/scheduling/'
+     'error_free are ROADMAP Queue 1 item 5'),
+    (lambda fl: fl.allocation_backend != 'numpy',
+     "allocation_backend='jax' is ROADMAP Queue 1 item 7"),
+    (lambda fl: fl.allocation_cadence != 'static',
+     "allocation_cadence='per_round' needs the AR(1) shadowing of "
+     'ROADMAP Queue 1 item 3'),
+    (lambda fl: fl.attack != 'none' or fl.screen,
+     'attack/screen are ROADMAP Queue 1 item 8'),
+    (lambda fl: fl.dropout_rate > 0.0,
+     'dropout_rate > 0 (stragglers) is ROADMAP Queue 1 item 8'),
+    (lambda fl: fl.population_n > 0,
+     'population_n > 0 is ROADMAP Queue 1 item 9'),
+    (lambda fl: fl.telemetry_path is not None,
+     'telemetry_path (the JSONL sink) is ROADMAP Queue 1 item 10'),
+    (lambda fl: fl.round_fusion != 'none',
+     'round_fusion {fl.round_fusion!r} is ROADMAP Queue 1 item 11'),
+    (lambda fl: fl.collective != 'gather',
+     "collective='sharded' is ROADMAP Queue 1 item 12"),
+)
+
+
+def check_supported(fl: FLConfig) -> None:
+    """Raise on configurations the port cannot run (yet)."""
+    for unsupported, message in _NOT_YET:
+        if unsupported(fl):
+            raise NotImplementedError(message.format(fl=fl))
+    if fl.wire not in transport.WIRE_KINDS:
+        raise ValueError(f'wire must be one of {transport.WIRE_KINDS}')
+    if fl.channel not in channel.CHANNEL_KINDS:
+        raise ValueError(f'channel must be one of {channel.CHANNEL_KINDS}')
+    if fl.channel == 'bitlevel' and fl.wire != 'packed':
+        raise ValueError("channel='bitlevel' requires wire='packed'")
+
+
+@dataclass
+class FLHistory:
+    loss: List[float] = field(default_factory=list)
+    test_acc: List[float] = field(default_factory=list)
+    bound: List[float] = field(default_factory=list)          # per-round RHS
+    loss_delta: List[float] = field(default_factory=list)     # measured drop
+    payload_bits: List[float] = field(default_factory=list)
+    sign_ok_frac: List[float] = field(default_factory=list)
+    mod_ok_frac: List[float] = field(default_factory=list)
+    q_mean: List[float] = field(default_factory=list)         # mean sign succ
+    p_mean: List[float] = field(default_factory=list)         # mean mod succ
+    sign_agreement: List[float] = field(default_factory=list)  # packed wire
+    alloc_iters: List[float] = field(default_factory=list)
+    alloc_exit_reason: List[float] = field(default_factory=list)
+    retransmissions: List[float] = field(default_factory=list)
+    alloc_time_s: List[float] = field(default_factory=list)   # host eq. (28)
+    round_time_s: List[float] = field(default_factory=list)
+
+    def as_dict(self) -> Dict[str, List[float]]:
+        return dataclasses.asdict(self)
+
+
+class RoundResult(NamedTuple):
+    """Everything one round produced (for callers that inspect a round)."""
+    losses: torch.Tensor          # (K,) client losses at w_n
+    grads: torch.Tensor           # (K, l) client gradients
+    ghat: torch.Tensor            # (l,) aggregate
+    telemetry: RoundTelemetry
+    allocation: alloc.Allocation
+    stats: dict                   # g2, gb2, v, d2, prob of the solve and
+    #                               the host grads/gbar they came from
+    alloc_time_s: float
+
+
+class FLSimulator:
+    """K-device wireless FL over the paper's CNN (host loop)."""
+
+    def __init__(self, fl: FLConfig, client_x: np.ndarray,
+                 client_y: np.ndarray, test_x: np.ndarray,
+                 test_y: np.ndarray, seed: Optional[int] = None,
+                 device: DeviceLike = None):
+        check_supported(fl)
+        self.device = resolve(device)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.fl = fl
+        self.K = client_x.shape[0]
+        if self.K != fl.n_devices:
+            raise ValueError(f'{self.K} client datasets for n_devices='
+                             f'{fl.n_devices}')
+        seed = fl.seed if seed is None else seed
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.host_gen = torch.Generator().manual_seed(seed)
+        self.model = CNN().to(self.device)
+        self.params = init_params(self.host_gen).to(self.device)
+        self.dim = self.params.shape[0]
+
+        def to_nchw(x: np.ndarray) -> torch.Tensor:
+            t = torch.as_tensor(np.asarray(x, np.float32))
+            return t.movedim(-1, -3).contiguous().to(self.device)
+
+        self.client_x = to_nchw(client_x)                  # (K, B, 3, 32, 32)
+        self.client_y = torch.as_tensor(np.asarray(client_y, np.int64),
+                                        device=self.device)
+        self.test_x = to_nchw(test_x)
+        self.test_y = torch.as_tensor(np.asarray(test_y, np.int64),
+                                      device=self.device)
+        # static wireless geometry (paper: uniform in a 500 m annulus)
+        dist = channel.sample_distances(self.host_gen, self.K,
+                                        fl.cell_radius_m)
+        self.gains = channel.path_gain(dist, fl.path_loss_exp)
+        self.p_w = np.full(self.K, fl.tx_power_w)
+        shape = (self.K, self.dim) if fl.compensation == 'last_local' \
+            else (self.dim,)
+        self.gbar = torch.zeros(shape, device=self.device)
+        self._round = 0
+        # host copies of every round's telemetry (votes dropped: the
+        # agreement scalar lands in FLHistory)
+        self.records: List[RoundTelemetry] = []
+
+        def client_loss(flat, x, y):
+            logits = functional_call(self.model, module_params(flat), (x,))
+            return cnn_loss(logits, y)
+
+        self._client_grads = vmap(grad_and_value(client_loss),
+                                  in_dims=(None, 0, 0))
+
+    # ------------------------------------------------------------------
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return functional_call(self.model, module_params(self.params), (x,))
+
+    def client_grads(self, params: torch.Tensor):
+        """-> (losses (K,), grads (K, l)) at ``params``."""
+        grads, losses = self._client_grads(params, self.client_x,
+                                           self.client_y)
+        return losses, grads
+
+    @torch.no_grad()
+    def global_metrics(self):
+        """(mean client training loss, test accuracy) at the current w."""
+        k, b = self.client_y.shape
+        logits = self.logits(self.client_x.reshape(k * b, 3, 32, 32))
+        logits = logits.reshape(k, b, -1)
+        loss = torch.stack([cnn_loss(logits[i], self.client_y[i])
+                            for i in range(k)]).mean()
+        pred = torch.argmax(self.logits(self.test_x), dim=-1)
+        acc = (pred == self.test_y).to(torch.float32).mean()
+        return float(loss), float(acc)
+
+    def allocate(self, grads: torch.Tensor, gbar: torch.Tensor):
+        """Steps 3-4: the per-client scalars go to the host and the PS
+        solves eq. (28) in float64 NumPy -> (Allocation, stats)."""
+        fl = self.fl
+        grads_np = grads.detach().to('cpu', torch.float64).numpy()
+        gbar_np = gbar.detach().cpu().numpy()
+        g2 = np.sum(grads_np ** 2, axis=1)
+        gb = gbar_np if gbar_np.ndim == 2 else np.broadcast_to(
+            gbar_np, grads_np.shape)
+        gb2 = np.sum(gb ** 2, axis=1)
+        v = np.sum(np.abs(grads_np) * gb, axis=1)
+        # exact expected quantization MSE, f32 on the device
+        d2 = expected_quant_mse(grads.detach(), fl.quant_bits,
+                                dim=1).cpu().numpy()
+        prob = alloc.problem_from_stats(g2, gb2, v, d2, self.gains,
+                                        self.p_w, self.dim, fl)
+        method = fl.allocator
+        if float(gb2.max()) == 0.0:
+            # no compensation history yet (round 0): optimizing against
+            # gbar=0 degenerates to alpha=1 / ghat=0; use uniform
+            method = 'uniform'
+        if method == 'alternating':
+            sol = alloc.solve(prob, 'alternating',
+                              max_iters=fl.allocation_max_iters or 2)
+        elif method == 'barrier':
+            sol = alloc.solve(prob, 'barrier',
+                              max_iters=fl.allocation_max_iters or 6)
+        else:
+            sol = alloc.solve(prob, 'uniform')
+        return sol, dict(g2=g2, gb2=gb2, v=v, d2=d2, prob=prob,
+                         grads=grads_np, gbar=gbar_np)
+
+    def draw(self) -> transport.Draws:
+        """One round's transport draws from the simulator's generators."""
+        n_retx = 1 if self.fl.transport == 'spfl_retx' else 0
+        return transport.make_draws(self.K, self.dim, n_retx,
+                                    self.fl.channel, self.device, self.gen,
+                                    self.host_gen)
+
+    def round_step(self, draws: Optional[transport.Draws] = None,
+                   n: Optional[int] = None) -> RoundResult:
+        """One round of Algorithm 2; ``draws`` default to fresh ones from
+        the simulator's generators.  ``n`` is the index within the
+        current ``run`` (the seeded-random compensation keys on it)."""
+        fl = self.fl
+        n = self._round if n is None else n
+        losses, grads = self.client_grads(self.params)
+        ta = time.perf_counter()
+        sol, stats = self.allocate(grads, self.gbar)
+        alloc_t = time.perf_counter() - ta
+        q = torch.as_tensor(sol.q, dtype=torch.float32, device=self.device)
+        p = torch.as_tensor(sol.p, dtype=torch.float32, device=self.device)
+        draws = self.draw() if draws is None else draws
+        ghat, rec = transport.spfl_aggregate(
+            grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
+            n_retx=1 if fl.transport == 'spfl_retx' else 0, wire=fl.wire,
+            round_idx=self._round, channel=fl.channel,
+            min_participation=fl.min_participation)
+        self.params = self.params - fl.learning_rate * ghat
+        if fl.compensation == 'last_global':
+            self.gbar = torch.abs(ghat)
+        elif fl.compensation == 'last_local':
+            self.gbar = torch.abs(grads)
+        elif fl.compensation == 'seeded_random':
+            gen = torch.Generator().manual_seed(
+                (fl.seed + 99) * 1_000_003 + n)
+            self.gbar = (torch.abs(torch.randn(self.dim, generator=gen))
+                         * 0.01).to(self.device)
+        rec = rec.with_allocation(
+            q, p, objective=sol.objective, round_idx=self._round,
+            iters=int(sol.info.get('iters_used', 0)),
+            exit_reason=int(sol.info.get('exit_reason', 0)))
+        self._round += 1
+        return RoundResult(losses, grads, ghat, rec, sol, stats, alloc_t)
+
+    # ------------------------------------------------------------------
+    def run(self, n_rounds: int, eval_every: int = 1,
+            compute_bound: bool = False) -> FLHistory:
+        hist = FLHistory()
+        fl = self.fl
+        for n in range(n_rounds):
+            t0 = time.perf_counter()
+            res = self.round_step(n=n)
+            if compute_bound:
+                sol, stats = res.allocation, res.stats
+                gsum = np.asarray(convergence.g_value_from_probs(
+                    stats['prob'].coef, sol.p, sol.q))
+                inp = convergence.bound_inputs_from_grads(stats['grads'],
+                                                          stats['gbar'])
+                hist.bound.append(float(convergence.one_step_bound(
+                    fl.learning_rate, self.K, inp['g_global2'], inp['gb2'],
+                    inp['g2'], inp['e2'], inp['v'], gsum)))
+            rec = res.telemetry.to_host()
+            if fl.wire == 'packed':
+                hist.sign_agreement.append(
+                    sign_agreement(rec.sign_votes, rec.sign_ok))
+            rec = rec._replace(sign_votes=None)
+            self.records.append(rec)
+            hist.payload_bits.append(float(rec.payload_bits))
+            hist.retransmissions.append(float(rec.retransmissions))
+            hist.sign_ok_frac.append(float(np.mean(rec.sign_ok)))
+            hist.mod_ok_frac.append(float(np.mean(rec.mod_ok)))
+            hist.q_mean.append(float(np.mean(rec.q)))
+            hist.p_mean.append(float(np.mean(rec.p)))
+            hist.alloc_iters.append(float(rec.alloc_iters))
+            hist.alloc_exit_reason.append(float(rec.alloc_exit_reason))
+            if n % eval_every == 0 or n == n_rounds - 1:
+                prev_loss = float(res.losses.mean())
+                loss, acc = self.global_metrics()
+                hist.loss.append(loss)
+                hist.test_acc.append(acc)
+                hist.loss_delta.append(loss - prev_loss)
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            hist.alloc_time_s.append(res.alloc_time_s)
+            hist.round_time_s.append(time.perf_counter() - t0)
+        return hist
+
+
+# ---------------------------------------------------------------------------
+def build_simulator(fl: FLConfig, per_device: int = 500,
+                    n_test: int = 2000, iid: bool = False,
+                    seed: Optional[int] = None,
+                    device: DeviceLike = None) -> FLSimulator:
+    """Paper §V setup: partitioned (synthetic-)CIFAR + CNN + wireless
+    cell, on the CUDA card unless ``device='cpu'``."""
+    from repro_torch.data import (
+        dirichlet_partition, iid_partition, load_image_dataset,
+        stack_client_data,
+    )
+    device = resolve(device)
+    seed = fl.seed if seed is None else seed
+    (x, y), (tx, ty) = load_image_dataset(seed=seed)
+    if iid:
+        parts = iid_partition(y, fl.n_devices, per_device, seed)
+    else:
+        parts = dirichlet_partition(y, fl.n_devices, per_device,
+                                    fl.dirichlet_alpha, seed)
+    cx, cy = stack_client_data(x, y, parts)
+    return FLSimulator(fl, cx, cy, tx[:n_test], ty[:n_test], seed=seed,
+                       device=device)
