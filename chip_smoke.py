@@ -6,24 +6,34 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. the card: ``nvidia-smi`` name and power limit, CUDA version;
-2. build the four hand-written CUDA kernels from ``src/repro_torch/kernels/
+2. build the ten hand-written CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the same card
    tensors, at the main path's shapes (K=20 clients, l=62,006 CNN
    parameters, 3 bits, the framed sign/modulus widths) and at a small
    ragged shape — integers bit-exact, the f32 sum within the reference's
-   FMA-wobble bound — and time both with CUDA events; then the whole
-   packed, bit-level transport on the card against the same transport on
-   the CPU at full width;
+   FMA-wobble bound, every other f32 output bit-exact — and time both
+   with CUDA events; then the whole packed, bit-level transport on the
+   card against the same transport on the CPU at full width;
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
    just before and read just after;
 5. ``spfl_retx`` at -40 dBm with the uniform allocator for 3 rounds, where
-   the bit channel really flips bits and sign packets are resent.
+   the bit channel really flips bits and sign packets are resent;
+6. the per-client kernel API (``kernels.ops.*_flat``) on the main path's
+   data — the K=20 gradients of phase 4's simulator — held bit for bit
+   against the fused kernels of the main round, with the launch counters
+   reset just before and read just after.
 
 It prints one JSON line of per-kernel results, and as its last line
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
+``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
+the run of its own path (``path``: 'round' is phase 4, 'api' phase 6),
+with every counter reset just before that run.  Its ``bound_ms`` is the
+larger of its bytes (each input read once, each output written once) over
+the HBM rate and the operations its function needs (``FUNCTION_OPS``)
+over the busiest pipe's rate; the SASS of the build on the same path is
+printed beside it as a diagnostic.  It imports nothing of JAX and nothing
 of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -44,39 +54,57 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 # 132 SMs at the 1.98 GHz boost clock: the data sheet's 67 TFLOP/s float32
 # is 132 SMs x 128 FP32 lanes x 2 flops x 1.98 GHz
 N_SM, SM_CLOCK_HZ = 132, 1.98e9
-# Each kernel's main path per unit of work, in thread-instructions by
-# execution pipe, as `python -m repro_torch.kernels.sass --paths` counts
-# them in the SASS of the nvcc 12.9 sm_90a build (the spans are
-# repro_torch.kernels.sass.MAIN_PATHS; recount them when a kernel changes).
-# sass.bound_clocks turns a mix into the least clocks an SM needs for it.
-UNIT_MIX = {
-    'quantize_pack': {
-        'coordinate': {'alu': 45, 'fp32': 14, 'imad': 33, 'other': 58,
-                       'xu': 8},
-        'plane': {'alu': 4, 'other': 6}},
-    'spfl_accumulate': {
-        'coordinate': {'alu': 16, 'imad': 12, 'other': 20, 'xu': 1},
-        'client': {'alu': 37, 'fp32': 5, 'imad': 28, 'other': 41, 'xu': 1}},
-    'corrupt_fold': {
-        'word': {'alu': 331, 'imad': 83, 'other': 31, 'shfl': 10, 'xu': 1}},
-    'fold_words': {
-        'thread': {'alu': 10, 'imad': 4, 'other': 16, 'shfl': 5},
-        'word': {'alu': 5, 'imad': 4, 'other': 2},
-        'warp0_thread': {'alu': 7, 'imad': 4, 'other': 11, 'shfl': 5}},
+K, BITS = 20, 3
+# The operations each kernel's function needs per unit of work (the units
+# of repro_torch.kernels.sass.MAIN_PATHS), by the Hopper pipe that does
+# them (sass.PIPE_RATES): each arithmetic, logic, compare, select or
+# conversion step of the math once, a division once, a three-input logic
+# op once.  Address arithmetic, loads and stores, loop control and exit
+# tests are costs of a build, not of the function, and are not counted;
+# the SASS of the build is read beside it as a diagnostic.
+FUNCTION_OPS = {
+    # per coordinate: eq. (8) (|g|, - gmin, / step, floor, max, min,
+    # - lower, <, +, max, min), g >= 0, the index to an integer, the sign
+    # bit into its word; per coordinate and plane: shift, mask, or
+    'quantize_pack': {'coordinate': {'fp32': 12, 'xu': 1, 'alu': 1},
+                      'plane': {'alu': 3}},
+    # per client and coordinate: the sign bit (shift, mask), the knob
+    # (shift, mask, or per plane), float(q), q * step, + gmin, the mod_ok
+    # and sign selects, s * m, w * (s * m), + acc, the gated vote bit (and,
+    # shift, or); per coordinate: the vote popcount
+    'spfl_accumulate': {'client': {'alu': 7 + 3 * BITS, 'fp32': 5, 'xu': 1},
+                        'coordinate': {'xu': 1}},
+    # per word: the PRF counter (k * W + col + word0), the plane-free mix
+    # (+ golden, ^ seed0, fmix32, ^ seed1), the all-flip select, the xor
+    # into the word, the fold xor, popcount and its add; per word and
+    # each of its 32 bits: ^ the plane constant merged with fmix32's first
+    # xor-shift (3), two xor-shifts (4), two multiplies, the threshold
+    # compare and the bit set (2)
+    'corrupt_fold': {'word': {'alu': 14 + 32 * 9, 'imad': 3 + 32 * 2,
+                              'xu': 1}},
+    'fold_words': {'word': {'alu': 1}},            # one xor
+    # eq. (8) as above, g > 0 and g < 0, their difference, int(q)
+    'quantize': {'coordinate': {'fp32': 13, 'alu': 1, 'xu': 1}},
+    # float(q), float(s), q * step, + gmin, w * s, * m, the mod_ok select
+    'dequant': {'coordinate': {'fp32': 4, 'alu': 1, 'xu': 2}},
+    # eq. (8), the two sign compares, the decode's four products and sums,
+    # the sign's two selects and the mod_ok select
+    'roundtrip': {'coordinate': {'fp32': 17, 'alu': 3}},
+    'pack_bits': {'plane': {'alu': 3}},            # shift, mask, or
+    'unpack_bits': {'plane': {'alu': 3}},          # shift, mask, or
+    # the sign bit (shift, mask), the sign and mod_ok selects, float(q),
+    # q * step, + gmin, s * m, w * (s * m); per plane: shift, mask, or
+    'unpack_dequant': {'coordinate': {'fp32': 4, 'alu': 4, 'xu': 1},
+                       'plane': {'alu': 3}},
 }
 FOLD_WORDS_THREADS = 512          # fold_words.cu: one block per client row
 
-K, BITS = 20, 3
-MAIN_KERNEL_SOURCES = {
-    'quantize_pack': ('src/repro_torch/kernels/csrc/quantize_pack.cu',
-                      'src/repro/wire/pack_kernel.py:133'),
-    'spfl_accumulate': ('src/repro_torch/kernels/csrc/spfl_accumulate.cu',
-                        'src/repro/wire/pack_kernel.py:169'),
-    'corrupt_fold': ('src/repro_torch/kernels/csrc/corrupt_fold.cu',
-                     'src/repro/wire/pack_kernel.py:220'),
-    'fold_words': ('src/repro_torch/kernels/csrc/fold_words.cu',
-                   'src/repro/wire/pack_kernel.py:263'),
-}
+
+def kernels_on(path: str) -> list:
+    """The kernels of ``path``: 'round' (the FL round) or 'api' (the
+    per-client kernel API)."""
+    from repro_torch.kernels import build
+    return [name for name, kern in build.TABLE.items() if kern.path == path]
 
 
 def fail(msg: str) -> int:
@@ -112,14 +140,32 @@ def device_ms(fn, reps: int = 25, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def launch_mix(name: str, **units: int) -> dict:
-    """Thread-instructions by pipe of one launch of kernel ``name`` that
-    does ``units[u]`` units of work of each kind ``u``."""
+def launch_mix(per_unit: dict, units: dict) -> dict:
+    """Operations by pipe of one launch that does ``units[u]`` units of
+    work of each kind ``u``, at ``per_unit[u]`` (pipe -> count) each."""
     mix = {}
     for unit, count in units.items():
-        for pipe, n in UNIT_MIX[name][unit].items():
+        for pipe, n in per_unit.get(unit, {}).items():
             mix[pipe] = mix.get(pipe, 0) + n * count
     return mix
+
+
+def sass_unit_mixes(names) -> dict:
+    """{kernel: {unit: SASS thread-instructions by pipe}} on each kernel's
+    main path, read from its built library at the spans of
+    ``sass.MAIN_PATHS``; a build whose fingerprint differs from the one the
+    spans were read from gets no count (the bounds do not use it)."""
+    from repro_torch.kernels import build, sass
+    out = {}
+    for name, lib in build.build(names).items():
+        (instrs,) = sass.disassemble(lib).values()
+        got = sass.fingerprint(instrs)
+        if got != sass.MAIN_PATHS[name][0]:
+            print(f'{name}: SASS fingerprint {got} differs from '
+                  'MAIN_PATHS; read its spans anew', flush=True)
+            continue
+        out[name] = sass.main_path_mixes(name, instrs)
+    return out
 
 
 def int_err(a, b) -> float:
@@ -168,8 +214,7 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
     results['quantize_pack'] = dict(
         max_abs_err=err,
         bytes=k * n * 8 + k * 8 + k * groups * (1 + BITS) * 4,
-        mix=launch_mix('quantize_pack', coordinate=k * n,
-                       plane=k * n * BITS))
+        units=dict(coordinate=k * n, plane=k * n * BITS))
     if timed:
         fn = build.kernel('quantize_pack')
         stream = torch.cuda.current_stream().cuda_stream
@@ -211,12 +256,11 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
             w = words.shape[1]
             results['corrupt_fold'] = dict(
                 max_abs_err=err, bytes=2 * k * w * 4 + k * 16,
-                mix=launch_mix('corrupt_fold', word=k * w))
+                units=dict(word=k * w))
             results['fold_words'] = dict(
                 max_abs_err=fold_err, bytes=k * w * 4 + k * 4,
-                mix=launch_mix('fold_words',
-                               thread=k * min(FOLD_WORDS_THREADS, w),
-                               word=k * w, warp0_thread=k * 32))
+                units=dict(thread=k * min(FOLD_WORDS_THREADS, w),
+                           word=k * w, warp0_thread=k * 32))
             if timed:
                 fn = build.kernel('corrupt_fold')
                 stream = torch.cuda.current_stream().cuda_stream
@@ -260,7 +304,7 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
     results['spfl_accumulate'] = dict(
         max_abs_err=float((acc - racc)[finite].abs().max()),
         bytes=k * groups * (1 + BITS) * 4 + n * 4 + k * 20 + n * 8,
-        mix=launch_mix('spfl_accumulate', coordinate=n, client=n * k))
+        units=dict(coordinate=n, client=n * k))
     if timed:
         fn = build.kernel('spfl_accumulate')
         stream = torch.cuda.current_stream().cuda_stream
@@ -274,6 +318,153 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
             lambda: ref.spfl_accumulate(sp, mp, gbar, rmin, step, mok,
                                         weight, gate, n, BITS, True),
             reps=20, inner=1)
+    return results
+
+
+def _exact(label: str, *pairs) -> float:
+    """Raise unless every (kernel, plain) pair is equal element for
+    element (f32 -0 equals 0); -> max |a - b| (uint32 for int32 words)."""
+    import torch
+    err = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f'{label}: kernel differs from plain '
+                                 f'({a.shape} {a.dtype} vs {b.shape} '
+                                 f'{b.dtype}, {int((a != b).sum())} values)')
+        if a.numel():
+            err = max(err, int_err(a, b) if a.dtype == torch.int32
+                      else float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
+    """The six kernels of the per-client API against their plain versions
+    on k clients' flat (n,) vectors: coordinates 0 and 1 are g = 0 and
+    g = -0, but client 1 (when k > 1) has a constant |g| (knob step 0); mod_ok
+    alternates 1, 0 over the clients.  Also the packers at 32 bits on
+    arbitrary words.  Client 0 is timed when ``timed``."""
+    import torch
+    from repro_torch.core.quantize import knob_step
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.wire import format as fmt
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((k, n), generator=gen, device=dev) * 0.01
+    g[:, 0], g[:, 1] = 0.0, -0.0
+    if k > 1:
+        g[1] = -0.25
+    rand = torch.rand((k, n), generator=gen, device=dev)
+    gbar = torch.rand((n,), generator=gen, device=dev) * 0.01
+    a = g.abs()
+    gmin, gmax = a.amin(1), a.amax(1)
+    mod_ok = (torch.arange(k, device=dev) % 2 == 0).to(torch.float32)
+    weight = torch.linspace(0.5, 2.0, k, device=dev)
+    err = dict.fromkeys(kernels_on('api'), 0.0)
+    for i in range(k):
+        at = f'k={k} n={n} bits={bits} client {i}'
+        lo, hi, mok, w = (x[i:i + 1] for x in (gmin, gmax, mod_ok, weight))
+        sign, qidx = ops.stochastic_quantize_flat(g[i], rand[i], lo, hi,
+                                                  bits)
+        rsign, rqidx = ref.quantize(g[i], rand[i], lo, hi, bits)
+        err['quantize'] = max(err['quantize'], _exact(
+            f'quantize {at}', (sign, rsign), (qidx, rqidx)))
+        if bool((sign[:2][g[i, :2] == 0] != 0).any()):
+            raise AssertionError(f'quantize {at}: g = +-0 gave sign '
+                                 f'{sign[:2].tolist()}, not 0')
+        out = ops.dequant_compensate_flat(sign, qidx, gbar, lo, hi, mok, w,
+                                          bits)
+        err['dequant'] = max(err['dequant'], _exact(
+            f'dequant {at}', (out, ref.dequant(sign, qidx, gbar, lo, hi, mok,
+                                               w, bits))))
+        out = ops.spfl_roundtrip_flat(g[i], rand[i], gbar, lo, hi, mok, w,
+                                      bits)
+        err['roundtrip'] = max(err['roundtrip'], _exact(
+            f'roundtrip {at}', (out, ref.roundtrip(g[i], rand[i], gbar, lo,
+                                                   hi, mok, w, bits))))
+        sbits = fmt.sign_to_bits(sign)
+        sw = ops.pack_bits_flat(sbits, 1)
+        qw = ops.pack_bits_flat(qidx, bits)
+        err['pack_bits'] = max(err['pack_bits'], _exact(
+            f'pack_bits {at}', (sw, ref.pack_bits(sbits, 1)),
+            (qw, ref.pack_bits(qidx, bits))))
+        back = ops.unpack_bits_flat(qw, n, bits)
+        err['unpack_bits'] = max(err['unpack_bits'], _exact(
+            f'unpack_bits {at}', (back, ref.unpack_bits(qw, n, bits)),
+            (back, qidx)))
+        step = knob_step(lo, hi, bits)
+        out = ops.unpack_dequant_flat(sw, qw, gbar, lo, hi, mok, w, n, bits)
+        err['unpack_dequant'] = max(err['unpack_dequant'], _exact(
+            f'unpack_dequant {at}', (out, ref.unpack_dequant(
+                sw, qw, gbar, lo, step, mok, w, n, bits))))
+    words = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    packed = ops.pack_bits_flat(words, 32)
+    _exact(f'pack_bits n={n} bits=32', (packed, ref.pack_bits(words, 32)))
+    _exact(f'unpack_bits n={n} bits=32',
+           (ops.unpack_bits_flat(packed, n, 32), words))
+    if not timed:
+        return None
+
+    groups = fmt.n_groups(n)
+    planes = groups * bits * 4                      # knob word bytes
+    results = {
+        'quantize': dict(bytes=n * 8 + 8 + n * 5,
+                         units=dict(coordinate=n)),
+        'dequant': dict(bytes=n * 9 + 16 + n * 4,
+                        units=dict(coordinate=n)),
+        'roundtrip': dict(bytes=n * 12 + 16 + n * 4,
+                          units=dict(coordinate=n)),
+        'pack_bits': dict(bytes=n * 4 + planes,
+                          units=dict(lane=groups * 32,
+                                     plane=groups * 32 * bits,
+                                     word=groups * bits)),
+        'unpack_bits': dict(bytes=planes + n * 4,
+                            units=dict(coordinate=n, plane=n * bits)),
+        'unpack_dequant': dict(bytes=groups * 4 + planes + n * 4 + 16
+                               + n * 4,
+                               units=dict(coordinate=n, plane=n * bits)),
+    }
+    for name in results:
+        results[name]['max_abs_err'] = err[name]
+    # client 0 (mod_ok = 1), through the C entry points so that the timing
+    # holds no wrapper overhead and no launch is counted
+    lo, hi, mok, w = (x[0:1] for x in (gmin, gmax, mod_ok, weight))
+    step = knob_step(lo, hi, bits)
+    g0, r0 = g[0], rand[0]
+    sign, qidx = ref.quantize(g0, r0, lo, hi, bits)
+    sw = ref.pack_bits(fmt.sign_to_bits(sign), 1)
+    qw = ref.pack_bits(qidx, bits)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    s8 = torch.empty((n,), dtype=torch.int8, device=dev)
+    q32 = torch.empty((n,), dtype=torch.int32, device=dev)
+    wout = torch.empty_like(qw)
+    p = lambda t: t.data_ptr()
+    launches = {
+        'quantize': ((p(g0), p(r0), p(lo), p(hi), p(s8), p(q32), n, bits),
+                     lambda: ref.quantize(g0, r0, lo, hi, bits)),
+        'dequant': ((p(sign), p(qidx), p(gbar), p(lo), p(hi), p(mok), p(w),
+                     p(out), n, bits),
+                    lambda: ref.dequant(sign, qidx, gbar, lo, hi, mok, w,
+                                        bits)),
+        'roundtrip': ((p(g0), p(r0), p(gbar), p(lo), p(hi), p(mok), p(w),
+                       p(out), n, bits),
+                      lambda: ref.roundtrip(g0, r0, gbar, lo, hi, mok, w,
+                                            bits)),
+        'pack_bits': ((p(qidx), p(wout), n, bits),
+                      lambda: ref.pack_bits(qidx, bits)),
+        'unpack_bits': ((p(qw), p(q32), n, bits),
+                        lambda: ref.unpack_bits(qw, n, bits)),
+        'unpack_dequant': ((p(sw), p(qw), p(gbar), p(lo), p(step), p(mok),
+                            p(w), p(out), n, bits),
+                           lambda: ref.unpack_dequant(sw, qw, gbar, lo, step,
+                                                      mok, w, n, bits)),
+    }
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (args, plain) in launches.items():
+        fn = build.kernel(name)
+        results[name]['ms'] = device_ms(lambda: fn(*args, stream))
+        results[name]['plain_ms'] = device_ms(plain, reps=20, inner=1)
     return results
 
 
@@ -331,10 +522,83 @@ def run_sim(fl, rounds: int, label: str):
     print(f'{label} launches: {json.dumps(counts)}', flush=True)
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f'{label}: non-finite loss {hist.loss}')
-    missing = [name for name, c in counts.items() if c <= 0]
+    missing = [name for name in kernels_on('round') if counts[name] <= 0]
     if missing:
         raise AssertionError(f'{label}: kernels never launched: {missing}')
     return sim, hist, counts
+
+
+def run_kernel_api(sim) -> dict:
+    """Phase 6: the per-client kernel API on the main path's data.  The
+    K client gradients of ``sim`` at its parameters, per-client ranges
+    min/max |g|, the simulator's gbar, seeded uniforms, mod_ok alternating
+    1, 0 and a linspace of weights; per client k, bit for bit:
+
+    (a) pack_bits(qidx) equals the knob words of quantize_pack;
+    (b) pack_bits(sign_to_bits(sign), 1) equals its sign words;
+    (c) unpack_bits(pack_bits(qidx)) equals qidx;
+    (d) roundtrip equals dequant(quantize());
+    (e) the f32 sum k = 0..K-1 of unpack_dequant on each client's
+        quantize_pack words equals spfl_aggregate_packed's sum.
+
+    -> the launch counts of the phase (reset just before)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+
+    _, grads = sim.client_grads(sim.params)
+    grads = grads.detach().contiguous()
+    k, n = grads.shape
+    dev = grads.device
+    a = grads.abs()
+    gmin, gmax = a.amin(1), a.amax(1)
+    gbar = sim.gbar
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rand = torch.rand((k, n), generator=gen, device=dev)
+    mod_ok = (torch.arange(k, device=dev) % 2 == 0).to(torch.float32)
+    weight = torch.linspace(0.5, 2.0, k, device=dev)
+    ops.reset_launch_counts()
+    sw, qw = ops.quantize_pack_flat(grads, rand, gmin, gmax, BITS)
+    failed = []
+    acc = None
+    for i in range(k):
+        args = (gmin[i], gmax[i], mod_ok[i], weight[i])
+        sign, qidx = ops.stochastic_quantize_flat(grads[i], rand[i],
+                                                  gmin[i], gmax[i], BITS)
+        words = ops.pack_bits_flat(qidx, BITS)
+        checks = {
+            'a': torch.equal(words, qw[i]),
+            'b': torch.equal(ops.pack_bits_flat(fmt.sign_to_bits(sign), 1),
+                             sw[i]),
+            'c': torch.equal(ops.unpack_bits_flat(words, n, BITS), qidx),
+            'd': torch.equal(
+                ops.spfl_roundtrip_flat(grads[i], rand[i], gbar, *args,
+                                        BITS),
+                ops.dequant_compensate_flat(sign, qidx, gbar, *args, BITS)),
+        }
+        failed += [f'({c}) client {i}' for c, ok in checks.items() if not ok]
+        contrib = ops.unpack_dequant_flat(sw[i], qw[i], gbar, *args, n, BITS)
+        acc = contrib if i == 0 else acc + contrib
+    agg, _ = ops.spfl_aggregate_packed(
+        sw, qw, gbar, gmin, gmax, mod_ok, weight,
+        torch.ones(k, dtype=torch.bool, device=dev), n, BITS)
+    if not torch.equal(acc, agg):
+        failed.append(f'(e) {int((acc != agg).sum())} of {n} coordinates')
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    print(f'kernel API (K={k}, l={n}): launches {json.dumps(counts)}',
+          flush=True)
+    if failed:
+        raise AssertionError(f'kernel API identities fail: {failed}')
+    if not bool(torch.isfinite(acc).all()):
+        raise AssertionError('kernel API: non-finite client sum')
+    short = [name for name in kernels_on('api') if counts[name] < k]
+    if short:
+        raise AssertionError(f'kernel API: launched fewer than K={k} '
+                             f'times: {short}')
+    print(f'kernel API: identities (a)-(e) hold bit for bit for all {k} '
+          'clients', flush=True)
+    return counts
 
 
 def main() -> int:
@@ -366,6 +630,9 @@ def main() -> int:
     l_main = 62006
     results = check_kernels(K, l_main, timed=True, seed=1)
     check_kernels(3, 1007, timed=False, seed=2)
+    results.update(check_api_kernels(2, l_main, BITS, timed=True, seed=5))
+    for bits in (1, BITS, 16):
+        check_api_kernels(3, 1007, bits, timed=False, seed=6 + bits)
     check_transport(K, l_main, seed=3)
     check_transport(3, 1007, seed=4)
     print('kernels and transport agree with their plain versions', flush=True)
@@ -394,6 +661,8 @@ def main() -> int:
     if flips <= 0 or crc_fail <= 0:
         raise AssertionError('the low-power run drew no flips or no '
                              'CRC failures')
+    # 6. the per-client kernel API on the main path's data
+    api_counts = run_kernel_api(sim)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -402,21 +671,31 @@ def main() -> int:
         return fail(f'imported {leaked}')
 
     from repro_torch.kernels import sass
+    sass_mixes = sass_unit_mixes(build.KERNELS)
+    launches = {'round': counts, 'api': api_counts}
     rows = []
-    for name, (src, replaces) in MAIN_KERNEL_SOURCES.items():
+    for name, kern in build.TABLE.items():
         r = results[name]
         bytes_ms = r['bytes'] / HBM_BYTES_PER_S * 1e3
-        clocks = sass.resource_clocks(r['mix'])
+        ops = launch_mix(FUNCTION_OPS[name], r['units'])
+        clocks = sass.resource_clocks(ops)
         ops_ms = max(clocks.values()) / (N_SM * SM_CLOCK_HZ) * 1e3
-        print(f'{name}: {r["bytes"]} B -> {bytes_ms:.7f} ms; '
-              f'{json.dumps(r["mix"], sort_keys=True)} thread-instructions '
-              f'-> {ops_ms:.7f} ms ({max(clocks, key=clocks.get)}-bound)',
-              flush=True)
+        line = (f'{name}: {r["bytes"]} B -> {bytes_ms:.7f} ms; function '
+                f'{json.dumps(ops, sort_keys=True)} operations -> '
+                f'{ops_ms:.7f} ms ({max(clocks, key=clocks.get)}-bound)')
+        if name in sass_mixes:
+            mix = launch_mix(sass_mixes[name], r['units'])
+            line += (f'; SASS {json.dumps(mix, sort_keys=True)} '
+                     f'thread-instructions, {sum(mix.values())} = '
+                     f'{sum(mix.values()) / sum(ops.values()):.2f} x the '
+                     'function')
+        print(line, flush=True)
         rows.append({
-            'name': name, 'route': 'cuda', 'source': src,
-            'replaces': replaces, 'launches': counts[name],
-            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-            'plain_ms': r['plain_ms'], 'bound_ms': max(bytes_ms, ops_ms),
+            'name': name, 'route': 'cuda', 'source': build.repo_source(name),
+            'replaces': kern.replaces, 'launches': launches[kern.path][name],
+            'path': kern.path, 'max_abs_err': r['max_abs_err'],
+            'ms': r['ms'], 'plain_ms': r['plain_ms'],
+            'bound_ms': max(bytes_ms, ops_ms),
             'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
             'library_ms': None})
     print(card, flush=True)

@@ -4,9 +4,10 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, no ninja.  Libraries go to
 ``build/torch_kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  All missing libraries of one call are compiled in parallel
-(one ``nvcc`` process per source).
+source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  All missing
+libraries of one call are compiled in parallel (one ``nvcc`` process per
+source).
 
 The flags leave ``--use_fast_math`` off: float division must stay IEEE
 (nvcc's default ``-prec-div=true``) or the stochastic quantizer's knob
@@ -20,14 +21,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, NamedTuple, Tuple
 
 CSRC = Path(__file__).resolve().with_name('csrc')
-BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'torch_kernels'
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / 'build' / 'torch_kernels'
 ARCH = 'arch=compute_90a,code=sm_90a'
 NVCC_FLAGS = ('-gencode', ARCH, '-std=c++17', '-O3', '-shared',
               '-Xcompiler', '-fPIC')
@@ -37,19 +40,48 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint32
 
-# kernel name -> (C entry point, argtypes); every entry returns the
-# cudaError_t of its launch (cudaGetLastError) as an int
-SIGNATURES = {
-    'quantize_pack': ('spfl_quantize_pack',
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    'spfl_accumulate': ('spfl_accumulate',
-                        [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _P]),
-    'corrupt_fold': ('spfl_corrupt_fold',
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _P]),
-    'fold_words': ('spfl_fold_words', [_P, _LL, _P, _I, _I, _P]),
+
+class Kernel(NamedTuple):
+    """One hand-written kernel: its ``csrc/<name>.cu`` source exports
+    ``entry``."""
+    entry: str         # C entry point; returns its launch's cudaError_t
+    argtypes: list
+    path: str          # 'round': the FL round; 'api': the *_flat kernel API
+    replaces: str      # the Pallas body it ports, as repo file:line
+
+
+_PK = 'src/repro/wire/pack_kernel.py'
+_QK = 'src/repro/kernels/quantize_kernel.py'
+TABLE = {
+    'quantize_pack': Kernel('spfl_quantize_pack',
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                            'round', f'{_PK}:133'),
+    'spfl_accumulate': Kernel('spfl_accumulate',
+                              [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _I, _I, _P],
+                              'round', f'{_PK}:169'),
+    'corrupt_fold': Kernel('spfl_corrupt_fold',
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _P],
+                           'round', f'{_PK}:220'),
+    'fold_words': Kernel('spfl_fold_words', [_P, _LL, _P, _I, _I, _P],
+                         'round', f'{_PK}:263'),
+    'quantize': Kernel('spfl_quantize', [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+                       'api', f'{_QK}:70'),
+    'dequant': Kernel('spfl_dequant',
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                      'api', f'{_QK}:80'),
+    'roundtrip': Kernel('spfl_roundtrip',
+                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                        'api', f'{_QK}:96'),
+    'pack_bits': Kernel('spfl_pack_bits', [_P, _P, _I, _I, _P],
+                        'api', f'{_PK}:125'),
+    'unpack_bits': Kernel('spfl_unpack_bits', [_P, _P, _I, _I, _P],
+                          'api', f'{_PK}:129'),
+    'unpack_dequant': Kernel('spfl_unpack_dequant',
+                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                             'api', f'{_PK}:159'),
 }
-KERNELS = tuple(SIGNATURES)
+KERNELS = tuple(TABLE)
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 
@@ -70,8 +102,21 @@ def source(name: str) -> Path:
     return CSRC / f'{name}.cu'
 
 
+def repo_source(name: str) -> str:
+    """The source of kernel ``name`` as a path in the repository."""
+    return source(name).relative_to(ROOT).as_posix()
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
+    """The library of kernel ``name``, named by a hash of its source, the
+    ``csrc/`` headers that the source includes and the flags."""
+    text = source(name).read_bytes()
+    headers = [(CSRC / h.decode()).read_bytes()
+               for h in _LOCAL_INCLUDE.findall(text)]
+    digest = hashlib.sha256(b'\0'.join([text, *headers])
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'{name}-{digest[:16]}.so'
 
@@ -111,9 +156,8 @@ def kernel(name: str):
     """The C entry point of kernel ``name`` (built at first use)."""
     if name not in _loaded:
         lib = ctypes.CDLL(str(build([name])[name]))
-        entry, argtypes = SIGNATURES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
+        fn = getattr(lib, TABLE[name].entry)
+        fn.argtypes = TABLE[name].argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = (lib, fn)       # the CDLL stays referenced
     return _loaded[name][1]

@@ -1,5 +1,8 @@
 """Wrappers around the hand-written CUDA kernels (the port of
-``repro.kernels.ops`` for the four kernels of the packed, bit-level round).
+``repro.kernels.ops``): the four kernels of the packed, bit-level round,
+and the per-client kernel API (``*_flat``: the unfused quantizer and
+dequantizer, the fused analytic round trip, the bit-plane packers and
+the single-client packed decode).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then:
@@ -87,8 +90,166 @@ def _col(x, k: int, dtype, device) -> Tensor:
     return torch.as_tensor(x, device=device).to(dtype).reshape(k).contiguous()
 
 
+def _scalar(x, device) -> Tensor:
+    """One client's scalar (a number or a one-element tensor) as a
+    one-element f32 tensor on ``device``: the kernel reads it by pointer,
+    so a card tensor is never read back to the host."""
+    return _col(x, 1, torch.float32, device)
+
+
+def _flat(t: Tensor, name: str) -> Tensor:
+    if t.dim() != 1:
+        raise ValueError(f'{name}: expected a flat (n,) tensor, '
+                         f'got shape {tuple(t.shape)}')
+    return t
+
+
+def _bits(bits: int, most: int) -> None:
+    if not 1 <= bits <= most:
+        raise ValueError(f'bits must be in [1, {most}], got {bits}')
+
+
 # ---------------------------------------------------------------------------
-# client side: fused quantize + pack
+# the per-client kernel API (one client's flat vector per call)
+# ---------------------------------------------------------------------------
+
+def stochastic_quantize_flat(g: Tensor, rand: Tensor, gmin, gmax,
+                             bits: int) -> Tuple[Tensor, Tensor]:
+    """One client's flat (n,) gradient (cast to f32) and uniforms ->
+    (sign int8 (n,) in {-1, 0, +1}, knob index int32 (n,)), eq. (8)."""
+    _bits(bits, 16)
+    g = _flat(g, 'g').to(torch.float32)
+    rand = rand.to(torch.float32)
+    _expect(rand, 'rand', torch.float32, g.shape)
+    gmin, gmax = _scalar(gmin, g.device), _scalar(gmax, g.device)
+    if not _on_card(g, rand, gmin, gmax):
+        return ref.quantize(g, rand, gmin, gmax, bits)
+    _contig(g, 'g'), _contig(rand, 'rand')
+    n = g.shape[0]
+    sign = torch.empty((n,), dtype=torch.int8, device=g.device)
+    qidx = torch.empty((n,), dtype=torch.int32, device=g.device)
+    _launch('quantize', g, g.data_ptr(), rand.data_ptr(), gmin.data_ptr(),
+            gmax.data_ptr(), sign.data_ptr(), qidx.data_ptr(), n, bits)
+    return sign, qidx
+
+
+def dequant_compensate_flat(sign: Tensor, qidx: Tensor, gbar: Tensor,
+                            gmin, gmax, mod_ok, weight, bits: int) -> Tensor:
+    """One client's weighted, compensated contribution from its sign and
+    knob indices, eq. (15)-(17): (w * s) * (mod_ok ? gmin + q * step :
+    gbar), (n,) f32, with the knob step computed in the kernel."""
+    _bits(bits, 16)
+    sign = _flat(sign, 'sign').to(torch.int8)
+    qidx = qidx.to(torch.int32)
+    gbar = gbar.to(torch.float32)
+    _expect(qidx, 'qidx', torch.int32, sign.shape)
+    _expect(gbar, 'gbar', torch.float32, sign.shape)
+    dev = sign.device
+    gmin, gmax = _scalar(gmin, dev), _scalar(gmax, dev)
+    mod_ok, weight = _scalar(mod_ok, dev), _scalar(weight, dev)
+    if not _on_card(sign, qidx, gbar, gmin):
+        return ref.dequant(sign, qidx, gbar, gmin, gmax, mod_ok, weight,
+                           bits)
+    _contig(sign, 'sign'), _contig(qidx, 'qidx'), _contig(gbar, 'gbar')
+    n = sign.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch('dequant', sign, sign.data_ptr(), qidx.data_ptr(),
+            gbar.data_ptr(), gmin.data_ptr(), gmax.data_ptr(),
+            mod_ok.data_ptr(), weight.data_ptr(), out.data_ptr(), n, bits)
+    return out
+
+
+def spfl_roundtrip_flat(g: Tensor, rand: Tensor, gbar: Tensor, gmin, gmax,
+                        mod_ok, weight, bits: int) -> Tensor:
+    """Fused client + PS pass of one client: the weighted, compensated
+    contribution of ``dequant_compensate_flat(*stochastic_quantize_flat())``
+    in one pass, with no sign or knob intermediate; g may be bf16."""
+    _bits(bits, 16)
+    g = _flat(g, 'g').to(torch.float32)
+    rand, gbar = rand.to(torch.float32), gbar.to(torch.float32)
+    _expect(rand, 'rand', torch.float32, g.shape)
+    _expect(gbar, 'gbar', torch.float32, g.shape)
+    dev = g.device
+    gmin, gmax = _scalar(gmin, dev), _scalar(gmax, dev)
+    mod_ok, weight = _scalar(mod_ok, dev), _scalar(weight, dev)
+    if not _on_card(g, rand, gbar, gmin):
+        return ref.roundtrip(g, rand, gbar, gmin, gmax, mod_ok, weight,
+                             bits)
+    _contig(g, 'g'), _contig(rand, 'rand'), _contig(gbar, 'gbar')
+    n = g.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch('roundtrip', g, g.data_ptr(), rand.data_ptr(), gbar.data_ptr(),
+            gmin.data_ptr(), gmax.data_ptr(), mod_ok.data_ptr(),
+            weight.data_ptr(), out.data_ptr(), n, bits)
+    return out
+
+
+def pack_bits_flat(values: Tensor, bits: int) -> Tensor:
+    """(n,) integer values -> (ceil(n/32) * bits,) payload words, int32
+    patterns in the canonical layout; bits at and above ``bits`` are
+    dropped."""
+    _bits(bits, 32)
+    values = fmt.to_words(_flat(values, 'values'))
+    if not _on_card(values):
+        return ref.pack_bits(values, bits)
+    _contig(values, 'values')
+    n = values.shape[0]
+    words = torch.empty((fmt.payload_words(n, bits),), dtype=torch.int32,
+                        device=values.device)
+    _launch('pack_bits', values, values.data_ptr(), words.data_ptr(), n,
+            bits)
+    return words
+
+
+def unpack_bits_flat(words: Tensor, n: int, bits: int) -> Tensor:
+    """Inverse of :func:`pack_bits_flat` -> (n,) values as int32 patterns
+    (the reference's uint32 values)."""
+    _bits(bits, 32)
+    words = fmt.to_words(_flat(words, 'words'))
+    _expect(words, 'words', torch.int32, (fmt.payload_words(n, bits),))
+    if not _on_card(words):
+        return ref.unpack_bits(words, n, bits)
+    _contig(words, 'words')
+    values = torch.empty((n,), dtype=torch.int32, device=words.device)
+    _launch('unpack_bits', words, words.data_ptr(), values.data_ptr(), n,
+            bits)
+    return values
+
+
+def unpack_dequant_flat(sign_words: Tensor, qidx_words: Tensor,
+                        gbar: Tensor, gmin, gmax, mod_ok, weight, n: int,
+                        bits: int) -> Tensor:
+    """Fused PS decode of one client from its packed payload words:
+    w * (s * (mod_ok ? gmin + q * step : gbar)), (n,) f32.  The knob step
+    is computed here with ``quantize.knob_step`` (IEEE division)."""
+    _bits(bits, 16)
+    groups = fmt.n_groups(n)
+    sign_words = fmt.to_words(_flat(sign_words, 'sign_words'))
+    qidx_words = fmt.to_words(_flat(qidx_words, 'qidx_words'))
+    _expect(sign_words, 'sign_words', torch.int32, (groups,))
+    _expect(qidx_words, 'qidx_words', torch.int32, (groups * bits,))
+    gbar = gbar.to(torch.float32)
+    _expect(gbar, 'gbar', torch.float32, (n,))
+    dev = sign_words.device
+    gmin = _scalar(gmin, dev)
+    step = knob_step(gmin, _scalar(gmax, dev), bits)
+    mod_ok, weight = _scalar(mod_ok, dev), _scalar(weight, dev)
+    if not _on_card(sign_words, qidx_words, gbar, gmin):
+        return ref.unpack_dequant(sign_words, qidx_words, gbar, gmin, step,
+                                  mod_ok, weight, n, bits)
+    for t, name in ((sign_words, 'sign_words'), (qidx_words, 'qidx_words'),
+                    (gbar, 'gbar')):
+        _contig(t, name)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch('unpack_dequant', sign_words, sign_words.data_ptr(),
+            qidx_words.data_ptr(), gbar.data_ptr(), gmin.data_ptr(),
+            step.data_ptr(), mod_ok.data_ptr(), weight.data_ptr(),
+            out.data_ptr(), n, bits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# client side: fused quantize + pack (K clients)
 # ---------------------------------------------------------------------------
 
 def quantize_pack_flat(g: Tensor, rand: Tensor, gmin, gmax, bits: int

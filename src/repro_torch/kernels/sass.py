@@ -206,6 +206,35 @@ MAIN_PATHS = {
         'word': ((0x00e0, 0x0180),),
         'warp0_thread': ((0x02e0, 0x0480),),
     }),
+    # the per-client kernel API: both float divisions on their fast path,
+    # step > 0, mod_ok > 0; the bit-plane loops are not unrolled, so one
+    # trip of each is one plane
+    'quantize': ('2461f1814426022b', {
+        'coordinate': ((0x0000, 0x0270), (0x02b0, 0x0390),
+                       (0x03d0, 0x0560)),
+    }),
+    'dequant': ('90d4688e66500dc3', {
+        'coordinate': ((0x0000, 0x01d0), (0x0210, 0x03e0)),
+    }),
+    'roundtrip': ('4d6e023e7f620eca', {
+        'coordinate': ((0x0000, 0x0270), (0x02c0, 0x03a0),
+                       (0x03f0, 0x0610)),
+    }),
+    'pack_bits': ('f44bd7609c68f374', {
+        # every lane of a group (tail lanes too): set-up, load, exit test;
+        # per lane and plane: one ballot trip; per word: the store
+        'lane': ((0x0000, 0x0260), (0x0300, 0x0300)),
+        'plane': ((0x0270, 0x02f0),),
+        'word': ((0x0310, 0x03b0),),
+    }),
+    'unpack_bits': ('cb89fc041d28a4ab', {
+        'coordinate': ((0x0000, 0x01b0), (0x0280, 0x02c0)),
+        'plane': ((0x01c0, 0x0270),),
+    }),
+    'unpack_dequant': ('bd52e653673db8cf', {
+        'coordinate': ((0x0000, 0x0280), (0x0350, 0x04a0)),
+        'plane': ((0x0290, 0x0340),),
+    }),
 }
 
 

@@ -1,0 +1,237 @@
+"""The port's per-client kernel API (``repro_torch.kernels.ops`` ``*_flat``)
+on CPU tensors — where each wrapper runs the plain version of its CUDA
+kernel — against the reference's own wrappers with the Pallas kernels in
+interpret mode, on the reference tests' grids (tests/test_kernels.py,
+tests/test_wire.py).  Inputs are made with numpy from a seed and the
+ranges pass to both sides as ``np.float32``.
+
+Contract: signs, knob indices, payload words and unpacked values
+bit-exact; f32 outputs within the reference tests' own tolerances, 1e-6
+for dequant and unpack_dequant and 1e-5 for the round trip (the reference
+computes the knob step inside its kernels, where XLA may contract
+gmin + q * step into an FMA).  The identities that ``chip_smoke.py``
+phase 6 checks on the card hold bit for bit between the plain versions.
+The CUDA kernels themselves are held to the same plain versions on the
+card by ``chip_smoke.py`` phase 3."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_parity import words_np
+from repro.kernels import ops
+from repro_torch.kernels import ops as tops
+from repro_torch.wire import format as tfmt
+
+API = ('quantize', 'dequant', 'roundtrip', 'pack_bits', 'unpack_bits',
+       'unpack_dequant')
+
+
+def _grad(n, seed):
+    """g (with g = 0 and g = -0 at coordinates 0 and 1), uniforms, gbar,
+    and the range (min |g|, max |g|) as np.float32."""
+    rng = np.random.RandomState(seed)
+    g = (rng.randn(n) * 0.03).astype(np.float32)
+    g[:2] = [0.0, -0.0]
+    rand = rng.uniform(0, 1, n).astype(np.float32)
+    gbar = (np.abs(rng.randn(n)) * 0.03).astype(np.float32)
+    a = np.abs(g)
+    return g, rand, gbar, np.float32(a.min()), np.float32(a.max())
+
+
+def _t(x):
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize('n', [64, 1000, 65539])
+@pytest.mark.parametrize('bits', [1, 3, 8])
+def test_stochastic_quantize_matches_pallas(n, bits):
+    g, rand, _, gmin, gmax = _grad(n, seed=n + bits)
+    s, q = ops.stochastic_quantize_flat(jnp.asarray(g), jnp.asarray(rand),
+                                        gmin, gmax, bits, interpret=True)
+    ts, tq = tops.stochastic_quantize_flat(_t(g), _t(rand), gmin, gmax, bits)
+    assert ts.dtype == torch.int8 and tq.dtype == torch.int32
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(q))
+    assert ts[:2].tolist() == [0, 0]             # sign(0) = sign(-0) = 0
+
+
+@pytest.mark.parametrize('bits', [1, 3, 8])
+def test_stochastic_quantize_constant_modulus_matches_pallas(bits):
+    """|g| constant: gmin = gmax, knob step 0, every knob index 0."""
+    n = 1000
+    g = np.where(np.random.RandomState(bits).rand(n) < 0.5, -0.25,
+                 0.25).astype(np.float32)
+    rand = np.random.RandomState(bits + 1).uniform(0, 1, n).astype(np.float32)
+    lo = hi = np.float32(0.25)
+    s, q = ops.stochastic_quantize_flat(jnp.asarray(g), jnp.asarray(rand),
+                                        lo, hi, bits, interpret=True)
+    ts, tq = tops.stochastic_quantize_flat(_t(g), _t(rand), lo, hi, bits)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(q))
+    assert not tq.any()
+
+
+@pytest.mark.parametrize('n', [1000, 65543])
+@pytest.mark.parametrize('bits', [1, 3, 8])
+@pytest.mark.parametrize('mod_ok', [0.0, 1.0])
+def test_dequant_compensate_matches_pallas(n, bits, mod_ok):
+    _, _, gbar, gmin, gmax = _grad(n, seed=bits)
+    rng = np.random.RandomState(n + bits)
+    sign = rng.randint(-1, 2, n).astype(np.int8)
+    qidx = rng.randint(0, 2 ** bits, n).astype(np.int32)
+    out = ops.dequant_compensate_flat(jnp.asarray(sign), jnp.asarray(qidx),
+                                      jnp.asarray(gbar), gmin, gmax, mod_ok,
+                                      0.77, bits, interpret=True)
+    tout = tops.dequant_compensate_flat(_t(sign), _t(qidx), _t(gbar), gmin,
+                                        gmax, mod_ok, 0.77, bits)
+    assert tout.dtype == torch.float32
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [4096, 70000])
+def test_roundtrip_matches_pallas(dtype, n):
+    g, rand, gbar, _, _ = _grad(n, seed=7)
+    jg, tg = jnp.asarray(g), _t(g)
+    if dtype == 'bfloat16':
+        jg, tg = jg.astype(jnp.bfloat16), tg.to(torch.bfloat16)
+    g32 = np.asarray(jg.astype(jnp.float32))
+    np.testing.assert_array_equal(tg.float().numpy(), g32)   # same rounding
+    gmin, gmax = np.float32(np.abs(g32).min()), np.float32(np.abs(g32).max())
+    out = ops.spfl_roundtrip_flat(jg, jnp.asarray(rand), jnp.asarray(gbar),
+                                  gmin, gmax, 1.0, 1.25, 3, interpret=True)
+    tout = tops.spfl_roundtrip_flat(tg, _t(rand), _t(gbar), gmin, gmax, 1.0,
+                                    1.25, 3)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('bits,n,wide', [
+    (bits, n, False) for bits in (1, 3, 8) for n in (64, 1000, 24581)
+] + [(32, 1000, False), (3, 1000, True)])
+def test_pack_unpack_bits_match_pallas(bits, n, wide):
+    """``wide`` values carry bits above ``bits``, which the pack drops."""
+    rng = np.random.RandomState(n + bits)
+    top = 2 ** 32 if wide or bits == 32 else 2 ** bits
+    v = rng.randint(0, top, n, dtype=np.uint64).astype(np.uint32)
+    w = ops.pack_bits_flat(jnp.asarray(v), bits, interpret=True)
+    tw = tops.pack_bits_flat(_t(v.astype(np.int64)), bits)
+    assert tw.dtype == torch.int32 and tw.shape == (tfmt.n_groups(n) * bits,)
+    np.testing.assert_array_equal(words_np(tw), np.asarray(w))
+    back = ops.unpack_bits_flat(w, n, bits, interpret=True)
+    tback = tops.unpack_bits_flat(tw, n, bits)
+    assert tback.dtype == torch.int32
+    np.testing.assert_array_equal(words_np(tback), np.asarray(back))
+    if not wide:
+        np.testing.assert_array_equal(words_np(tback), v)
+
+
+@pytest.mark.parametrize('mod_ok', [0.0, 1.0])
+def test_unpack_dequant_matches_pallas(mod_ok):
+    n, bits, weight = 8192 + 7, 3, 1.7
+    g, rand, gbar, gmin, gmax = _grad(n, seed=21)
+    sw, qw = ops.quantize_pack_flat(jnp.asarray(g), jnp.asarray(rand), gmin,
+                                    gmax, bits, interpret=True)
+    out = ops.unpack_dequant_flat(sw, qw, jnp.asarray(gbar), gmin, gmax,
+                                  mod_ok, weight, n, bits, interpret=True)
+    tout = tops.unpack_dequant_flat(
+        _t(np.array(sw).view(np.int32)), _t(np.array(qw).view(np.int32)),
+        _t(gbar), gmin, gmax, mod_ok, weight, n, bits)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize('bits', [1, 3, 8])
+def test_kernel_api_identities_bit_exact(bits):
+    """``chip_smoke.py`` phase 6 at k=3, n=1007 on the plain versions:
+    (a) pack_bits(qidx) = quantize_pack's knob words; (b) the packed sign
+    bits (0 transmits as 1) = its sign words; (c) unpack(pack(qidx)) =
+    qidx; (d) roundtrip = dequant(quantize()); (e) the in-order f32 sum of
+    unpack_dequant = spfl_aggregate_packed's sum.  Client 1 has a
+    constant |g| (knob step 0)."""
+    k, n = 3, 1007
+    rng = np.random.RandomState(bits)
+    g = (rng.randn(k, n) * 0.01).astype(np.float32)
+    g[:, :2] = [0.0, -0.0]
+    g[1] = -0.25
+    g, rand = _t(g), _t(rng.uniform(0, 1, (k, n)).astype(np.float32))
+    gbar = _t((rng.uniform(0, 0.01, n)).astype(np.float32))
+    gmin, gmax = g.abs().amin(1), g.abs().amax(1)
+    mod_ok = torch.tensor([1.0, 0.0, 1.0])
+    weight = torch.linspace(0.5, 2.0, k)
+    sw, qw = tops.quantize_pack_flat(g, rand, gmin, gmax, bits)
+    acc = None
+    for i in range(k):
+        args = (gmin[i], gmax[i], mod_ok[i], weight[i])
+        sign, qidx = tops.stochastic_quantize_flat(g[i], rand[i], gmin[i],
+                                                   gmax[i], bits)
+        words = tops.pack_bits_flat(qidx, bits)
+        assert torch.equal(words, qw[i])                                 # (a)
+        assert torch.equal(
+            tops.pack_bits_flat(tfmt.sign_to_bits(sign), 1), sw[i])      # (b)
+        assert torch.equal(tops.unpack_bits_flat(words, n, bits), qidx)  # (c)
+        assert torch.equal(
+            tops.spfl_roundtrip_flat(g[i], rand[i], gbar, *args, bits),
+            tops.dequant_compensate_flat(sign, qidx, gbar, *args, bits))  # (d)
+        contrib = tops.unpack_dequant_flat(sw[i], qw[i], gbar, *args, n,
+                                           bits)
+        acc = contrib if i == 0 else acc + contrib
+    agg, _ = tops.spfl_aggregate_packed(sw, qw, gbar, gmin, gmax, mod_ok,
+                                        weight, torch.ones(k, dtype=torch.bool),
+                                        n, bits)
+    assert torch.equal(acc, agg)                                          # (e)
+    assert all(tops.launch_counts[name] == 0 for name in API)   # CPU: plain
+
+
+def test_launch_counts_stay_zero_on_the_cpu():
+    tops.reset_launch_counts()
+    g, rand, gbar, gmin, gmax = _grad(100, seed=3)
+    g, rand, gbar = _t(g), _t(rand), _t(gbar)
+    sign, qidx = tops.stochastic_quantize_flat(g, rand, gmin, gmax, 3)
+    tops.dequant_compensate_flat(sign, qidx, gbar, gmin, gmax, 1.0, 1.0, 3)
+    tops.spfl_roundtrip_flat(g, rand, gbar, gmin, gmax, 1.0, 1.0, 3)
+    sw = tops.pack_bits_flat(tfmt.sign_to_bits(sign), 1)
+    qw = tops.pack_bits_flat(qidx, 3)
+    tops.unpack_bits_flat(qw, 100, 3)
+    tops.unpack_dequant_flat(sw, qw, gbar, gmin, gmax, 1.0, 1.0, 100, 3)
+    assert set(API) <= set(tops.launch_counts)
+    assert all(c == 0 for c in tops.launch_counts.values())
+
+
+@pytest.mark.parametrize('call,error', [
+    (lambda: tops.unpack_bits_flat(torch.zeros(9, dtype=torch.int32), 64, 3),
+     ValueError),                                      # 2 groups x 3 = 6
+    (lambda: tops.unpack_dequant_flat(
+        torch.zeros(2, dtype=torch.int32), torch.zeros(5, dtype=torch.int32),
+        torch.zeros(64), 0.0, 1.0, 1.0, 1.0, 64, 3), ValueError),
+    (lambda: tops.unpack_dequant_flat(
+        torch.zeros(3, dtype=torch.int32), torch.zeros(6, dtype=torch.int32),
+        torch.zeros(64), 0.0, 1.0, 1.0, 1.0, 64, 3), ValueError),
+    (lambda: tops.stochastic_quantize_flat(torch.zeros(8), torch.zeros(8),
+                                           0.0, 1.0, 0), ValueError),
+    (lambda: tops.stochastic_quantize_flat(torch.zeros(8), torch.zeros(8),
+                                           0.0, 1.0, 17), ValueError),
+    (lambda: tops.dequant_compensate_flat(
+        torch.zeros(8, dtype=torch.int8), torch.zeros(8, dtype=torch.int32),
+        torch.zeros(8), 0.0, 1.0, 1.0, 1.0, 17), ValueError),
+    (lambda: tops.spfl_roundtrip_flat(torch.zeros(8), torch.zeros(8),
+                                      torch.zeros(8), 0.0, 1.0, 1.0, 1.0, 0),
+     ValueError),
+    (lambda: tops.pack_bits_flat(torch.zeros(8, dtype=torch.int32), 33),
+     ValueError),
+    (lambda: tops.unpack_bits_flat(torch.zeros(0, dtype=torch.int32), 0, 0),
+     ValueError),
+    (lambda: tops.stochastic_quantize_flat(torch.zeros(2, 4),
+                                           torch.zeros(2, 4), 0.0, 1.0, 3),
+     ValueError),                                      # not flat
+    (lambda: tops.stochastic_quantize_flat(torch.zeros(8), torch.zeros(9),
+                                           0.0, 1.0, 3), ValueError),
+    (lambda: tops.dequant_compensate_flat(
+        torch.zeros(8, dtype=torch.int8), torch.zeros(8, dtype=torch.int32),
+        torch.zeros(7), 0.0, 1.0, 1.0, 1.0, 3), ValueError),
+])
+def test_wrappers_reject_bad_inputs(call, error):
+    with pytest.raises(error):
+        call()

@@ -1,9 +1,15 @@
-"""The SASS instruction-mix reader behind the kernels' operation bounds
-(``repro_torch.kernels.sass``), on a listing in ``cuobjdump -sass``'s
-format: the disassembler itself needs the CUDA toolkit."""
+"""The SASS instruction-mix reader (``repro_torch.kernels.sass``), on a
+listing in ``cuobjdump -sass``'s format: the disassembler itself needs the
+CUDA toolkit.  Also the kernel table of ``kernels.build`` and the
+function operation counts that ``chip_smoke.py`` bounds each kernel by."""
+import importlib.util
+import pathlib
+
 import pytest
 
-from repro_torch.kernels import sass
+from repro_torch.kernels import build, sass
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 LISTING = """
 \tcode for sm_90a
@@ -72,3 +78,61 @@ def test_every_pipe_has_a_rate_and_unknown_opcodes_only_issue():
     assert set(sass.PIPE_OF.values()) <= set(sass.PIPE_RATES)
     assert sass.pipe('IMAD') == 'imad' and sass.pipe('LOP3') == 'alu'
     assert sass.pipe('STG') == 'other' and sass.pipe('VOTE') == 'other'
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  ROOT / 'chip_smoke.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize('name', build.KERNELS)
+def test_every_kernel_has_a_source_main_path_and_unit_mix(name):
+    """Each kernel of ``build.TABLE`` has its own source, a path, the
+    Pallas body it replaces, SASS spans on its main path with the
+    fingerprint of the build they were read from, and the operations of
+    its function in ``chip_smoke.FUNCTION_OPS`` per units of those spans."""
+    cs = _chip_smoke()
+    kern = build.TABLE[name]
+    assert build.source(name).is_file()
+    assert (ROOT / build.repo_source(name)) == build.source(name)
+    assert kern.path in ('round', 'api')
+    path, line = kern.replaces.split(':')
+    assert 'kernel' in (ROOT / path).read_text().splitlines()[int(line) - 1]
+    fingerprint, units = sass.MAIN_PATHS[name]
+    assert len(fingerprint) == 16 and int(fingerprint, 16) >= 0
+    ops = cs.FUNCTION_OPS[name]
+    assert ops and set(ops) <= set(units)
+    assert all(set(mix) <= set(sass.PIPE_RATES) for mix in ops.values())
+
+
+def test_the_round_and_the_api_split_the_kernels():
+    cs = _chip_smoke()
+    assert cs.kernels_on('round') == ['quantize_pack', 'spfl_accumulate',
+                                      'corrupt_fold', 'fold_words']
+    assert len(cs.kernels_on('api')) == 6
+    assert set(cs.FUNCTION_OPS) == set(build.KERNELS)
+
+
+def test_launch_mix_sums_units_and_skips_units_without_work():
+    cs = _chip_smoke()
+    per_unit = {'coordinate': {'fp32': 4, 'alu': 1}, 'plane': {'alu': 3}}
+    assert cs.launch_mix(per_unit, {'coordinate': 10, 'plane': 30,
+                                    'lane': 32}) == {'fp32': 40, 'alu': 100}
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/`` header renames (so rebuilds) the library of
+    every source that includes it, and of no other."""
+    monkeypatch.setattr(build, 'CSRC', tmp_path)
+    (tmp_path / 'shared.cuh').write_text('#pragma once\n')
+    (tmp_path / 'user.cu').write_text('#include <cstdint>\n'
+                                      '#include "shared.cuh"\n')
+    (tmp_path / 'alone.cu').write_text('#include <cstdint>\n')
+    before = build.library_path('user'), build.library_path('alone')
+    (tmp_path / 'shared.cuh').write_text('#pragma once\n// edited\n')
+    after = build.library_path('user'), build.library_path('alone')
+    assert after[0] != before[0] and after[1] == before[1]
+    assert after[0].name.startswith('user-')
