@@ -11,10 +11,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 3. hold each kernel against its plain PyTorch version on the same card
    tensors, at the main path's shapes (K=20 clients, l=62,006 CNN
    parameters, 3 bits, the framed sign/modulus widths) and at a small
-   ragged shape — integers bit-exact, the f32 sum within the reference's
-   FMA-wobble bound, every other f32 output bit-exact — and time both
-   with CUDA events; then the whole packed, bit-level transport on the
-   card against the same transport on the CPU at full width;
+   ragged shape — every output bit-exact, the f32 sum also within the
+   reference's FMA-wobble bound — and time both with CUDA events; then
+   spfl_accumulate and fold_words, untimed, across the shapes their tiles,
+   client chunks and clusters make edges (``check_edges``); then the whole
+   packed, bit-level transport on the card against the same transport on
+   the CPU at full width;
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
@@ -39,6 +41,7 @@ of the reference package ``repro``.  Kernel libraries are built under
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -97,7 +100,6 @@ FUNCTION_OPS = {
     'unpack_dequant': {'coordinate': {'fp32': 4, 'alu': 4, 'xu': 1},
                        'plane': {'alu': 3}},
 }
-FOLD_WORDS_THREADS = 512          # fold_words.cu: one block per client row
 
 
 def kernels_on(path: str) -> list:
@@ -166,6 +168,51 @@ def sass_unit_mixes(names) -> dict:
             continue
         out[name] = sass.main_path_mixes(name, instrs)
     return out
+
+
+def fold_words_units(k: int, w: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one fold_words launch over
+    (k, w) words: every thread, each thread's trips of the load loop
+    (UNROLL words each), the threads and the handoff store of the blocks
+    that are not their cluster's leader, the leader's threads and its
+    first warp, and the words."""
+    from repro_torch.kernels import build
+    shape = build.constants('fold_words')
+    cluster, threads = shape['CLUSTER'], shape['THREADS']
+    per = -(-w // cluster)
+    step = shape['UNROLL'] * threads
+    trips = 0
+    for rank in range(cluster):
+        span = max(0, min(w, (rank + 1) * per) - min(w, rank * per))
+        trips += sum(-(-(span - t) // step)
+                     for t in range(min(span, threads)))
+    followers = cluster - 1
+    return dict(thread=k * cluster * threads, trip=k * trips,
+                follower_thread=k * followers * threads,
+                follower_store=k * followers, leader_thread=k * threads,
+                leader_warp_thread=k * 32, word=k * w)
+
+
+def spfl_accumulate_units(k: int, n: int, bits: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one spfl_accumulate launch:
+    every thread of the tiles, the threads that copy sign words and those
+    that copy knob words (a thread's words are of one kind when its
+    block's thread count is a multiple of a client's words, as at the main
+    shapes), the threads with a live coordinate and their clients, the
+    coordinates and each client of each."""
+    from repro_torch.kernels import build
+    shape = build.constants('spfl_accumulate')
+    tile, cpt = shape['TILE'], shape['CPT']
+    threads = tile // cpt
+    span = 32 // cpt
+    tile_groups = tile // 32
+    wpc = tile_groups * (1 + bits)
+    blocks = -(-n // tile)
+    sign = sum(1 for t in range(threads) if t % wpc < tile_groups)
+    live = sum(min(span, n - 32 * g) for g in range(-(-n // 32)))
+    return dict(thread=blocks * threads, sign_copier=blocks * sign,
+                knob_copier=blocks * (threads - sign), live_thread=live,
+                client_pair=live * k, coordinate=n, client=n * k)
 
 
 def int_err(a, b) -> float:
@@ -259,8 +306,7 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
                 units=dict(word=k * w))
             results['fold_words'] = dict(
                 max_abs_err=fold_err, bytes=k * w * 4 + k * 4,
-                units=dict(thread=k * min(FOLD_WORDS_THREADS, w),
-                           word=k * w, warp0_thread=k * 32))
+                units=fold_words_units(k, w))
             if timed:
                 fn = build.kernel('corrupt_fold')
                 stream = torch.cuda.current_stream().cuda_stream
@@ -297,14 +343,14 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
     err = float((acc - racc).abs().max())
     finite = torch.isfinite(racc)          # a damaged header may decode inf
     tol = ulp_atol(weight, torch.where(mod_ok, rmax, 0.0), gbar)
-    if (not torch.equal(finite, torch.isfinite(acc))
+    if (not same_f32(acc, racc)
             or float((acc - racc)[finite].abs().max()) > tol
             or not torch.equal(votes, rvotes)):
         raise AssertionError(f'spfl_accumulate differs from plain: {err}')
     results['spfl_accumulate'] = dict(
         max_abs_err=float((acc - racc)[finite].abs().max()),
         bytes=k * groups * (1 + BITS) * 4 + n * 4 + k * 20 + n * 8,
-        units=dict(coordinate=n, client=n * k))
+        units=spfl_accumulate_units(k, n, BITS))
     if timed:
         fn = build.kernel('spfl_accumulate')
         stream = torch.cuda.current_stream().cuda_stream
@@ -319,6 +365,97 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
                                         weight, gate, n, BITS, True),
             reps=20, inner=1)
     return results
+
+
+def same_f32(a, b) -> bool:
+    """Element for element equal f32 tensors (-0 equals 0), NaN where
+    the other is NaN."""
+    import torch
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_edges(seed: int) -> int:
+    """spfl_accumulate and fold_words, bit for bit against their plain
+    versions, at the shapes their tiles, client chunks and clusters make
+    edges: K one client, one chunk, one past it and past two chunks;
+    bits 1, 3, 16 (the planes unrolled at their narrowest, main and
+    widest width), 22-24 (rolled, the two stages just under, at and past
+    the 48 KB of shared memory a block gets without opting in) and 32;
+    n of one coordinate, around a group and around a tile and the main
+    width; shared and per-client gbar; contiguous payload
+    rows and rows framed as packets (strided, unaligned).  fold_words at
+    K 1 and 20, W of 1, 7, one cluster's threads +-1 and the two packet
+    widths, contiguous and strided.  -> the number of shapes checked."""
+    import torch
+    from repro_torch.core.quantize import knob_step
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.wire import format as fmt
+
+    tile, chunk = (build.constants('spfl_accumulate')[c]
+                   for c in ('TILE', 'CHUNK'))
+    fold = build.constants('fold_words')
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def framed(rows, head):
+        buf = words(rows.shape[0], head + rows.shape[1] + 1)
+        buf[:, head:-1] = rows
+        return buf[:, head:-1]
+
+    shapes = 0
+    for k in (1, chunk, chunk + 1, 2 * chunk + 1):
+        gmin = torch.rand(k, generator=gen, device=dev) * 0.1
+        gmax = 0.5 + torch.rand(k, generator=gen, device=dev) * 0.5
+        mod_ok = torch.rand(k, generator=gen, device=dev) < 0.7
+        weight = torch.rand(k, generator=gen, device=dev) * 2.0
+        sign_ok = torch.rand(k, generator=gen, device=dev) < 0.8
+        for bits in (1, 3, 16, 22, 23, 24, 32):
+            step = knob_step(gmin, gmax, bits)
+            for n in (1, 31, 33, tile - 1, tile + 1, 62006):
+                groups = fmt.n_groups(n)
+                sw, qw = words(k, groups), words(k, groups * bits)
+                for gshape, layout in itertools.product(
+                        ((n,), (k, n)), ('contiguous', 'framed')):
+                    gbar = torch.rand(gshape, generator=gen, device=dev)
+                    sp, mp = ((framed(sw, 4), framed(qw, 7))
+                              if layout == 'framed' else (sw, qw))
+                    acc, votes = ops.spfl_aggregate_packed(
+                        sp, mp, gbar, gmin, gmax, mod_ok, weight, sign_ok,
+                        n, bits)
+                    racc, rvotes = ref.spfl_accumulate(
+                        sp, mp, gbar, gmin, step, mod_ok.to(torch.float32),
+                        weight, sign_ok.to(torch.int32), n, bits,
+                        k <= ops.MAX_VOTE_CLIENTS)
+                    at = (f'k={k} bits={bits} n={n} gbar {tuple(gshape)} '
+                          f'{layout} rows')
+                    if not same_f32(acc, racc):
+                        raise AssertionError(
+                            f'spfl_accumulate differs from plain at {at}: '
+                            f'{int((acc != racc).sum())} coordinates')
+                    if (votes is None) != (rvotes is None) or (
+                            votes is not None
+                            and not torch.equal(votes, rvotes)):
+                        raise AssertionError(
+                            f'spfl_accumulate votes differ at {at}')
+                    if (votes is None) != (k > 32):
+                        raise AssertionError(f'votes at {at}: {votes}')
+                    shapes += 1
+    for k in (1, K):
+        for w in (1, 7, fold['CLUSTER'] * fold['THREADS'] - 1,
+                  fold['CLUSTER'] * fold['THREADS'] + 1, 1943, 5822):
+            rows = words(k, w)
+            for layout, x in (('contiguous', rows),
+                              ('strided', framed(rows, 3))):
+                _exact(f'fold_words k={k} w={w} {layout} rows',
+                       (ops.fold_words(x), ref.fold_words(x)))
+                shapes += 1
+    torch.cuda.synchronize()
+    return shapes
 
 
 def _exact(label: str, *pairs) -> float:
@@ -630,6 +767,8 @@ def main() -> int:
     l_main = 62006
     results = check_kernels(K, l_main, timed=True, seed=1)
     check_kernels(3, 1007, timed=False, seed=2)
+    print(f'edge sweep: spfl_accumulate and fold_words bit-exact at '
+          f'{check_edges(seed=11)} shapes', flush=True)
     results.update(check_api_kernels(2, l_main, BITS, timed=True, seed=5))
     for bits in (1, BITS, 16):
         check_api_kernels(3, 1007, bits, timed=False, seed=6 + bits)

@@ -83,7 +83,17 @@ TABLE = {
 }
 KERNELS = tuple(TABLE)
 
-_loaded: Dict[str, Tuple[ctypes.CDLL, object]] = {}
+_loaded: Dict[Tuple[Path, str], Tuple[ctypes.CDLL, object]] = {}
+_sources = CSRC     # the csrc/ directory that kernel() builds from
+
+
+def use_sources(csrc: Path = CSRC) -> None:
+    """From now on build and hand out (``kernel``) the kernels of
+    ``csrc``, the ``csrc/`` directory of another checkout; with no
+    argument, this checkout's again.  For timing two versions of a kernel
+    in one process."""
+    global _sources
+    _sources = Path(csrc).resolve()
 
 
 def nvcc() -> str:
@@ -99,12 +109,23 @@ def nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return CSRC / f'{name}.cu'
+    return _sources / f'{name}.cu'
 
 
 def repo_source(name: str) -> str:
     """The source of kernel ``name`` as a path in the repository."""
-    return source(name).relative_to(ROOT).as_posix()
+    return (CSRC / f'{name}.cu').relative_to(ROOT).as_posix()
+
+
+_CONSTANT = re.compile(r'^constexpr int (\w+) = (\d+);', re.M)
+
+
+def constants(name: str) -> Dict[str, int]:
+    """The integer constants that kernel ``name``'s source defines as
+    ``constexpr int NAME = <literal>;`` at the start of a line: its launch
+    shape, read where the host needs it."""
+    text = (CSRC / f'{name}.cu').read_text()
+    return {key: int(val) for key, val in _CONSTANT.findall(text)}
 
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
@@ -114,7 +135,7 @@ def library_path(name: str) -> Path:
     """The library of kernel ``name``, named by a hash of its source, the
     ``csrc/`` headers that the source includes and the flags."""
     text = source(name).read_bytes()
-    headers = [(CSRC / h.decode()).read_bytes()
+    headers = [(_sources / h.decode()).read_bytes()
                for h in _LOCAL_INCLUDE.findall(text)]
     digest = hashlib.sha256(b'\0'.join([text, *headers])
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()
@@ -153,11 +174,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def kernel(name: str):
-    """The C entry point of kernel ``name`` (built at first use)."""
-    if name not in _loaded:
+    """The C entry point of kernel ``name`` (built at first use) from
+    the sources in use (``use_sources``)."""
+    key = (_sources, name)
+    if key not in _loaded:
         lib = ctypes.CDLL(str(build([name])[name]))
         fn = getattr(lib, TABLE[name].entry)
         fn.argtypes = TABLE[name].argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = (lib, fn)       # the CDLL stays referenced
-    return _loaded[name][1]
+        _loaded[key] = (lib, fn)        # the CDLL stays referenced
+    return _loaded[key][1]

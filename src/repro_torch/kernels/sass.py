@@ -187,24 +187,51 @@ MAIN_PATHS = {
                        (0x0b80, 0x0ba0), (0x0c50, 0x0d10)),
         'plane': ((0x0bb0, 0x0c40),),
     }),
-    'spfl_accumulate': ('007fe80714e951ae', {
-        # the bits > 0, votes-on version: set-up and the stores once per
-        # coordinate, and per client the sign bit plus the bits % 4 = 3
-        # tail of the knob unpack, decode, accumulate and vote
-        'coordinate': ((0x0000, 0x0160), (0x1da0, 0x1e40),
-                       (0x3230, 0x3310)),
-        'client': ((0x1e50, 0x1fc0), (0x2cb0, 0x3220)),
+    'spfl_accumulate': ('e063fbae61d1b1b1', {
+        # one chunk (K <= 32); a thread holds two coordinates and copies
+        # five words of one kind (sign or knob: 128 threads, 32 words per
+        # client at bits 3), one trip of the rolled remainder and one of
+        # the 4x unrolled copy loop.  Every thread: set-up, the copy
+        # loops' entries and exits, the scalar copies (predicated), the
+        # wait and barrier, the stores' tests; per live thread the
+        # shared-gbar, bits = 3 dispatch and its stores; per client of a
+        # live thread one trip of that loop (both coordinates).  A
+        # coordinate and a client of one have no span of their own.
+        'thread': ((0x0000, 0x08e0), (0x0c10, 0x0c30), (0x1800, 0x1f60),
+                   (0x3a40, 0x3ab0), (0xf8e0, 0xfa30)),
+        'sign_copier': ((0x08f0, 0x0920), (0x09e0, 0x0c00),
+                        (0x0c40, 0x0c70), (0x0d30, 0x0f90),
+                        (0x1060, 0x1260), (0x1330, 0x1530),
+                        (0x1600, 0x17f0)),
+        'knob_copier': ((0x08f0, 0x09d0), (0x0a60, 0x0c00),
+                        (0x0c40, 0x0d20), (0x0db0, 0x1050),
+                        (0x10e0, 0x1320), (0x13b0, 0x15f0),
+                        (0x1680, 0x17f0)),
+        'live_thread': ((0x3ac0, 0x3bf0), (0x9e70, 0x9f20), (0x9f30, 0x9f50),
+                        (0xa2e0, 0xa2e0), (0xfa40, 0xfa60)),
+        'client_pair': ((0x9f60, 0xa2d0),),
+        'coordinate': (),
+        'client': (),
     }),
     'corrupt_fold': ('79c693dce76122ab', {
         # straight-line: the 32-plane PRF, the xor, the warp reductions
         'word': ((0x0000, 0x1c70),),
     }),
-    'fold_words': ('7ca8746aaf9b0a3e', {
-        # every thread: set-up and the warp fold; every word: one trip of
-        # the strided loop; warp 0 of each block: the cross-warp fold
-        'thread': ((0x0000, 0x00d0), (0x0190, 0x02d0)),
-        'word': ((0x00e0, 0x0180),),
-        'warp0_thread': ((0x02e0, 0x0480),),
+    'fold_words': ('8a77a7a1f5dce961', {
+        # every thread: set-up, the split cluster barrier, the warp and
+        # block folds; per trip of eight loads the rolled remainder (one
+        # trip per thread at the main widths); the other blocks' threads
+        # exit, and their thread 0 stores into the leader; the leader's
+        # other warps exit and its warp 0 waits once on the mbarrier (the
+        # spin is not counted), folds the slices and stores.  A word has
+        # no instruction of its own: its load and xor are in its trip.
+        'thread': ((0x0000, 0x02f0), (0x0b00, 0x0d70)),
+        'trip': ((0x0860, 0x0af0),),
+        'follower_thread': ((0x0d80, 0x0d90),),
+        'follower_store': ((0x0da0, 0x0e40),),
+        'leader_thread': ((0x0e50, 0x0e60),),
+        'leader_warp_thread': ((0x0e70, 0x0ed0), (0x0ee0, 0x1050)),
+        'word': (),
     }),
     # the per-client kernel API: both float divisions on their fast path,
     # step > 0, mod_ok > 0; the bit-plane loops are not unrolled, so one

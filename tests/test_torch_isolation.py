@@ -46,3 +46,8 @@ def test_source_does_not_import_jax_or_reference(path):
 def test_chip_smoke_imports_nothing_of_jax_or_reference():
     text = (SRC.parent / 'chip_smoke.py').read_text()
     assert not FORBIDDEN.search(text)
+
+
+def test_kernel_ab_imports_nothing_of_jax_or_reference():
+    text = (SRC.parent / 'kernel_ab.py').read_text()
+    assert not FORBIDDEN.search(text)

@@ -81,7 +81,16 @@ def _accumulate_both(k, n, bits, gbar, seed):
     return votes, rvotes
 
 
-@pytest.mark.parametrize('k,n,bits', GRID + [(33, 200, 3)])
+# The CUDA kernel's edges: one client, more clients than one 32-client
+# shared-memory chunk (three chunks: no votes), n one off a 256-coordinate
+# tile, 16 knob planes (the widest unrolled), 22-24 planes (the two
+# shared-memory stages just under, at and past the 48 KB a block gets
+# without opting in).
+EDGES = [(1, 255, 3), (1, 257, 16), (3, 256, 16), (65, 300, 3),
+         (40, 257, 16), (2, 257, 22), (3, 255, 23), (1, 300, 24)]
+
+
+@pytest.mark.parametrize('k,n,bits', GRID + [(33, 200, 3)] + EDGES)
 def test_spfl_accumulate_matches_pallas(k, n, bits):
     gbar = np.random.RandomState(n).uniform(0, 1, n).astype(np.float32)
     votes, rvotes = _accumulate_both(k, n, bits, gbar, seed=n + bits + k)
@@ -91,7 +100,8 @@ def test_spfl_accumulate_matches_pallas(k, n, bits):
         np.testing.assert_array_equal(votes.numpy(), np.asarray(rvotes))
 
 
-@pytest.mark.parametrize('k,n,bits', [(1, 37, 3), (4, 777, 3), (6, 4097, 8)])
+@pytest.mark.parametrize('k,n,bits', [(1, 37, 3), (4, 777, 3), (6, 4097, 8),
+                                     (1, 257, 16), (3, 255, 3)])
 def test_spfl_accumulate_per_client_gbar_matches_pallas(k, n, bits):
     gbar = np.random.RandomState(k).uniform(0, 1, (k, n)).astype(np.float32)
     votes, rvotes = _accumulate_both(k, n, bits, gbar, seed=k + n)
@@ -137,7 +147,9 @@ def test_corrupt_fold_matches_pallas(k, w, word0):
     np.testing.assert_array_equal(gflips.numpy(), np.asarray(flips))
 
 
-@pytest.mark.parametrize('k,w', [(1, 512), (3, 100), (5, 1537)])
+# w = 1, one cluster's 1,024 threads +- 1 (8 blocks of 128), and 2,049
+@pytest.mark.parametrize('k,w', [(1, 512), (3, 100), (5, 1537), (1, 1),
+                                 (4, 1), (3, 1025), (20, 1023), (3, 2049)])
 def test_fold_words_matches_pallas(k, w):
     rng = np.random.RandomState(k * w)
     words = rng.randint(0, 2 ** 32, (k, w), dtype=np.uint64).astype(np.uint32)
@@ -159,3 +171,4 @@ def test_wrappers_check_inputs():
             [0, 0], [1, 1], [1, 1], [1, 1], [True, True], 40, 3)
     with pytest.raises(TypeError):
         tops.fold_words(torch.zeros(2, 3))
+

@@ -3,7 +3,10 @@ listing in ``cuobjdump -sass``'s format: the disassembler itself needs the
 CUDA toolkit.  Also the kernel table of ``kernels.build`` and the
 function operation counts that ``chip_smoke.py`` bounds each kernel by."""
 import importlib.util
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -123,16 +126,118 @@ def test_launch_mix_sums_units_and_skips_units_without_work():
                                     'lane': 32}) == {'fp32': 40, 'alu': 100}
 
 
-def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+@pytest.fixture
+def other_sources(tmp_path):
+    """``tmp_path`` as the ``csrc/`` that ``build`` builds from."""
+    build.use_sources(tmp_path)
+    yield tmp_path
+    build.use_sources()
+
+
+def test_library_path_hashes_the_included_headers(other_sources):
     """An edited ``csrc/`` header renames (so rebuilds) the library of
     every source that includes it, and of no other."""
-    monkeypatch.setattr(build, 'CSRC', tmp_path)
-    (tmp_path / 'shared.cuh').write_text('#pragma once\n')
-    (tmp_path / 'user.cu').write_text('#include <cstdint>\n'
-                                      '#include "shared.cuh"\n')
-    (tmp_path / 'alone.cu').write_text('#include <cstdint>\n')
+    (other_sources / 'shared.cuh').write_text('#pragma once\n')
+    (other_sources / 'user.cu').write_text('#include <cstdint>\n'
+                                           '#include "shared.cuh"\n')
+    (other_sources / 'alone.cu').write_text('#include <cstdint>\n')
     before = build.library_path('user'), build.library_path('alone')
-    (tmp_path / 'shared.cuh').write_text('#pragma once\n// edited\n')
+    (other_sources / 'shared.cuh').write_text('#pragma once\n// edited\n')
     after = build.library_path('user'), build.library_path('alone')
     assert after[0] != before[0] and after[1] == before[1]
     assert after[0].name.startswith('user-')
+
+
+def test_use_sources_moves_the_build_and_not_the_repo_paths(tmp_path):
+    """Another checkout's sources are built and hashed from there; the
+    repository paths the results name stay this checkout's; and with no
+    argument, this checkout's sources are in use again."""
+    own = build.library_path('fold_words')
+    (tmp_path / 'fold_words.cu').write_text('// an earlier version\n')
+    build.use_sources(tmp_path)
+    try:
+        assert build.source('fold_words') == tmp_path / 'fold_words.cu'
+        assert build.library_path('fold_words') != own
+        assert build.repo_source('fold_words') == \
+            'src/repro_torch/kernels/csrc/fold_words.cu'
+    finally:
+        build.use_sources()
+    assert build.library_path('fold_words') == own
+
+
+@pytest.mark.parametrize('name,keys', [
+    ('spfl_accumulate', {'TILE', 'CHUNK', 'CPT'}),
+    ('fold_words', {'CLUSTER', 'THREADS', 'UNROLL'})])
+def test_constants_read_the_launch_shape_from_the_source(name, keys):
+    """The launch constants that chip_smoke.py's unit counts and edge
+    sweep use are the literals of the kernel's source."""
+    shape = build.constants(name)
+    assert keys <= set(shape) and all(shape[k] > 0 for k in keys)
+    text = build.source(name).read_text()
+    for key in keys:
+        assert f'constexpr int {key} = {shape[key]};' in text
+
+
+def test_constants_skip_expressions(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, 'CSRC', tmp_path)
+    (tmp_path / 'k.cu').write_text('constexpr int A = 4;  // four\n'
+                                   'constexpr int B = A / 2;\n'
+                                   '  constexpr int C = 3;\n')
+    assert build.constants('k') == {'A': 4}
+
+
+def _fold_trips_by_walking(w):
+    """Trips of fold_words.cu's load loop over one row of w words, walked
+    as the kernel walks them: block r of the cluster folds words
+    [r * per, min((r + 1) * per, w)), thread t from lo + t in steps of
+    UNROLL * THREADS."""
+    shape = build.constants('fold_words')
+    per = -(-w // shape['CLUSTER'])
+    trips = 0
+    for rank in range(shape['CLUSTER']):
+        lo = min(w, rank * per)
+        hi = min(w, lo + per)
+        for t in range(shape['THREADS']):
+            trips += len(range(lo + t, hi,
+                               shape['UNROLL'] * shape['THREADS']))
+    return trips
+
+
+@pytest.mark.parametrize('w', [1, 7, 1943, 2047, 2049, 5822, 40000])
+def test_fold_words_units_count_the_kernels_loop_trips(w):
+    cs = _chip_smoke()
+    units = cs.fold_words_units(3, w)
+    assert units['trip'] == 3 * _fold_trips_by_walking(w)
+    assert units['word'] == 3 * w
+    shape = build.constants('fold_words')
+    assert units['thread'] == 3 * shape['CLUSTER'] * shape['THREADS']
+
+
+@pytest.mark.parametrize('k,n,bits', [(20, 62006, 3), (1, 1, 16),
+                                      (33, 257, 1)])
+def test_spfl_accumulate_units_cover_the_tiles(k, n, bits):
+    cs = _chip_smoke()
+    units = cs.spfl_accumulate_units(k, n, bits)
+    shape = build.constants('spfl_accumulate')
+    tile, cpt = shape['TILE'], shape['CPT']
+    blocks = -(-n // tile)
+    assert units['thread'] * cpt == blocks * tile >= n
+    assert units['sign_copier'] + units['knob_copier'] == units['thread']
+    # the live threads hold every coordinate, CPT at a time; only the
+    # last group's may hold fewer
+    assert n <= units['live_thread'] * cpt < n + 32
+    assert units['client_pair'] == units['live_thread'] * k
+    assert units['client'] == n * k and units['coordinate'] == n
+
+
+def test_kernel_ab_needs_a_card():
+    """The same-call A/B script times kernels on a CUDA card only: with
+    every card hidden it says so, fails and prints no timing, though both
+    versions' sources (here this checkout's, twice) are there."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    out = subprocess.run([sys.executable, str(ROOT / 'kernel_ab.py'),
+                          str(ROOT)], capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode != 0
+    assert 'no CUDA card' in out.stderr
+    assert 'ms' not in out.stdout
