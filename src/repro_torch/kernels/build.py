@@ -61,7 +61,8 @@ TABLE = {
                                _P, _P, _I, _I, _I, _P],
                               'round', f'{_PK}:169'),
     'corrupt_fold': Kernel('spfl_corrupt_fold',
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _P],
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U,
+                            _P],
                            'round', f'{_PK}:220'),
     'fold_words': Kernel('spfl_fold_words', [_P, _LL, _P, _I, _I, _P],
                          'round', f'{_PK}:263'),
@@ -83,17 +84,7 @@ TABLE = {
 }
 KERNELS = tuple(TABLE)
 
-_loaded: Dict[Tuple[Path, str], Tuple[ctypes.CDLL, object]] = {}
-_sources = CSRC     # the csrc/ directory that kernel() builds from
-
-
-def use_sources(csrc: Path = CSRC) -> None:
-    """From now on build and hand out (``kernel``) the kernels of
-    ``csrc``, the ``csrc/`` directory of another checkout; with no
-    argument, this checkout's again.  For timing two versions of a kernel
-    in one process."""
-    global _sources
-    _sources = Path(csrc).resolve()
+_loaded: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 
 
 def nvcc() -> str:
@@ -109,7 +100,7 @@ def nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return _sources / f'{name}.cu'
+    return CSRC / f'{name}.cu'
 
 
 def repo_source(name: str) -> str:
@@ -135,7 +126,7 @@ def library_path(name: str) -> Path:
     """The library of kernel ``name``, named by a hash of its source, the
     ``csrc/`` headers that the source includes and the flags."""
     text = source(name).read_bytes()
-    headers = [(_sources / h.decode()).read_bytes()
+    headers = [(CSRC / h.decode()).read_bytes()
                for h in _LOCAL_INCLUDE.findall(text)]
     digest = hashlib.sha256(b'\0'.join([text, *headers])
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()
@@ -174,13 +165,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def kernel(name: str):
-    """The C entry point of kernel ``name`` (built at first use) from
-    the sources in use (``use_sources``)."""
-    key = (_sources, name)
-    if key not in _loaded:
+    """The C entry point of kernel ``name``, built at first use."""
+    if name not in _loaded:
         lib = ctypes.CDLL(str(build([name])[name]))
         fn = getattr(lib, TABLE[name].entry)
         fn.argtypes = TABLE[name].argtypes
         fn.restype = ctypes.c_int
-        _loaded[key] = (lib, fn)        # the CDLL stays referenced
-    return _loaded[key][1]
+        _loaded[name] = (lib, fn)       # the CDLL stays referenced
+    return _loaded[name][1]

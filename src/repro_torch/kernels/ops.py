@@ -336,13 +336,36 @@ def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
 # the bit channel and the PS CRC verify
 # ---------------------------------------------------------------------------
 
+# (device, stream) -> (K, 2) int64 accumulators per client row, zero
+# between launches: a launch zeroes those it fills before it ends, and
+# the launches of one stream run one after another, so each stream has
+# its own.  A launch the card refuses never touches them; a kernel that
+# faults leaves the device unusable, so none runs on dirty ones.
+_accumulators = {}
+
+
+def corrupt_fold_accumulators(k: int, device) -> Tensor:
+    """The (>= k, 2) int64 accumulators of a corrupt_fold launch on the
+    current stream of ``device`` (its rows' fold and count, each with the
+    row's block bitmap or ticket), zeroed once, when first made for as
+    many rows on that stream."""
+    device = torch.device(device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    acc = _accumulators.get(key)
+    if acc is None or acc.shape[0] < k:
+        acc = _accumulators[key] = torch.zeros((k, 2), dtype=torch.int64,
+                                               device=device)
+    return acc
+
+
 def corrupt_fold_words(seeds: Tuple[int, int], words: Tensor, ber,
                        word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused bit-channel pass over (K, W) word buffers at per-client BER
     ``ber`` (scalar or (K,)) with the counter PRF keyed by the two uint32
     ``seeds``; ``word0`` offsets the global word counter.
     -> (received (K, W), per-client flip-mask xor-fold (K,), per-client
-    flip count (K,)), all int32."""
+    flip count (K,)), all int32.  On the card it launches one kernel
+    besides the threshold arithmetic: the kernel writes every output."""
     _expect(words, 'words', torch.int32)
     if words.dim() != 2:
         raise ValueError('words: expected (K, W)')
@@ -358,11 +381,12 @@ def corrupt_fold_words(seeds: Tuple[int, int], words: Tensor, ber,
         return ref.corrupt_fold((s0, s1), words, thresh, allf, word0)
     _contig(words, 'words')
     rx = torch.empty_like(words)
-    fold = torch.zeros((k,), dtype=torch.int32, device=words.device)
-    flips = torch.zeros((k,), dtype=torch.int32, device=words.device)
+    fold = torch.empty((k,), dtype=torch.int32, device=words.device)
+    flips = torch.empty((k,), dtype=torch.int32, device=words.device)
+    acc = corrupt_fold_accumulators(k, words.device)
     _launch('corrupt_fold', words, words.data_ptr(), rx.data_ptr(),
-            thresh.data_ptr(), allf.data_ptr(), fold.data_ptr(),
-            flips.data_ptr(), k, w, s0, s1, word0)
+            thresh.data_ptr(), allf.data_ptr(), acc.data_ptr(),
+            fold.data_ptr(), flips.data_ptr(), k, w, s0, s1, word0)
     return rx, fold, flips
 
 

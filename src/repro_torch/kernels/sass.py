@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import os
 import re
 import shutil
@@ -141,16 +142,59 @@ def regions(instrs: List[Instr]) -> List[Region]:
             + [Region(depth(s), s[0], s[1], mixes[s]) for s in spans])
 
 
-def resource_clocks(mix: Mapping[str, float]) -> Dict[str, float]:
-    """Clocks of one SM that ``mix`` (pipe -> thread-instructions) needs
-    of each resource: the issue slots, each pipe, and the FMA pipe that
-    fp32 and imad share."""
+# Operations that more than one pipe can issue, by class: a right shift
+# by a constant is SHF on the ALU or IMAD.HI (a multiply-high by a power
+# of two), a left shift SHF or IMAD.SHL; a bit set into a clear bit of a
+# word (w | b << j, or 2 w + b) is LOP3 or LEA on the ALU or an IMAD
+# (IMAD.X adds a carry).  Only the function operation counts
+# (chip_smoke.FUNCTION_OPS) name them; SASS has each on its own pipe.
+FLEXIBLE = {'shift': ('alu', 'imad'), 'bitset': ('alu', 'imad')}
+
+
+def _clocks(mix: Mapping[str, float]) -> Dict[str, float]:
     clocks = {'issue': sum(mix.values()) / PIPE_RATES['issue'],
               'fma': (mix.get('fp32', 0) + mix.get('imad', 0))
               / PIPE_RATES['fp32']}
     clocks.update({p: mix.get(p, 0) / PIPE_RATES[p] for p in PIPE_RATES
                    if p != 'issue'})
     return clocks
+
+
+def resource_clocks(mix: Mapping[str, float]) -> Dict[str, float]:
+    """Clocks of one SM that ``mix`` (pipe -> thread-instructions) needs
+    of each resource: the issue slots, each pipe, and the FMA pipe that
+    fp32 and imad share.  The operations of the ``FLEXIBLE`` classes are
+    split between their pipes (the classes of one pair of pipes
+    together) so that the busiest resource is least busy; the issue
+    slots count them all, wherever they go."""
+    fixed = {p: n for p, n in mix.items() if p not in FLEXIBLE}
+    pools: Dict[tuple, float] = {}
+    for cls, pair in FLEXIBLE.items():
+        pools[pair] = pools.get(pair, 0) + mix.get(cls, 0)
+    for (a, b), flex in pools.items():
+        if not flex:
+            continue
+
+        def at(x, base=dict(fixed)):
+            m = dict(base)
+            m[a] = m.get(a, 0) + flex - x
+            m[b] = m.get(b, 0) + x
+            return m
+
+        # each resource is linear in x (the share on pipe b), so the
+        # busiest is least at an end or where two resources cross; among
+        # equals, take the split whose next busiest resource is least
+        lo, hi = _clocks(at(0)), _clocks(at(flex))
+        xs = {0.0, float(flex)}
+        for r, s in itertools.combinations(lo, 2):
+            slope = (hi[r] - lo[r]) - (hi[s] - lo[s])
+            if slope:
+                x = flex * (lo[s] - lo[r]) / slope
+                if 0 < x < flex:
+                    xs.add(x)
+        fixed = at(min(xs, key=lambda x: sorted(_clocks(at(x)).values(),
+                                                reverse=True)))
+    return _clocks(fixed)
 
 
 def bound_clocks(mix: Mapping[str, float]) -> float:
@@ -179,13 +223,21 @@ def fingerprint(instrs: List[Instr]) -> str:
 # 12.9, sm_90a): a changed source or compiler moves the addresses, and
 # ``--paths`` then reports the mismatch so the spans can be read anew.
 MAIN_PATHS = {
-    'quantize_pack': ('7add59f63273aaf8', {
-        # 32-bit warp / n_groups, both divisions fast, step > 0, then the
-        # bits = 3 remainder loop of the ballot planes
-        'coordinate': ((0x0000, 0x0140), (0x0180, 0x0600),
-                       (0x0650, 0x0730), (0x0780, 0x0980),
-                       (0x0b80, 0x0ba0), (0x0c50, 0x0d10)),
-        'plane': ((0x0bb0, 0x0c40),),
+    'quantize_pack': ('940b912c666bf1e7', {
+        # quantize_pack_kernel<3>: a thread of a warp with a live group
+        # (step > 0, every division on its fast path, the slow-path calls
+        # skipped) loads its GPW coordinates, quantizes them, votes each
+        # plane and stages the words; the lanes that store a word run one
+        # trip of the store loop (bits 3: 16 words per warp); warps past
+        # the last group exit.  A coordinate and a plane have no span of
+        # their own: their instructions are in the live thread's.
+        'live_thread': ((0x0000, 0x0670), (0x06d0, 0x0700), (0x0860, 0x08f0),
+                        (0x0940, 0x0a70), (0x0ad0, 0x0c00), (0x0c60, 0x0d90),
+                        (0x0df0, 0x13e0)),
+        'store_word': ((0x13f0, 0x1760),),
+        'idle_thread': ((0x0000, 0x0080),),
+        'coordinate': (),
+        'plane': (),
     }),
     'spfl_accumulate': ('e063fbae61d1b1b1', {
         # one chunk (K <= 32); a thread holds two coordinates and copies
@@ -213,9 +265,17 @@ MAIN_PATHS = {
         'coordinate': (),
         'client': (),
     }),
-    'corrupt_fold': ('79c693dce76122ab', {
-        # straight-line: the 32-plane PRF, the xor, the warp reductions
-        'word': ((0x0000, 0x1c70),),
+    'corrupt_fold': ('5ffb84ccd2bcf531', {
+        # every thread: entry, bounds test, the warp and block reductions;
+        # a thread with a word: the loop's preheader; per word one trip
+        # (the 32-plane PRF, the xor, fold and count); per block of a row
+        # of several: its first thread's two atomics and the predicated
+        # fold store; per row: the count's last block's store
+        'thread': ((0x0000, 0x0100), (0x1730, 0x1920)),
+        'worker': ((0x0110, 0x0350),),
+        'word': ((0x0360, 0x1720),),
+        'block': ((0x1930, 0x1c70),),
+        'row': ((0x1c80, 0x1cb0),),
     }),
     'fold_words': ('8a77a7a1f5dce961', {
         # every thread: set-up, the split cluster barrier, the warp and
@@ -265,6 +325,20 @@ MAIN_PATHS = {
 }
 
 
+def main_path(name: str, funcs: Mapping[str, List[Instr]]) -> List[Instr]:
+    """The function of kernel ``name``'s library (``funcs``, as from
+    :func:`disassemble`) whose SASS the ``MAIN_PATHS`` spans were read
+    from, found by fingerprint; raises if there is none, so the spans
+    must be read anew."""
+    want = MAIN_PATHS[name][0]
+    for instrs in funcs.values():
+        if fingerprint(instrs) == want:
+            return instrs
+    got = sorted(fingerprint(i) for i in funcs.values())
+    raise RuntimeError(f'{name}: no SASS fingerprint {got} is {want}: read '
+                       'the main-path spans anew from --dump')
+
+
 def main_path_mixes(name: str, instrs: List[Instr]) -> Dict[str, Counter]:
     """{unit of work: its pipe mix} of kernel ``name`` on the main path;
     raises if ``instrs`` is not the disassembly the spans were read from."""
@@ -299,9 +373,10 @@ def main() -> None:
                 kind = 'straight-line' if r.depth == 0 else f'loop depth {r.depth}'
                 print(f'  {kind} [{r.start:#06x}, {r.end:#06x}]: '
                       + ', '.join(f'{p} {c}' for p, c in sorted(r.mix.items())))
-            if args.paths:
-                for unit, mix in main_path_mixes(name, instrs).items():
-                    print(f'  main path per {unit}: {dict(sorted(mix.items()))}')
+        if args.paths:
+            for unit, mix in main_path_mixes(
+                    name, main_path(name, funcs)).items():
+                print(f'  main path per {unit}: {dict(sorted(mix.items()))}')
 
 
 if __name__ == '__main__':

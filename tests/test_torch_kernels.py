@@ -16,25 +16,42 @@ from test_torch_parity import seeds, ulp_atol, words_np
 from repro.kernels import ops
 from repro.wire import format as fmt
 from repro_torch.kernels import ops as tops
+from repro_torch.wire.format import MASK32
 
 GRID = [(k, n, bits) for k in (1, 2, 6) for n in (37, 65, 1000, 4097)
         for bits in (1, 3, 8)]
+# The CUDA kernel's edges: one client and more than 32; n of one
+# coordinate, around a group, around a warp's 4 groups (128) and a
+# block's 16 groups (512); the narrowest, main and widest knob widths.
+QUANTIZE_PACK_EDGES = [(1, 1, 1), (3, 31, 3), (2, 32, 8), (3, 33, 16),
+                       (2, 127, 3), (2, 129, 1), (3, 511, 3), (2, 513, 16),
+                       (33, 40, 3)]
 
 
-def _grads(k, n, seed):
+def _grads(k, n, seed, bits):
+    """Gaussian rows; g = 0, -0 and a tiny modulus first; row 1 of
+    constant |g| (knob step 0); then |g| exactly on each row's knob
+    boundaries gmin + j * step (the reference's f32 step), half of them
+    negative."""
     rng = np.random.RandomState(seed)
     g = rng.randn(k, n).astype(np.float32) * 0.1
-    g[:, :3] = [0.0, -0.0, 1e-30]                # zero signs, tiny moduli
+    g[:, :3] = [0.0, -0.0, 1e-30][:n]            # zero signs, tiny moduli
     if k > 1:
         g[1] = np.float32(-0.25)                 # constant |g|: step 0
     rand = rng.uniform(0, 1, (k, n)).astype(np.float32)
     a = np.abs(g)
-    return g, rand, a.min(axis=1), a.max(axis=1)
+    gmin, gmax = a.min(axis=1), a.max(axis=1)
+    step = (gmax - gmin) / np.float32(2 ** bits - 1)
+    m = max(0, min(n - 3, 2 ** bits))
+    edge = gmin[:, None] + np.arange(m, dtype=np.float32) * step[:, None]
+    edge[:, 1::2] *= -1
+    g[:, 3:3 + m] = edge
+    return g, rand, gmin, gmax
 
 
-@pytest.mark.parametrize('k,n,bits', GRID)
+@pytest.mark.parametrize('k,n,bits', GRID + QUANTIZE_PACK_EDGES)
 def test_quantize_pack_matches_pallas(k, n, bits):
-    g, rand, gmin, gmax = _grads(k, n, seed=k * 7 + n + bits)
+    g, rand, gmin, gmax = _grads(k, n, seed=k * 7 + n + bits, bits=bits)
     sw, qw = tops.quantize_pack_flat(torch.as_tensor(g),
                                      torch.as_tensor(rand),
                                      torch.as_tensor(gmin),
@@ -127,15 +144,27 @@ def test_spfl_accumulate_strided_payload_rows():
     assert torch.equal(a0, a1) and torch.equal(v0, v1)
 
 
-@pytest.mark.parametrize('k,w,word0', [(1, 40, 0), (4, 513, 0),
-                                       (8, 1100, 0), (4, 513, 7 * 513)])
+# the largest f32 below 1: the BER of the largest flip threshold
+THRESH_MAX_BER = np.float32(1.0 - 2.0 ** -24)
+
+
+# The CUDA kernel's edges: one word, 7, one and two 192-thread blocks
+# +- 1, the sign packet's width, 32 blocks' threads +- 1 (past it a row's
+# blocks loop); 33 clients; word0 where the uint32 word counter wraps
+# inside the buffer.
+@pytest.mark.parametrize('k,w,word0', [
+    (1, 40, 0), (4, 513, 0), (8, 1100, 0), (4, 513, 7 * 513),
+    (1, 1, 0), (3, 7, 2 ** 32 - 5), (4, 191, 0), (4, 193, 2 ** 32 - 100),
+    (5, 383, 0), (4, 385, 0), (33, 129, 2 ** 32 - 33 * 64), (2, 1943, 0),
+    (2, 6143, 0), (2, 6145, 2 ** 32 - 6000)])
 def test_corrupt_fold_matches_pallas(k, w, word0):
     rng = np.random.RandomState(k + w)
     words = rng.randint(0, 2 ** 32, (k, w), dtype=np.uint64).astype(np.uint32)
     ber = rng.uniform(0, 0.02, k).astype(np.float32)
-    if k >= 4:
-        ber[1], ber[2] = 0.0, 1.0                 # clean and all-flip rows
-    key = jax.random.PRNGKey(w + word0)
+    # clean, all-flip and largest-threshold rows
+    for row, special in enumerate((0.0, 1.0, THRESH_MAX_BER)[:k - 1], 1):
+        ber[row] = special
+    key = jax.random.PRNGKey(w + word0 % 65536)
     rx, fold, flips = ops.corrupt_fold_words(
         key, jnp.asarray(words), jnp.asarray(ber), interpret=True,
         use_kernel=True, word0=jnp.uint32(word0))
@@ -145,6 +174,30 @@ def test_corrupt_fold_matches_pallas(k, w, word0):
     np.testing.assert_array_equal(words_np(grx), np.asarray(rx))
     np.testing.assert_array_equal(words_np(gfold), np.asarray(fold))
     np.testing.assert_array_equal(gflips.numpy(), np.asarray(flips))
+
+
+@pytest.mark.parametrize('plane', range(32))
+def test_plane_constant_identity_matches_hash_bits(plane):
+    """corrupt_fold.cu's hoisting: fmix32's first xor-shift of h0 ^ c is
+    (h0 ^ h0 >> 16) ^ (c ^ c >> 16), since >> and ^ distribute over ^.
+    The kernel's form, in the plain version's 32-bit arithmetic, against
+    ``wire.corrupt.hash_bits`` on counters that include both ends of
+    uint32."""
+    from repro_torch.wire import corrupt as wc
+    rng = np.random.RandomState(plane)
+    idx = torch.as_tensor(np.concatenate([
+        rng.randint(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.int64),
+        [0, 1, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1]]))
+    s0, s1 = (int(x) for x in rng.randint(0, 2 ** 32, 2, dtype=np.uint64))
+    h0 = wc._fmix32(((idx + wc._GOLDEN) & MASK32) ^ s0) ^ s1
+    a = h0 ^ (h0 >> 16)
+    c = (plane * wc._PLANE_SALT) & MASK32
+    x = a ^ (c ^ (c >> 16))
+    x = wc._mul32(x, wc._MIX1)
+    x = x ^ (x >> 13)
+    x = wc._mul32(x, wc._MIX2)
+    x = x ^ (x >> 16)
+    assert torch.equal(x, wc.hash_bits(idx, plane, s0, s1))
 
 
 # w = 1, one cluster's 1,024 threads +- 1 (8 blocks of 128), and 2,049

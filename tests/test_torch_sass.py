@@ -3,6 +3,7 @@ listing in ``cuobjdump -sass``'s format: the disassembler itself needs the
 CUDA toolkit.  Also the kernel table of ``kernels.build`` and the
 function operation counts that ``chip_smoke.py`` bounds each kernel by."""
 import importlib.util
+import json
 import os
 import pathlib
 import subprocess
@@ -69,6 +70,67 @@ def test_bound_clocks_takes_the_busiest_resource(mix, clocks):
     assert sass.bound_clocks(mix) == pytest.approx(clocks)
 
 
+@pytest.mark.parametrize('mix,clocks,limit', [
+    # shifts split evenly: ALU and IMAD each 64, at the issue limit
+    ({'alu': 64, 'shift': 64}, 1.0, 'issue'),
+    # all shifts to IMAD and the ALU still the busiest
+    ({'alu': 128, 'shift': 64}, 2.0, 'alu'),
+    # all shifts to the ALU when IMAD is the busier pipe
+    ({'imad': 128, 'shift': 64}, 2.0, 'imad'),
+    # never under the issue limit, however the shifts are split
+    ({'shift': 256}, 2.0, 'issue'),
+    ({'fp32': 256, 'shift': 64}, 2.5, 'issue'),
+    # the shifts split where the two pipes meet, under the issue limit
+    ({'alu': 96, 'imad': 32, 'shift': 64, 'other': 32}, 1.75, 'issue'),
+    ({'alu': 112, 'imad': 16, 'shift': 32}, 1.75, 'alu'),
+    # corrupt_fold per word with its bit sets held on the ALU: alu 172,
+    # shift 68, imad 67
+    ({'alu': 172, 'shift': 68, 'imad': 67, 'xu': 1}, 172 / 64, 'alu'),
+    # bit sets go where shifts go, placed with them as one pool
+    ({'alu': 64, 'bitset': 64}, 1.0, 'issue'),
+    ({'alu': 96, 'shift': 16, 'bitset': 16}, 1.5, 'alu'),
+    ({'imad': 96, 'shift': 32, 'bitset': 32, 'alu': 32}, 1.5, 'issue'),
+    # corrupt_fold per word: with its 32 bit sets placed too it is held
+    # by the issue limit, 308 / 128, not by its ALU share (172 / 64 with
+    # the bit sets fixed there)
+    ({'alu': 140, 'shift': 68, 'bitset': 32, 'imad': 67, 'xu': 1},
+     308 / 128, 'issue'),
+])
+def test_shifts_go_where_the_busiest_pipe_is_least_loaded(mix, clocks,
+                                                          limit):
+    got = sass.resource_clocks(mix)
+    assert max(got.values()) == pytest.approx(clocks)
+    assert max(got, key=got.get) == limit
+    # among the splits that reach it, the one that leaves both pipes
+    # least loaded
+    assert max(got['alu'], got['imad']) <= clocks
+    # no split of the shifts and bit sets between the ALU and IMAD does
+    # better
+    flex = sum(mix.get(c, 0) for c in sass.FLEXIBLE)
+    fixed = {p: n for p, n in mix.items() if p not in sass.FLEXIBLE}
+    for x in range(0, flex + 1, 4):
+        split = dict(fixed, alu=fixed.get('alu', 0) + flex - x,
+                     imad=fixed.get('imad', 0) + x)
+        assert sass.bound_clocks(split) >= clocks - 1e-9
+
+
+def test_flexible_classes_share_one_pair_of_pipes():
+    """Every class of sass.FLEXIBLE is placed between the ALU and IMAD,
+    and a mix's bound depends only on how many such operations it has,
+    not on their class."""
+    assert set(sass.FLEXIBLE.values()) == {('alu', 'imad')}
+    for n in (0, 24, 100):
+        a = sass.resource_clocks({'alu': 140, 'imad': 67, 'shift': n,
+                                  'bitset': 100 - n})
+        b = sass.resource_clocks({'alu': 140, 'imad': 67, 'shift': 100})
+        assert a == pytest.approx(b)
+
+
+def test_placement_leaves_fixed_mixes_alone():
+    mix = {'alu': 331, 'imad': 83, 'other': 31, 'shfl': 10, 'xu': 1}
+    assert sass.resource_clocks(mix) == sass._clocks(mix)
+
+
 def test_resource_clocks_names_the_limit():
     clocks = sass.resource_clocks({'alu': 331, 'imad': 83, 'other': 31,
                                    'shfl': 10, 'xu': 1})
@@ -108,7 +170,8 @@ def test_every_kernel_has_a_source_main_path_and_unit_mix(name):
     assert len(fingerprint) == 16 and int(fingerprint, 16) >= 0
     ops = cs.FUNCTION_OPS[name]
     assert ops and set(ops) <= set(units)
-    assert all(set(mix) <= set(sass.PIPE_RATES) for mix in ops.values())
+    assert all(set(mix) <= set(sass.PIPE_RATES) | set(sass.FLEXIBLE)
+               for mix in ops.values())
 
 
 def test_the_round_and_the_api_split_the_kernels():
@@ -127,11 +190,10 @@ def test_launch_mix_sums_units_and_skips_units_without_work():
 
 
 @pytest.fixture
-def other_sources(tmp_path):
+def other_sources(tmp_path, monkeypatch):
     """``tmp_path`` as the ``csrc/`` that ``build`` builds from."""
-    build.use_sources(tmp_path)
-    yield tmp_path
-    build.use_sources()
+    monkeypatch.setattr(build, 'CSRC', tmp_path)
+    return tmp_path
 
 
 def test_library_path_hashes_the_included_headers(other_sources):
@@ -148,26 +210,11 @@ def test_library_path_hashes_the_included_headers(other_sources):
     assert after[0].name.startswith('user-')
 
 
-def test_use_sources_moves_the_build_and_not_the_repo_paths(tmp_path):
-    """Another checkout's sources are built and hashed from there; the
-    repository paths the results name stay this checkout's; and with no
-    argument, this checkout's sources are in use again."""
-    own = build.library_path('fold_words')
-    (tmp_path / 'fold_words.cu').write_text('// an earlier version\n')
-    build.use_sources(tmp_path)
-    try:
-        assert build.source('fold_words') == tmp_path / 'fold_words.cu'
-        assert build.library_path('fold_words') != own
-        assert build.repo_source('fold_words') == \
-            'src/repro_torch/kernels/csrc/fold_words.cu'
-    finally:
-        build.use_sources()
-    assert build.library_path('fold_words') == own
-
-
 @pytest.mark.parametrize('name,keys', [
     ('spfl_accumulate', {'TILE', 'CHUNK', 'CPT'}),
-    ('fold_words', {'CLUSTER', 'THREADS', 'UNROLL'})])
+    ('fold_words', {'CLUSTER', 'THREADS', 'UNROLL'}),
+    ('quantize_pack', {'THREADS', 'GPW'}),
+    ('corrupt_fold', {'THREADS'})])
 def test_constants_read_the_launch_shape_from_the_source(name, keys):
     """The launch constants that chip_smoke.py's unit counts and edge
     sweep use are the literals of the kernel's source."""
@@ -241,3 +288,129 @@ def test_kernel_ab_needs_a_card():
     assert out.returncode != 0
     assert 'no CUDA card' in out.stderr
     assert 'ms' not in out.stdout
+
+
+def test_use_sources_moves_the_build_and_not_the_repo_paths(tmp_path):
+    """A kernel_ab.py turn on another tree uses that tree's sources: it
+    imports the tree's package, whose kernels are built and hashed from
+    the tree's ``csrc/`` into the tree's own build directory, while the
+    checks and timing (chip_smoke) and the repository paths the results
+    name stay this checkout's."""
+    import shutil
+    tree = tmp_path / 'prev'
+    shutil.copytree(ROOT / 'src' / 'repro_torch', tree / 'src' / 'repro_torch',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    edited = tree / 'src' / 'repro_torch' / 'kernels' / 'csrc' / 'fold_words.cu'
+    edited.write_text(edited.read_text() + '// an earlier version\n')
+    probe = (
+        'import json, sys\n'
+        'from pathlib import Path\n'
+        f'sys.path.insert(0, {str(ROOT)!r})\n'
+        'import kernel_ab\n'
+        f'cs, build = kernel_ab._import_tree(Path({str(tree)!r}))\n'
+        'import repro_torch\n'
+        'print(json.dumps(dict(package=repro_torch.__file__,\n'
+        '    chip_smoke=cs.__file__, csrc=str(build.CSRC),\n'
+        '    build_dir=str(build.BUILD_DIR),\n'
+        "    lib=str(build.library_path('fold_words')),\n"
+        "    repo_source=build.repo_source('fold_words'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    out = subprocess.run([sys.executable, '-c', probe], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    inside = tree.resolve()
+    for key in ('package', 'csrc', 'build_dir', 'lib'):
+        assert pathlib.Path(got[key]).resolve().is_relative_to(inside), key
+    assert pathlib.Path(got['chip_smoke']).resolve() == ROOT / 'chip_smoke.py'
+    assert got['repo_source'] == 'src/repro_torch/kernels/csrc/fold_words.cu'
+    # the edited source names another library than this checkout's
+    assert pathlib.Path(got['lib']).name != \
+        build.library_path('fold_words').name
+
+
+def test_kernel_ab_calls_each_round_kernels_wrapper():
+    """The calls kernel_ab.py times, here through the plain versions on
+    the CPU: each of the four round kernels' wrappers at the main shapes,
+    on the bulk inputs that its cold timing copies."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import kernel_ab
+    finally:
+        sys.path.remove(str(ROOT))
+    calls = kernel_ab.wrapper_calls(_chip_smoke(), device='cpu')
+    assert list(calls) == ['quantize_pack', 'spfl_accumulate',
+                           'corrupt_fold', 'fold_words']
+    shapes = {name: [tuple(t.shape) for t in inputs]
+              for name, (_, inputs) in calls.items()}
+    assert shapes['quantize_pack'] == [(20, 62006)] * 2 + [(20,)] * 2
+    assert shapes['spfl_accumulate'] == [(20, 1938), (20, 5814), (62006,)]
+    assert shapes['corrupt_fold'] == [(20, 5822), (20,)]
+    assert shapes['fold_words'] == [(20, 5822)]
+    sw, qw = calls['quantize_pack'][0](*calls['quantize_pack'][1])
+    assert (sw.shape, qw.shape) == ((20, 1938), (20, 5814))
+    acc, votes = calls['spfl_accumulate'][0](*calls['spfl_accumulate'][1])
+    assert acc.shape == votes.shape == (62006,)
+    rx, fold, flips = calls['corrupt_fold'][0](*calls['corrupt_fold'][1])
+    assert rx.shape == (20, 5822) and int(flips.sum()) > 0
+    assert calls['fold_words'][0](*calls['fold_words'][1]).shape == (20,)
+
+
+def test_main_path_picks_the_function_by_fingerprint(monkeypatch):
+    """A library of several functions (quantize_pack has one per knob
+    width): the spans belong to the one whose fingerprint they were read
+    from; with none, the spans must be read anew."""
+    funcs = sass.parse(LISTING)
+    want = sass.fingerprint(funcs['_Z5otherv'])
+    monkeypatch.setitem(sass.MAIN_PATHS, 'k', (want, {'thread': ((0, 0),)}))
+    assert sass.main_path('k', funcs) is funcs['_Z5otherv']
+    assert sass.main_path_mixes('k', funcs['_Z5otherv']) == {
+        'thread': {'other': 1}}
+    monkeypatch.setitem(sass.MAIN_PATHS, 'k', ('0' * 16, {}))
+    with pytest.raises(RuntimeError, match='read the main-path spans anew'):
+        sass.main_path('k', funcs)
+
+
+@pytest.mark.parametrize('k,n,bits', [(20, 62006, 3), (1, 1, 1), (3, 257, 16),
+                                      (33, 2049, 8), (2, 8192, 3)])
+def test_quantize_pack_units_walk_the_grid(k, n, bits):
+    """quantize_pack's units against a walk of its grid: block b, warp j
+    of it owns groups from (b * THREADS / 32 + j) * GPW on, and a warp
+    whose first group is past the last exits."""
+    cs = _chip_smoke()
+    shape = build.constants('quantize_pack')
+    warps, gpw = shape['THREADS'] // 32, shape['GPW']
+    groups = -(-n // 32)
+    blocks = -(-groups // (warps * gpw))
+    live = sum(1 for b in range(blocks) for j in range(warps)
+               if (b * warps + j) * gpw < groups)
+    units = cs.quantize_pack_units(k, n, bits)
+    assert units['live_thread'] == k * live * 32
+    # each live warp stores 1 + bits words per live group
+    assert units['store_word'] == k * groups * (1 + bits)
+    assert units['live_thread'] + units['idle_thread'] == \
+        k * blocks * shape['THREADS']
+    assert live * gpw * 32 >= n > (live - 1) * gpw * 32
+    assert units['coordinate'] == k * n and units['plane'] == k * n * bits
+
+
+@pytest.mark.parametrize('k,w', [(20, 5822), (20, 1943), (1, 1), (3, 192),
+                                 (3, 193), (33, 40000)])
+def test_corrupt_fold_units_cover_the_words(k, w):
+    """corrupt_fold's units against a walk of its grid: a row's B blocks
+    (at most MAX_BLOCKS, one per THREADS words) take slices of
+    ceil(W / B) words, a thread one word per trip."""
+    cs = _chip_smoke()
+    shape = build.constants('corrupt_fold')
+    threads = shape['THREADS']
+    blocks = max(1, min(shape['MAX_BLOCKS'], -(-w // threads)))
+    per = -(-w // blocks)
+    trips = [len(range(min(w, b * per) + t, min(w, b * per + per), threads))
+             for b in range(blocks) for t in range(threads)]
+    units = cs.corrupt_fold_units(k, w)
+    assert units['word'] == k * sum(trips) == k * w
+    assert units['worker'] == k * sum(1 for n in trips if n)
+    assert units['thread'] == k * blocks * threads
+    # a row of one block writes its outputs itself: no atomics
+    assert units['block'] == (k * blocks if blocks > 1 else 0)
+    assert units['row'] == (k if blocks > 1 else 0)
