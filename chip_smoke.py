@@ -13,13 +13,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    parameters, 3 bits, the framed sign/modulus widths) and at a small
    ragged shape — every output bit-exact, the f32 sum also within the
    reference's FMA-wobble bound — and time both with CUDA events (a
-   kernel from device memory, ``kernel_ms``, and warm); then the four
-   round kernels, untimed, across the shapes their tiles, client chunks,
-   clusters, warps and blocks make edges (``check_edges``); then that a
-   ``corrupt_fold_words`` call writes every output (stale memory in
-   between; calls on two streams at once) and launches one kernel and no
-   fill; then the whole packed, bit-level transport on the card against
-   the same transport on the CPU at full width;
+   kernel from device memory, ``kernel_ms``, and warm; pack_bits at bits
+   1 and dequant at mod_ok 0 too); then the four round kernels, pack_bits
+   and dequant, untimed, across the shapes their tiles, client chunks,
+   clusters, warps, vectors and blocks make edges and on unaligned rows
+   (``check_edges``); then that a ``corrupt_fold_words`` call writes
+   every output (stale memory in between; calls on two streams at once)
+   and launches one kernel and no fill; that the kernels launched with
+   programmatic dependent launch wait before any global load or store
+   (their SASS) and agree with their plain versions when the kernel
+   before writes their input or reads their output, and on two streams
+   (``check_pdl_hazards``); then the whole packed, bit-level transport
+   on the card against the same transport on the CPU at full width;
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
@@ -41,9 +46,10 @@ the HBM rate and the operations its function needs (``FUNCTION_OPS``)
 over the busiest pipe's rate, each shift and bit set placed on the ALU
 or IMAD pipe where the busier of the two is least loaded; the SASS of
 the build on the same path is printed beside it as a diagnostic.  Its
-``ms`` is timed from device memory (``kernel_ms``), and the round
-kernels' rows add ``warm_ms``.  It imports nothing of JAX and nothing of
-the reference package ``repro``.  Kernel libraries are built under
+``ms`` is timed from device memory (``kernel_ms``), ``warm_ms`` on one
+set of tensors; the rows of pack_bits and dequant add ``variants``, the
+same for their other phase 6 calls (bits 1, mod_ok 0).  It imports
+nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
 from __future__ import annotations
@@ -186,6 +192,36 @@ def kernel_ms(fn, tensors, args, sleep: int = 2_000_000) -> dict:
     return out
 
 
+def chain_ms(step, x, reps: int = 25, inner: int = 20,
+             sleep: int = 2_000_000) -> float:
+    """Median device time of one call of a dependent chain: ``reps``
+    CUDA-event pairs around ``inner`` calls ``x = step(x)``, each reading
+    what the call before it wrote (so a launch cannot overlap an
+    independent one), queued behind a device sleep of ``sleep`` clocks;
+    every chain starts again from ``x``."""
+    import torch
+
+    def run():
+        y = x
+        for _ in range(inner):
+            y = step(y)
+        return y
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def cold_copies(tensors) -> list:
     """``tensors`` and enough copies of them that at least 2 x L2_BYTES
     of copies lie between two uses of one when they are used in turn."""
@@ -305,6 +341,39 @@ def quantize_pack_units(k: int, n: int, bits: int) -> dict:
                 store_word=k * groups * (1 + bits),
                 idle_thread=k * (blocks * threads - warps * 32),
                 coordinate=k * n, plane=k * n * bits)
+
+
+def pack_bits_units(n: int, bits: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one pack_bits launch over n
+    values: the threads of warps that hold a live group (every such
+    thread runs the same straight-line path over its warp's groups), the
+    words the warps store (a lane and a trip of the store loop each), the
+    threads of warps past the last group (they exit), and the function's
+    planes (one per value and bit)."""
+    from repro_torch.kernels import build
+    shape = build.constants('pack_bits')
+    gpw, threads = shape['GPW'], shape['THREADS']
+    groups = -(-n // 32)
+    warps = -(-groups // gpw)
+    blocks = -(-warps // (threads // 32))
+    return dict(live_thread=warps * 32, store_word=groups * bits,
+                idle_thread=blocks * threads - warps * 32, plane=n * bits)
+
+
+def dequant_units(n: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one dequant launch over n
+    coordinates whose rows are all 16-byte aligned (the wrapper's fresh
+    tensors): every thread, the threads with coordinates, of which those
+    that take CPT by vector loads and those that take one of the ragged
+    tail, and the function's coordinates."""
+    from repro_torch.kernels import build
+    shape = build.constants('dequant')
+    cpt, threads = shape['CPT'], shape['THREADS']
+    vector = n // cpt
+    tail = n - vector * cpt
+    blocks = -(-(vector + tail) // threads)
+    return dict(thread=blocks * threads, live_thread=vector + tail,
+                vector_thread=vector, tail_thread=tail, coordinate=n)
 
 
 def corrupt_fold_units(k: int, w: int) -> dict:
@@ -509,14 +578,16 @@ def same_f32(a, b) -> bool:
 
 
 def check_edges(seed: int) -> int:
-    """The four round kernels, bit for bit against their plain versions,
-    at the shapes their tiles, client chunks, clusters, warps and blocks
-    make edges (quantize_pack: ``_quantize_pack_edges``, corrupt_fold:
-    ``_corrupt_fold_edges``).  spfl_accumulate: K one client, one chunk,
-    one past it and past two chunks; bits 1, 3, 16 (the planes unrolled
-    at their narrowest, main and widest width), 22-24 (rolled, the two
-    stages just under, at and past the 48 KB of shared memory a block
-    gets without opting in) and 32; n of one coordinate, around a group
+    """The four round kernels and the two redesigned API kernels, bit for
+    bit against their plain versions, at the shapes their tiles, client
+    chunks, clusters, warps, vectors and blocks make edges (quantize_pack:
+    ``_quantize_pack_edges``, corrupt_fold: ``_corrupt_fold_edges``,
+    pack_bits: ``_pack_bits_edges``, dequant: ``_dequant_edges``).
+    spfl_accumulate: K one client, one chunk, one past it and past two
+    chunks; bits 1, 3, 16 (the planes unrolled at their narrowest, main
+    and widest width), 22-24 (rolled, the two stages just under, at and
+    past the 48 KB of shared memory a block gets without opting in) and
+    32; n of one coordinate, around a group
     and around a tile and the main width; shared and per-client gbar;
     contiguous payload rows and rows framed as packets (strided,
     unaligned).  fold_words at K 1 and 20, W of 1, 7, one cluster's
@@ -590,6 +661,7 @@ def check_edges(seed: int) -> int:
                        (ops.fold_words(x), ref.fold_words(x)))
                 shapes += 1
     shapes += _quantize_pack_edges(gen) + _corrupt_fold_edges(gen)
+    shapes += _pack_bits_edges(gen) + _dequant_edges(gen)
     torch.cuda.synchronize()
     return shapes
 
@@ -695,12 +767,115 @@ def _corrupt_fold_edges(gen) -> int:
     return shapes
 
 
+def _pack_bits_edges(gen) -> int:
+    """pack_bits, bit for bit against its plain version: bits 1..32 on
+    arbitrary words (so the bits at and above ``bits`` are dropped), at n
+    of one value, around a group, around a warp's and a block's groups
+    (+-1 group, +-1 value) and the main width; and bits 1, 3 and 32 on
+    each row of a (3, 62,006) tensor, whose rows start 248,024 B apart
+    (8 mod 16).  -> the number of shapes checked."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    shape = build.constants('pack_bits')
+    warp = 32 * shape['GPW']
+    block = warp * shape['THREADS'] // 32
+    shapes = 0
+
+    def words(*size):
+        return torch.randint(-2 ** 31, 2 ** 31, size, generator=gen,
+                             device=gen.device, dtype=torch.int32)
+
+    for n in (1, 31, 32, 33, warp - 32, warp - 1, warp, warp + 1, warp + 32,
+              block - 32, block - 1, block, block + 1, block + 32, 62006):
+        values = words(n)
+        for bits in range(1, 33):
+            _exact(f'pack_bits n={n} bits={bits}',
+                   (ops.pack_bits_flat(values, bits),
+                    ref.pack_bits(values, bits)))
+            shapes += 1
+    rows = words(3, 62006)
+    for i in range(3):
+        for bits in (1, BITS, 32):
+            _exact(f'pack_bits row {i} of (3, 62006) bits={bits}',
+                   (ops.pack_bits_flat(rows[i], bits),
+                    ref.pack_bits(rows[i], bits)))
+            shapes += 1
+    return shapes
+
+
+def _dequant_edges(gen) -> int:
+    """dequant, bit for bit against its plain version: n of one
+    coordinate, around the vector width and the block's tile (+-1) and
+    the main width; bits 1, 3, 16; a live and a zero knob step (gmin =
+    gmax); mod_ok 1 and 0; through the wrapper on fresh tensors, and
+    through the C entry point with every input and the output one to
+    three elements past a 16-byte boundary (a scalar head, then
+    vectors); and each row of (3, 62,006) sign, knob and gbar tensors
+    (rows at n B and 4 n B: not aligned alike).  -> the number of shapes
+    checked."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    shape = build.constants('dequant')
+    cpt = shape['CPT']
+    tile = cpt * shape['THREADS']
+    dev = gen.device
+    entry = build.kernel('dequant')
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = 0
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.float32, device=dev)
+
+    def inputs(size, bits):
+        sign = torch.randint(-1, 2, size, generator=gen, device=dev,
+                             dtype=torch.int8)
+        qidx = torch.randint(0, 2 ** bits, size, generator=gen, device=dev,
+                             dtype=torch.int32)
+        gbar = torch.rand(size, generator=gen, device=dev)
+        return sign, qidx, gbar
+
+    for n in (1, 2, 3, cpt - 1, cpt, cpt + 1, 2 * cpt + 3, tile - 1, tile,
+              tile + 1, 62006):
+        for bits in (1, BITS, 16):
+            sign, qidx, gbar = inputs((n + 3,), bits)
+            for lo, hi in ((0.01, 0.7), (0.25, 0.25)):
+                for ok in (1.0, 0.0):
+                    args = (one(lo), one(hi), one(ok), one(0.8125))
+                    at = f'n={n} bits={bits} step {lo}..{hi} mod_ok={ok}'
+                    want = ref.dequant(sign[:n], qidx[:n], gbar[:n], *args,
+                                       bits)
+                    _exact(f'dequant {at}', (ops.dequant_compensate_flat(
+                        sign[:n], qidx[:n], gbar[:n], *args, bits), want))
+                    for off in (1, 2, 3):
+                        out = torch.full((n + 3,), float('nan'), device=dev)
+                        rc = entry(*(x[off:].data_ptr() for x in (
+                            sign, qidx, gbar)), *(a.data_ptr() for a in args),
+                            out[off:].data_ptr(), n, bits, stream)
+                        if rc:
+                            raise AssertionError(f'dequant launch {rc}')
+                        _exact(f'dequant {at}, every row {off} past 16 B',
+                               (out[off:off + n], ref.dequant(
+                                   sign[off:off + n], qidx[off:off + n],
+                                   gbar[off:off + n], *args, bits)))
+                    shapes += 4
+    sign, qidx, gbar = inputs((3, 62006), BITS)
+    for i in range(3):
+        for ok in (1.0, 0.0):
+            args = (one(0.01), one(0.7), one(ok), one(1.5))
+            _exact(f'dequant row {i} of (3, 62006) mod_ok={ok}',
+                   (ops.dequant_compensate_flat(sign[i], qidx[i], gbar[i],
+                                                *args, BITS),
+                    ref.dequant(sign[i], qidx[i], gbar[i], *args, BITS)))
+            shapes += 1
+    return shapes
+
+
 def check_stale_outputs(seed: int) -> None:
     """corrupt_fold_words writes every output: a call, then one at another
     BER into the memory the first freed (after it was filled with ones),
     then the first call again, which must give the first call's results.
     Then calls on two streams at once, which must all give them too (each
-    stream has its own accumulators)."""
+    stream has its own accumulators).  Then ``check_pdl_hazards``."""
     import torch
     from repro_torch.kernels import ops
     dev = torch.device('cuda')
@@ -737,6 +912,134 @@ def check_stale_outputs(seed: int) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f'corrupt_fold_words {name} differs '
                                      'on two streams at once')
+    check_pdl_hazards(seed, reps=300)
+
+
+def _pack_chain(x, steps: int, pack):
+    """``steps`` calls of ``pack(values, 32)``, each on the output of the
+    one before it less its first group: a 32 x 32 bit transpose per
+    group, shifted by one group a call, so no short cycle can hide a
+    stale read (two bare transposes are the identity)."""
+    for _ in range(steps):
+        x = pack(x[32:], 32)
+    return x
+
+
+def _dequant_chain(y, steps: int, dequant, sign, qidx, args):
+    """``steps`` calls of ``dequant`` with mod_ok 0, each on the output of
+    the one before it as gbar: y <- (w * s) * y, |y| growing by w = 1.25
+    a call, so no short cycle can hide a stale read."""
+    for _ in range(steps):
+        y = dequant(sign, qidx, y, *args, BITS)
+    return y
+
+
+def check_pdl_hazards(seed: int, reps: int = 300) -> None:
+    """The kernels launched with programmatic dependent launch
+    (pack_bits, dequant: kernel_api_v2.cuh) wait for the kernel before
+    them, ``reps`` times each, bit for bit against their plain versions:
+
+    - read after write: chains where each call reads what the call just
+      before it wrote (``_pack_chain``, ``_dequant_chain``), and calls
+      right after a copy kernel that writes their input;
+    - write after read: pairs of launches where the second writes the
+      buffer the first reads (C entry points, no call in between);
+    - the chains on two streams at once."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 32 * (reps + 64)
+    v0 = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    m = 62006
+    sign = (torch.randint(0, 2, (m,), generator=gen, device=dev,
+                          dtype=torch.int8) * 2 - 1)
+    qidx = torch.randint(0, 2 ** BITS, (m,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g0 = torch.rand((m,), generator=gen, device=dev)
+    args = tuple(torch.tensor([x], device=dev)
+                 for x in (0.01, 0.7, 0.0, 1.25))
+    want_p = _pack_chain(v0, reps, ref.pack_bits)
+    want_d = _dequant_chain(g0, reps, ref.dequant, sign, qidx, args)
+    torch.cuda.synchronize()
+    _exact(f'pack_bits chain of {reps}',
+           (_pack_chain(v0, reps, ops.pack_bits_flat), want_p))
+    _exact(f'dequant chain of {reps}',
+           (_dequant_chain(g0, reps, ops.dequant_compensate_flat, sign, qidx,
+                           args), want_d))
+    # a copy kernel writes the input just before each call
+    x, y = torch.empty_like(v0), torch.empty_like(g0)
+    vs, gs = (v0, v0.roll(7)), (g0, want_d)
+    wants = [(ref.pack_bits(v, 32), ref.dequant(sign, qidx, g, *args, BITS))
+             for v, g in zip(vs, gs)]
+    for r in range(reps):
+        x.copy_(vs[r % 2])
+        p = ops.pack_bits_flat(x, 32)
+        y.copy_(gs[r % 2])
+        d = ops.dequant_compensate_flat(sign, qidx, y, *args, BITS)
+        _exact(f'pack_bits / dequant after a copy kernel, call {r}',
+               *zip((p, d), wants[r % 2]))
+    # write after read: the second launch of each pair overwrites the
+    # first's input
+    stream = torch.cuda.current_stream().cuda_stream
+    pack, deq = build.kernel('pack_bits'), build.kernel('dequant')
+    y_p, other_p = torch.empty_like(v0), v0.flip(0).contiguous()
+    y_d, other_d = torch.empty_like(g0), want_d.clone()
+    want = (ref.pack_bits(v0, 32),
+            ref.dequant(sign, qidx, g0, *args, BITS))
+    ptrs = [a.data_ptr() for a in args]
+    for r in range(reps):
+        x.copy_(v0)
+        y.copy_(g0)
+        rc = (pack(x.data_ptr(), y_p.data_ptr(), n, 32, stream),
+              pack(other_p.data_ptr(), x.data_ptr(), n, 32, stream),
+              deq(sign.data_ptr(), qidx.data_ptr(), y.data_ptr(), *ptrs,
+                  y_d.data_ptr(), m, BITS, stream),
+              deq(sign.data_ptr(), qidx.data_ptr(), other_d.data_ptr(),
+                  *ptrs, y.data_ptr(), m, BITS, stream))
+        if any(rc):
+            raise AssertionError(f'launch errors {rc}')
+        _exact(f'pack_bits / dequant before a launch that overwrites '
+               f'their input, pair {r}', (y_p, want[0]), (y_d, want[1]))
+    # the chains on two streams at once
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    steps = max(1, reps // 3)
+    xs, ys = [v0, v0], [g0, g0]
+    for _ in range(steps):
+        for j, s in enumerate((torch.cuda.current_stream(), side)):
+            with torch.cuda.stream(s):
+                xs[j] = _pack_chain(xs[j], 1, ops.pack_bits_flat)
+                ys[j] = _dequant_chain(ys[j], 1, ops.dequant_compensate_flat,
+                                       sign, qidx, args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    want_p = _pack_chain(v0, steps, ref.pack_bits)
+    want_d = _dequant_chain(g0, steps, ref.dequant, sign, qidx, args)
+    for j in range(2):
+        _exact(f'pack_bits / dequant chains on two streams at once ({j})',
+               (xs[j], want_p), (ys[j], want_d))
+
+
+def check_grid_waits() -> list:
+    """Every function of each kernel whose source waits for the kernel
+    before it (``grid_dependency_wait``: programmatic dependent launch)
+    executes griddepcontrol.wait before any global load or store: its
+    SASS has the wait, and no path of its control flow reaches a global
+    memory instruction before it (``sass.memory_before_wait``).  -> those
+    kernels."""
+    from repro_torch.kernels import build, sass
+    names = [name for name in build.KERNELS
+             if 'grid_dependency_wait()' in build.source(name).read_text()]
+    for name, lib in build.build(names).items():
+        for fn, instrs in sass.disassemble(lib).items():
+            early = sass.memory_before_wait(instrs)
+            if early:
+                raise AssertionError(
+                    f'{name} {fn}: {[i.text for i in early]} before the '
+                    'grid dependency wait')
+    return names
 
 
 def device_launches(fn) -> dict:
@@ -863,17 +1166,16 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
 
     groups = fmt.n_groups(n)
     planes = groups * bits * 4                      # knob word bytes
+    # bytes each call must move: dequant reads the sign and, by mod_ok,
+    # the knob index (mod_ok 1) or gbar (mod_ok 0), never both
     results = {
         'quantize': dict(bytes=n * 8 + 8 + n * 5,
                          units=dict(coordinate=n)),
-        'dequant': dict(bytes=n * 9 + 16 + n * 4,
-                        units=dict(coordinate=n)),
+        'dequant': dict(bytes=n * 5 + 16 + n * 4, units=dequant_units(n)),
         'roundtrip': dict(bytes=n * 12 + 16 + n * 4,
                           units=dict(coordinate=n)),
         'pack_bits': dict(bytes=n * 4 + planes,
-                          units=dict(lane=groups * 32,
-                                     plane=groups * 32 * bits,
-                                     word=groups * bits)),
+                          units=pack_bits_units(n, bits)),
         'unpack_bits': dict(bytes=planes + n * 4,
                             units=dict(coordinate=n, plane=n * bits)),
         'unpack_dequant': dict(bytes=groups * 4 + planes + n * 4 + 16
@@ -882,43 +1184,61 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
     }
     for name in results:
         results[name]['max_abs_err'] = err[name]
+    # the other half of phase 6's calls of the two redesigned kernels: sign
+    # packets (bits 1) and clients whose modulus packet was lost
+    results['pack_bits']['variants'] = {'bits 1': dict(
+        bytes=n * 4 + groups * 4, units=pack_bits_units(n, 1))}
+    results['dequant']['variants'] = {'mod_ok 0': dict(
+        bytes=n * 5 + 16 + n * 4, units=dequant_units(n))}
     # client 0 (mod_ok = 1), through the C entry points so that the timing
     # holds no wrapper overhead and no launch is counted
     lo, hi, mok, w = (x[0:1] for x in (gmin, gmax, mod_ok, weight))
+    lost = torch.zeros_like(mok)
     step = knob_step(lo, hi, bits)
     g0, r0 = g[0], rand[0]
     sign, qidx = ref.quantize(g0, r0, lo, hi, bits)
-    sw = ref.pack_bits(fmt.sign_to_bits(sign), 1)
+    sbits = fmt.sign_to_bits(sign)
+    sw = ref.pack_bits(sbits, 1)
     qw = ref.pack_bits(qidx, bits)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     s8 = torch.empty((n,), dtype=torch.int8, device=dev)
     q32 = torch.empty((n,), dtype=torch.int32, device=dev)
-    wout = torch.empty_like(qw)
-    # (tensors, the ints after their pointers, plain version)
+    wout, sout = torch.empty_like(qw), torch.empty_like(sw)
+    # (kernel, variant) -> (tensors, the ints after their pointers, plain
+    # version)
     launches = {
-        'quantize': ((g0, r0, lo, hi, s8, q32), (n, bits),
-                     lambda: ref.quantize(g0, r0, lo, hi, bits)),
-        'dequant': ((sign, qidx, gbar, lo, hi, mok, w, out), (n, bits),
-                    lambda: ref.dequant(sign, qidx, gbar, lo, hi, mok, w,
-                                        bits)),
-        'roundtrip': ((g0, r0, gbar, lo, hi, mok, w, out), (n, bits),
-                      lambda: ref.roundtrip(g0, r0, gbar, lo, hi, mok, w,
-                                            bits)),
-        'pack_bits': ((qidx, wout), (n, bits),
-                      lambda: ref.pack_bits(qidx, bits)),
-        'unpack_bits': ((qw, q32), (n, bits),
-                        lambda: ref.unpack_bits(qw, n, bits)),
-        'unpack_dequant': ((sw, qw, gbar, lo, step, mok, w, out), (n, bits),
-                           lambda: ref.unpack_dequant(sw, qw, gbar, lo, step,
-                                                      mok, w, n, bits)),
+        ('quantize', None): ((g0, r0, lo, hi, s8, q32), (n, bits),
+                             lambda: ref.quantize(g0, r0, lo, hi, bits)),
+        ('dequant', None): ((sign, qidx, gbar, lo, hi, mok, w, out),
+                            (n, bits), lambda: ref.dequant(
+                                sign, qidx, gbar, lo, hi, mok, w, bits)),
+        ('dequant', 'mod_ok 0'): ((sign, qidx, gbar, lo, hi, lost, w, out),
+                                  (n, bits), lambda: ref.dequant(
+                                      sign, qidx, gbar, lo, hi, lost, w,
+                                      bits)),
+        ('roundtrip', None): ((g0, r0, gbar, lo, hi, mok, w, out), (n, bits),
+                              lambda: ref.roundtrip(g0, r0, gbar, lo, hi,
+                                                    mok, w, bits)),
+        ('pack_bits', None): ((qidx, wout), (n, bits),
+                              lambda: ref.pack_bits(qidx, bits)),
+        ('pack_bits', 'bits 1'): ((sbits, sout), (n, 1),
+                                  lambda: ref.pack_bits(sbits, 1)),
+        ('unpack_bits', None): ((qw, q32), (n, bits),
+                                lambda: ref.unpack_bits(qw, n, bits)),
+        ('unpack_dequant', None): (
+            (sw, qw, gbar, lo, step, mok, w, out), (n, bits),
+            lambda: ref.unpack_dequant(sw, qw, gbar, lo, step, mok, w, n,
+                                       bits)),
     }
     stream = torch.cuda.current_stream().cuda_stream
-    for name, (tensors, ints, plain) in launches.items():
-        results[name].update(kernel_ms(
+    for (name, variant), (tensors, ints, plain) in launches.items():
+        r = (results[name] if variant is None
+             else results[name]['variants'][variant])
+        r.update(kernel_ms(
             build.kernel(name), tensors,
             lambda *t, ints=ints: (*(x.data_ptr() for x in t), *ints,
                                    stream)))
-        results[name]['plain_ms'] = device_ms([plain], reps=20, inner=1)
+        r['plain_ms'] = device_ms([plain], reps=20, inner=1)
     return results
 
 
@@ -982,6 +1302,35 @@ def run_sim(fl, rounds: int, label: str):
     return sim, hist, counts
 
 
+def api_client(g, r, gbar, args, sw, qw, check: bool = True):
+    """Phase 6's kernel API calls for one client, in its order: quantize
+    ``g`` with uniforms ``r``, pack its knob indices and signs, unpack
+    the knob words, the roundtrip and dequant, and unpack_dequant of the
+    client's quantize_pack words ``sw``, ``qw``; ``args`` are its gmin,
+    gmax, mod_ok and weight.  -> ({identity: holds} of (a)-(d) of
+    ``run_kernel_api``, the contribution).  Each identity is read on the
+    host as soon as its operands are queued, which waits for the card;
+    ``check=False`` queues the same calls and reads nothing, and the
+    identities are then None."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+
+    def equal(a, b):
+        return torch.equal(a, b) if check else None
+
+    n = g.shape[0]
+    sign, qidx = ops.stochastic_quantize_flat(g, r, args[0], args[1], BITS)
+    words = ops.pack_bits_flat(qidx, BITS)
+    checks = {'a': equal(words, qw)}
+    checks['b'] = equal(ops.pack_bits_flat(fmt.sign_to_bits(sign), 1), sw)
+    checks['c'] = equal(ops.unpack_bits_flat(words, n, BITS), qidx)
+    checks['d'] = equal(ops.spfl_roundtrip_flat(g, r, gbar, *args, BITS),
+                        ops.dequant_compensate_flat(sign, qidx, gbar, *args,
+                                                    BITS))
+    return checks, ops.unpack_dequant_flat(sw, qw, gbar, *args, n, BITS)
+
+
 def run_kernel_api(sim) -> dict:
     """Phase 6: the per-client kernel API on the main path's data.  The
     K client gradients of ``sim`` at its parameters, per-client ranges
@@ -998,7 +1347,6 @@ def run_kernel_api(sim) -> dict:
     -> the launch counts of the phase (reset just before)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.wire import format as fmt
 
     _, grads = sim.client_grads(sim.params)
     grads = grads.detach().contiguous()
@@ -1017,21 +1365,9 @@ def run_kernel_api(sim) -> dict:
     acc = None
     for i in range(k):
         args = (gmin[i], gmax[i], mod_ok[i], weight[i])
-        sign, qidx = ops.stochastic_quantize_flat(grads[i], rand[i],
-                                                  gmin[i], gmax[i], BITS)
-        words = ops.pack_bits_flat(qidx, BITS)
-        checks = {
-            'a': torch.equal(words, qw[i]),
-            'b': torch.equal(ops.pack_bits_flat(fmt.sign_to_bits(sign), 1),
-                             sw[i]),
-            'c': torch.equal(ops.unpack_bits_flat(words, n, BITS), qidx),
-            'd': torch.equal(
-                ops.spfl_roundtrip_flat(grads[i], rand[i], gbar, *args,
-                                        BITS),
-                ops.dequant_compensate_flat(sign, qidx, gbar, *args, BITS)),
-        }
+        checks, contrib = api_client(grads[i], rand[i], gbar, args, sw[i],
+                                     qw[i])
         failed += [f'({c}) client {i}' for c, ok in checks.items() if not ok]
-        contrib = ops.unpack_dequant_flat(sw[i], qw[i], gbar, *args, n, BITS)
         acc = contrib if i == 0 else acc + contrib
     agg, _ = ops.spfl_aggregate_packed(
         sw, qw, gbar, gmin, gmax, mod_ok, weight,
@@ -1053,6 +1389,32 @@ def run_kernel_api(sim) -> dict:
     print(f'kernel API: identities (a)-(e) hold bit for bit for all {k} '
           'clients', flush=True)
     return counts
+
+
+def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
+    """(bound ms, 'bytes' or 'operations') of a launch that moves
+    ``r['bytes']`` and does ``r['units']`` units of work of kernel
+    ``name`` (default ``label``): the larger of the bytes over the HBM
+    rate and the function's operations (``FUNCTION_OPS``) on the busiest
+    resource.  Prints both, and the SASS of the build on the same units
+    (``sass_mix``, per unit) beside them as a diagnostic."""
+    from repro_torch.kernels import sass
+    bytes_ms = r['bytes'] / HBM_BYTES_PER_S * 1e3
+    ops = launch_mix(FUNCTION_OPS[name or label], r['units'])
+    clocks = sass.resource_clocks(ops)
+    ops_ms = max(clocks.values()) / (N_SM * SM_CLOCK_HZ) * 1e3
+    line = (f'{label}: {r["bytes"]} B -> {bytes_ms:.7f} ms; function '
+            f'{json.dumps(ops, sort_keys=True)} operations -> '
+            f'{ops_ms:.7f} ms ({max(clocks, key=clocks.get)}-bound)')
+    if sass_mix is not None:
+        mix = launch_mix(sass_mix, r['units'])
+        line += (f'; SASS {json.dumps(mix, sort_keys=True)} '
+                 f'thread-instructions, {sum(mix.values())} = '
+                 f'{sum(mix.values()) / sum(ops.values()):.2f} x the '
+                 'function')
+    print(line, flush=True)
+    by = 'bytes' if bytes_ms >= ops_ms else 'operations'
+    return max(bytes_ms, ops_ms), by
 
 
 def main() -> int:
@@ -1087,9 +1449,12 @@ def main() -> int:
     w_mod = results['corrupt_fold'].pop('words')
     for name, units in round_units(K, l_main, w_mod).items():
         results[name]['units'] = units
-    print(f'edge sweep: the four round kernels bit-exact at '
-          f'{check_edges(seed=11)} shapes', flush=True)
+    print(f'edge sweep: the four round kernels, pack_bits and dequant '
+          f'bit-exact at {check_edges(seed=11)} shapes', flush=True)
     check_stale_outputs(seed=12)
+    print(f'programmatic dependent launch: {check_grid_waits()} wait before '
+          'any global load or store (SASS); read after write, write after '
+          'read and two streams agree with the plain versions', flush=True)
     names = check_corrupt_fold_launches()
     print(f'corrupt_fold_words: one kernel, no fill, outputs written whole '
           f'(device operations of one call: {json.dumps(names)})',
@@ -1136,35 +1501,30 @@ def main() -> int:
     if leaked:
         return fail(f'imported {leaked}')
 
-    from repro_torch.kernels import sass
     sass_mixes = sass_unit_mixes(build.KERNELS)
     launches = {'round': counts, 'api': api_counts}
     rows = []
     for name, kern in build.TABLE.items():
         r = results[name]
-        bytes_ms = r['bytes'] / HBM_BYTES_PER_S * 1e3
-        ops = launch_mix(FUNCTION_OPS[name], r['units'])
-        clocks = sass.resource_clocks(ops)
-        ops_ms = max(clocks.values()) / (N_SM * SM_CLOCK_HZ) * 1e3
-        line = (f'{name}: {r["bytes"]} B -> {bytes_ms:.7f} ms; function '
-                f'{json.dumps(ops, sort_keys=True)} operations -> '
-                f'{ops_ms:.7f} ms ({max(clocks, key=clocks.get)}-bound)')
-        if name in sass_mixes:
-            mix = launch_mix(sass_mixes[name], r['units'])
-            line += (f'; SASS {json.dumps(mix, sort_keys=True)} '
-                     f'thread-instructions, {sum(mix.values())} = '
-                     f'{sum(mix.values()) / sum(ops.values()):.2f} x the '
-                     'function')
-        print(line, flush=True)
-        rows.append({
+        bound_ms, bound_by = kernel_bound(name, r, sass_mixes.get(name))
+        row = {
             'name': name, 'route': 'cuda', 'source': build.repo_source(name),
             'replaces': kern.replaces, 'launches': launches[kern.path][name],
             'path': kern.path, 'max_abs_err': r['max_abs_err'],
-            'ms': r['ms'], 'warm_ms': r['warm_ms'] if kern.path == 'round'
-            else None, 'plain_ms': r['plain_ms'],
-            'bound_ms': max(bytes_ms, ops_ms),
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None})
+            'ms': r['ms'], 'warm_ms': r['warm_ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None}
+        if 'variants' in r:
+            row['variants'] = {}
+            for label, v in r['variants'].items():
+                # the SASS spans are the main call's function and path
+                v_bound, v_by = kernel_bound(f'{name} ({label})', v, None,
+                                             name)
+                row['variants'][label] = {
+                    'ms': v['ms'], 'warm_ms': v['warm_ms'],
+                    'plain_ms': v['plain_ms'], 'bound_ms': v_bound,
+                    'bound_by': v_by}
+        rows.append(row)
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -4,31 +4,36 @@
     python3 kernel_ab.py PREV_ROOT [--kernels NAME ...] [--profile] [--round]
                                    [--no-check]
 
-times a wrapper call of each named round kernel (default: quantize_pack
+times the wrapper calls of each named kernel (default: quantize_pack
 and corrupt_fold) of ``PREV_ROOT`` (a checkout of an earlier commit, for
 example ``git archive`` of it unpacked under ``build/``) against this
 checkout's.  Each turn is a process of its own that imports the turn's
 tree (``<tree>/src/repro_torch``: its sources, its build table and its
 wrappers, so a kernel whose C interface changed is timed all the same)
-and this checkout's ``chip_smoke``.  A turn first holds the tree's round
-kernels against their plain versions at the main shapes, through the
-tree's wrappers (``chip_smoke.check_kernels(20, 62006, timed=False)``;
+and this checkout's ``chip_smoke``.  A turn first holds the tree's
+kernels of each path it times against their plain versions, through the
+tree's wrappers: the round kernels at the main shapes
+(``chip_smoke.check_kernels(20, 62006, timed=False)``), the kernel API
+on two clients of l=62,006 (``chip_smoke.check_api_kernels``);
 ``--no-check`` skips this, for a variant that leaves out part of the
-work to see what that part costs).  It then times one call of each named
-kernel's wrapper on the same inputs for every tree (``wrapper_calls``:
-the main shapes, the modulus packets for the bit channel) with
+work to see what that part costs.  It then times each named kernel's
+calls (``wrapper_calls``: a round kernel's one call at the main shapes,
+the modulus packets for the bit channel; an API kernel's calls at phase
+6's shapes, ``api_calls``) on the same inputs for every tree with
 ``chip_smoke.kernel_ms``: each call on another copy of its inputs, so it
 reads them from device memory ('ms'), and every call on one set (warm).
-A call's time is all the device work its wrapper queues: the kernel and
-whatever it launches besides (``corrupt_fold_words``' threshold
-arithmetic, and in trees before the accumulators its two output fills).
-The turns run in the order previous, new, new, previous.  Prints the
-card's name and power limit, each turn's times, and as its last line a
-JSON object with every turn and the mean of each version's two.
+A dependent chain ('KERNEL:chain') is timed by ``chip_smoke.chain_ms``:
+each call on the output of the one before it.  A call's time is all the
+device work its wrapper queues: the kernel and whatever it launches
+besides (``corrupt_fold_words``' threshold arithmetic, and in trees
+before the accumulators its two output fills).  The turns run in the
+order previous, new, new, previous.  Prints the card's name and power
+limit, each turn's times, and as its last line a JSON object with every
+turn and the mean of each version's two.
 
 ``--profile`` then runs each version's cold calls again under
-``torch.profiler`` and prints, per kernel, the mean in-kernel device time
-of its launches (CUPTI's kernel records) and, per call, the device
+``torch.profiler`` and prints, per call, the mean in-kernel device time
+of its kernel's launches (CUPTI's kernel records) and, per call, the device
 operations and their summed device time: what the call costs the card
 without the gaps between launches.  ``--round`` builds the main path's
 simulator once per version, runs one round and prints the device
@@ -58,19 +63,23 @@ def _import_tree(tree: Path):
     return chip_smoke, build
 
 
-def _setup(tree: Path):
-    """Import the turn's tree and build its round kernels."""
+def _setup(tree: Path, names):
+    """Import the turn's tree and build the named kernels."""
     chip_smoke, build = _import_tree(tree)
-    build.build(chip_smoke.kernels_on('round'))
+    build.build(names)
     return chip_smoke
 
 
-def wrapper_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
-    """{kernel: (call, inputs)}: one wrapper call of each round kernel at
-    the main shapes (K=20 clients, l=62,006 coordinates, 3 bits; the
-    bit channel and the fold on the framed modulus packets), as
-    ``call(*inputs)`` on ``device``.  The inputs are what the call reads
-    in bulk; its per-client scalars stay put."""
+def wrapper_calls(chip_smoke, seed: int = 1, device: str = 'cuda',
+                  path: str = 'round') -> dict:
+    """{call: (call, inputs)}: wrapper calls of the kernels of ``path``,
+    as ``call(*inputs)`` on ``device``; the inputs are what the call reads
+    in bulk, its per-client scalars stay put.  'round': one call of each
+    round kernel at the main shapes (K=20 clients, l=62,006 coordinates,
+    3 bits; the bit channel and the fold on the framed modulus packets).
+    'api': ``api_calls``."""
+    if path == 'api':
+        return api_calls(chip_smoke, seed, device)
     import torch
     from repro_torch.core import bitchannel
     from repro_torch.kernels import ops
@@ -104,44 +113,151 @@ def wrapper_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     }
 
 
-def time_turn(tree: Path, names, check: bool) -> dict:
-    """{kernel: {'ms', 'warm_ms'}} of one wrapper call each."""
-    chip_smoke = _setup(tree)
-    if check:
+def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
+    """{call: (call, inputs)} of the per-client kernel API at phase 6's
+    shapes: one client, l=62,006, 3 bits, mod_ok 1.  A call named
+    'KERNEL:VARIANT' is another call of KERNEL: pack_bits on sign bits
+    (bits 1), dequant for a client whose modulus packet was lost (mod_ok
+    0), and each one's dependent chain ('chain': its one input is the
+    output of the call before it, see ``chain_ms``), pack_bits at 32 bits
+    on n = 62,016 values (a multiple of 32, so n words out) and dequant at
+    mod_ok 0 with its output as the next gbar.  'KERNEL:after_X' is the
+    call with the call that comes just before it in phase 6
+    (``chip_smoke.api_client``): pack_bits after quantize and after
+    sign_to_bits, dequant after the roundtrip.  'client:queued' is phase
+    6's calls for one client (``chip_smoke.api_client``) with nothing
+    read on the host, 'client:synced' the same with its identities read
+    on the host between the calls, as phase 6 runs them."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+    n, bits = 62006, chip_smoke.BITS
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((n,), generator=gen, device=dev) * 0.01
+    rand = torch.rand((n,), generator=gen, device=dev)
+    gbar = torch.rand((n,), generator=gen, device=dev) * 0.01
+    lo, hi = g.abs().amin().reshape(1), g.abs().amax().reshape(1)
+    one, lost = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    weight = torch.full((1,), 0.75, device=dev)
+    sign, qidx = ops.stochastic_quantize_flat(g, rand, lo, hi, bits)
+    sbits = fmt.sign_to_bits(sign)
+    sw, qw = ops.pack_bits_flat(sbits, 1), ops.pack_bits_flat(qidx, bits)
+    words = torch.randint(-2 ** 31, 2 ** 31, (fmt.n_groups(n) * 32,),
+                          generator=gen, device=dev, dtype=torch.int32)
+    client = (lo, hi, one, weight)
+    return {
+        'quantize': (lambda x, r: ops.stochastic_quantize_flat(
+            x, r, lo, hi, bits), (g, rand)),
+        'dequant': (lambda s, q, gb: ops.dequant_compensate_flat(
+            s, q, gb, lo, hi, one, weight, bits), (sign, qidx, gbar)),
+        'dequant:mod_ok0': (lambda s, q, gb: ops.dequant_compensate_flat(
+            s, q, gb, lo, hi, lost, weight, bits), (sign, qidx, gbar)),
+        'dequant:chain': (lambda gb: ops.dequant_compensate_flat(
+            sign, qidx, gb, lo, hi, lost, one, bits), (gbar,)),
+        'roundtrip': (lambda x, r, gb: ops.spfl_roundtrip_flat(
+            x, r, gb, lo, hi, one, weight, bits), (g, rand, gbar)),
+        'pack_bits': (lambda v: ops.pack_bits_flat(v, bits), (qidx,)),
+        'pack_bits:bits1': (lambda v: ops.pack_bits_flat(v, 1), (sbits,)),
+        'pack_bits:chain': (lambda v: ops.pack_bits_flat(v, 32), (words,)),
+        'unpack_bits': (lambda w: ops.unpack_bits_flat(w, n, bits), (qw,)),
+        'unpack_dequant': (lambda s, q, gb: ops.unpack_dequant_flat(
+            s, q, gb, lo, hi, one, weight, n, bits), (sw, qw, gbar)),
+        'pack_bits:after_quantize': (lambda x, r: ops.pack_bits_flat(
+            ops.stochastic_quantize_flat(x, r, lo, hi, bits)[1], bits),
+            (g, rand)),
+        'pack_bits:after_sign_to_bits': (lambda s: ops.pack_bits_flat(
+            fmt.sign_to_bits(s), 1), (sign,)),
+        'dequant:after_roundtrip': (lambda x, r, gb, s, q: (
+            ops.spfl_roundtrip_flat(x, r, gb, lo, hi, one, weight, bits),
+            ops.dequant_compensate_flat(s, q, gb, lo, hi, one, weight,
+                                        bits)), (g, rand, gbar, sign, qidx)),
+        'client:queued': (lambda x, r, gb, s, q: chip_smoke.api_client(
+            x, r, gb, client, s, q, check=False), (g, rand, gbar, sw, qw)),
+        'client:synced': (lambda x, r, gb, s, q: chip_smoke.api_client(
+            x, r, gb, client, s, q), (g, rand, gbar, sw, qw)),
+    }
+
+
+def kernel_of(call: str) -> str:
+    """The kernel a call of ``wrapper_calls`` times: 'KERNEL:VARIANT' is
+    a call of KERNEL."""
+    return call.split(':')[0]
+
+
+def calls_for(chip_smoke, names, seed: int = 1) -> dict:
+    """The calls of ``wrapper_calls`` whose kernel is named, by path, and
+    the per-client calls ('client:...') when a kernel API kernel is."""
+    out = {}
+    for path in ('round', 'api'):
+        if any(n in chip_smoke.kernels_on(path) for n in names):
+            out.update({c: v for c, v in wrapper_calls(
+                chip_smoke, seed, path=path).items()
+                if kernel_of(c) in names or kernel_of(c) == 'client'})
+    return out
+
+
+def _check(chip_smoke, names) -> None:
+    """Hold the tree's kernels of each path that ``names`` touch against
+    their plain versions at that path's shapes."""
+    if any(n in chip_smoke.kernels_on('round') for n in names):
         chip_smoke.check_kernels(chip_smoke.K, 62006, timed=False, seed=1)
-    calls = wrapper_calls(chip_smoke)
-    return {name: chip_smoke.kernel_ms(calls[name][0], calls[name][1],
-                                       lambda *t: t, sleep=CALL_SLEEP)
-            for name in names}
+    if any(n in chip_smoke.kernels_on('api') for n in names):
+        chip_smoke.check_api_kernels(2, 62006, chip_smoke.BITS, timed=False,
+                                     seed=5)
+
+
+def time_turn(tree: Path, names, check: bool) -> dict:
+    """{call: {'ms', 'warm_ms'}} of each call of the named kernels; a
+    chain's 'ms' is ``chain_ms`` and its 'warm_ms' None."""
+    chip_smoke = _setup(tree, names)
+    if check:
+        _check(chip_smoke, names)
+    out = {}
+    for call, (fn, inputs) in calls_for(chip_smoke, names).items():
+        if call.endswith(':chain'):
+            out[call] = {'ms': chip_smoke.chain_ms(fn, inputs[0],
+                                                   sleep=CALL_SLEEP),
+                         'warm_ms': None}
+        else:
+            out[call] = chip_smoke.kernel_ms(fn, inputs, lambda *t: t,
+                                             sleep=CALL_SLEEP)
+    return out
 
 
 def profile_turn(tree: Path, names, check: bool) -> dict:
-    """{kernel: {'kernel_ms': mean in-kernel time of its launches,
+    """{call: {'kernel_ms': mean in-kernel time of its kernel's launches,
     'ops': device operations per call, 'device_ms': their summed device
     time per call}} over three passes of cold calls (each on another
-    copy of the inputs), from ``torch.profiler``'s CUDA records; a
-    kernel whose records hold no device time maps to None."""
+    copy of the inputs; a chain's calls each on the output of the one
+    before), from ``torch.profiler``'s CUDA records; a call whose records
+    hold no device time maps to None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    chip_smoke = _setup(tree)
-    calls = wrapper_calls(chip_smoke)
+    chip_smoke = _setup(tree, names)
     out = {}
-    for name in names:
-        call, inputs = calls[name]
+    for name, (call, inputs) in calls_for(chip_smoke, names).items():
         copies = chip_smoke.cold_copies(inputs)
+        n_calls = 3 * len(copies)
+        if name.endswith(':chain'):
+            def run(x=inputs[0]):
+                for _ in range(n_calls):
+                    x = call(x)
+        else:
+            def run():
+                for _ in range(3):
+                    for c in copies:
+                        call(*c)
         for c in copies:
             call(*c)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                for c in copies:
-                    call(*c)
+            run()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         own = [e.device_time_total for e in events
-               if f'{name}_kernel' in e.name]
-        n_calls = 3 * len(copies)
+               if f'{kernel_of(name)}_kernel' in e.name]
         total = sum(e.device_time_total for e in events)
         out[name] = ({'kernel_ms': sum(own) / len(own) / 1e3,
                       'ops': len(events) / n_calls,
@@ -154,7 +270,7 @@ def profile_turn(tree: Path, names, check: bool) -> dict:
 
 def round_turn(tree: Path, names, check: bool) -> str:
     """The device operations of the main path's second round."""
-    chip_smoke = _setup(tree)
+    chip_smoke = _setup(tree, names)
     from repro_torch.configs.base import FLConfig
     from repro_torch.training.fl_loop import build_simulator
     sim = build_simulator(FLConfig(wire='packed', channel='bitlevel'),
@@ -183,7 +299,9 @@ def main() -> int:
     parser.add_argument('--kernels', nargs='+',
                         default=['quantize_pack', 'corrupt_fold'],
                         choices=['quantize_pack', 'spfl_accumulate',
-                                 'corrupt_fold', 'fold_words'])
+                                 'corrupt_fold', 'fold_words', 'quantize',
+                                 'dequant', 'roundtrip', 'pack_bits',
+                                 'unpack_bits', 'unpack_dequant'])
     parser.add_argument('--profile', action='store_true',
                         help='in-kernel time per launch and device time '
                              'per call (torch.profiler)')
@@ -215,8 +333,9 @@ def main() -> int:
         ms = turn('time', trees[label], args.kernels, args.check)
         runs.append({'version': label, 'ms': ms})
         print(f'{label}: ' + ', '.join(
-            f'{n} {t["ms"]:.7f} ms per call (warm {t["warm_ms"]:.7f})'
-            for n, t in ms.items()), flush=True)
+            f'{n} {t["ms"]:.7f} ms per call' + (
+                f' (warm {t["warm_ms"]:.7f})' if t['warm_ms'] is not None
+                else '') for n, t in ms.items()), flush=True)
     profiles, rounds = {}, {}
     for label, tree in trees.items():
         if args.profile:
@@ -233,7 +352,7 @@ def main() -> int:
                   flush=True)
     means = {label: {name: sum(r['ms'][name]['ms'] for r in runs
                                if r['version'] == label) / 2
-                     for name in args.kernels} for label in trees}
+                     for name in runs[0]['ms']} for label in trees}
     print(json.dumps({'card': card, 'runs': runs, 'mean_ms': means,
                       'profile': profiles, 'round': rounds}), flush=True)
     return 0

@@ -1,0 +1,89 @@
+// Device and launch helpers of the redesigned per-client kernels
+// (pack_bits.cu, dequant.cu): streamed loads, and programmatic dependent
+// launch (PDL, Hopper).
+//
+// PDL: a kernel launched with launch_pdl() may be scheduled
+// while the kernel before it on the stream is still running, once every
+// block of that kernel has executed launch_dependents() or exited.  Its
+// blocks then set up (parameters, index arithmetic) beside the earlier
+// kernel's tail, and grid_dependency_wait() holds each thread until the
+// earlier kernel has completed and its writes are visible.  So every
+// kernel launched this way calls grid_dependency_wait() before its first
+// global load or store: the inputs the kernel before wrote (read after
+// write) and the buffers it still reads (write after read) are then safe.
+// A kernel launched without the attribute, or after a kernel that is not
+// a kernel (a copy, a fill, an event), waits for nothing here.
+//
+// Every load below is `asm volatile` with a memory clobber, so the
+// compiler keeps it after the wait, which is one too, and none is a
+// non-coherent (.nc) load: ptxas takes such a load's data as fixed for
+// the kernel's lifetime and may hoist it above the wait (an
+// LDG...CONSTANT came out before the ACQBULK of griddepcontrol.wait).
+// chip_smoke.py checks the SASS of every kernel that waits.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// griddepcontrol.wait: returns once the grids this one depends on have
+// completed and their memory operations are visible to it.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// griddepcontrol.launch_dependents: the next kernel on the stream may be
+// scheduled once every block has executed this or exited.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Read-once loads: not kept in L1, and a miss fetches the 256 B around
+// it into L2, so a warp's loads of a row share DRAM bursts.  Coherent
+// loads, so they stay after grid_dependency_wait().
+__device__ __forceinline__ uint32_t load_streamed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.L1::no_allocate.L2::256B.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 load_streamed_v4(const void* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p)
+      : "memory");
+  return v;
+}
+
+// One signed byte, sign-extended.
+__device__ __forceinline__ int load_streamed_s8(const int8_t* p) {
+  int v;
+  asm volatile("ld.global.L1::no_allocate.L2::256B.s8 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Launch `kernel` on a 1-D grid with programmatic stream serialization;
+// -> the launch's error (0 when it was queued).
+template <typename... Params, typename... Args>
+static int launch_pdl(void (*kernel)(Params...), unsigned blocks,
+                      unsigned threads, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();   // clear it either way
+  return (int)(err != cudaSuccess ? err : last);
+}

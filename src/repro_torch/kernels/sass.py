@@ -211,6 +211,58 @@ def path_mix(instrs: List[Instr], spans) -> Counter:
     return mix
 
 
+# griddepcontrol.wait (programmatic dependent launch) in SASS, and the
+# instructions that read or write global memory
+GRID_WAIT = 'ACQBULK'
+GLOBAL_MEMORY = ('LDG', 'STG', 'LD', 'ST', 'ATOM', 'ATOMG', 'RED', 'LDGSTS')
+# control flow: a guard (@P0 ...) or a predicate operand (BRA !P3, ...)
+# makes a branch or an exit conditional
+_GUARDED = re.compile(r'\*/ @|\s!?U?P[T0-9]+\s*,')
+_ENDS = ('EXIT', 'RET', 'KILL')
+_INDIRECT = ('BRX', 'JMX', 'JMP', 'CALLX')
+
+
+def successors(instrs: List[Instr], k: int) -> List[int]:
+    """Indices of the instructions that may run after ``instrs[k]``: the
+    next one unless it is an unconditional branch or end, and a branch's
+    or call's target (a call returns to the next one)."""
+    ins = instrs[k]
+    if ins.op in _INDIRECT:
+        raise RuntimeError(f'indirect branch: {ins.text}')
+    guarded = bool(_GUARDED.search(ins.text))
+    nxt = [k + 1] if k + 1 < len(instrs) else []
+    if ins.op in _ENDS:
+        return nxt if guarded else []
+    if ins.op not in ('BRA', 'CALL'):
+        return nxt
+    target = int(_TARGET.findall(ins.text)[-1], 16)
+    at = [j for j, i in enumerate(instrs) if i.addr == target]
+    if not at:
+        raise RuntimeError(f'branch to no instruction: {ins.text}')
+    return at + (nxt if guarded or ins.op == 'CALL' else [])
+
+
+def memory_before_wait(instrs: List[Instr]) -> List[Instr]:
+    """The global loads and stores that some path from the entry reaches
+    without passing a griddepcontrol.wait, in address order (a walk of
+    the control flow: branches, calls and conditional exits); raises if
+    ``instrs`` has no wait."""
+    if not any(i.op == GRID_WAIT for i in instrs):
+        raise RuntimeError(f'no {GRID_WAIT} (griddepcontrol.wait)')
+    seen, todo, early = {0}, [0], []
+    while todo:
+        k = todo.pop()
+        if instrs[k].op == GRID_WAIT:
+            continue
+        if instrs[k].op in GLOBAL_MEMORY:
+            early.append(instrs[k])
+        for j in successors(instrs, k):
+            if j not in seen:
+                seen.add(j)
+                todo.append(j)
+    return sorted(early, key=lambda i: i.addr)
+
+
 def fingerprint(instrs: List[Instr]) -> str:
     return hashlib.sha256('\n'.join(i.text for i in instrs).encode()
                           ).hexdigest()[:16]
@@ -294,25 +346,40 @@ MAIN_PATHS = {
         'word': (),
     }),
     # the per-client kernel API: both float divisions on their fast path,
-    # step > 0, mod_ok > 0; the bit-plane loops are not unrolled, so one
-    # trip of each is one plane
+    # step > 0, mod_ok > 0; the bit-plane loops of the kernels that include
+    # kernel_api.cuh are not unrolled, so one trip of each is one plane
     'quantize': ('2461f1814426022b', {
         'coordinate': ((0x0000, 0x0270), (0x02b0, 0x0390),
                        (0x03d0, 0x0560)),
     }),
-    'dequant': ('90d4688e66500dc3', {
-        'coordinate': ((0x0000, 0x01d0), (0x0210, 0x03e0)),
+    'dequant': ('d969def6d87faceb', {
+        # every thread: set-up and the exit test (threads past the end
+        # exit there); a thread with coordinates (CPT by vector or one of
+        # the tail's): the wait, its loads (both kinds' loads are
+        # predicated, so both issue), the four scalar loads and the knob
+        # step's division on its fast path; then a vector thread's CPT
+        # outputs and 16-byte store, or a tail thread's one output and
+        # store.  A coordinate has no span of its own.
+        'thread': ((0x0000, 0x00f0),),
+        'live_thread': ((0x0100, 0x0470), (0x04b0, 0x04b0)),
+        'vector_thread': ((0x0560, 0x0720),),
+        'tail_thread': ((0x04c0, 0x0550),),
+        'coordinate': (),
     }),
     'roundtrip': ('4d6e023e7f620eca', {
         'coordinate': ((0x0000, 0x0270), (0x02c0, 0x03a0),
                        (0x03f0, 0x0610)),
     }),
-    'pack_bits': ('f44bd7609c68f374', {
-        # every lane of a group (tail lanes too): set-up, load, exit test;
-        # per lane and plane: one ballot trip; per word: the store
-        'lane': ((0x0000, 0x0260), (0x0300, 0x0300)),
-        'plane': ((0x0270, 0x02f0),),
-        'word': ((0x0310, 0x03b0),),
+    'pack_bits': ('1d080b580ac4eafb', {
+        # pack_bits_kernel<3>: a thread of a warp with a live group waits,
+        # loads its GPW values, votes each plane and stages the words, and
+        # exits unless it stores one; a lane that stores a word (bits 3:
+        # 12 words per warp, one unrolled trip) adds the store; warps past
+        # the last group exit.  A plane has no span of its own.
+        'live_thread': ((0x0000, 0x05c0),),
+        'store_word': ((0x05d0, 0x0650),),
+        'idle_thread': ((0x0000, 0x0080),),
+        'plane': (),
     }),
     'unpack_bits': ('cb89fc041d28a4ab', {
         'coordinate': ((0x0000, 0x01b0), (0x0280, 0x02c0)),

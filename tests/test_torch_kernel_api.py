@@ -20,6 +20,7 @@ import torch
 
 from test_torch_parity import words_np
 from repro.kernels import ops
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.wire import format as tfmt
 
@@ -126,6 +127,97 @@ def test_pack_unpack_bits_match_pallas(bits, n, wide):
     np.testing.assert_array_equal(words_np(tback), np.asarray(back))
     if not wide:
         np.testing.assert_array_equal(words_np(tback), v)
+
+
+# the n at which the redesigned pack_bits kernel's warps (GPW groups) and
+# blocks (THREADS / 32 warps) end, +-1 group and +-1 value
+_PB = build.constants('pack_bits')
+_WARP = 32 * _PB['GPW']
+_BLOCK = _WARP * _PB['THREADS'] // 32
+EDGE_N = (1, 31, 32, 33, _WARP - 32, _WARP - 1, _WARP, _WARP + 1, _WARP + 32,
+          _BLOCK - 32, _BLOCK - 1, _BLOCK, _BLOCK + 1, _BLOCK + 32)
+
+
+@pytest.mark.parametrize('n', EDGE_N + (62006,))
+@pytest.mark.parametrize('bits', [1, 3, 16, 32])
+def test_pack_unpack_bits_edges_match_pallas(n, bits):
+    """Values over the whole uint32 range (the bits at and above ``bits``
+    are dropped), at the n where groups, warps and blocks end."""
+    v = np.random.RandomState(n * 33 + bits).randint(
+        0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    w = ops.pack_bits_flat(jnp.asarray(v), bits, interpret=True)
+    tw = tops.pack_bits_flat(_t(v.view(np.int32)), bits)
+    assert tw.shape == (tfmt.n_groups(n) * bits,)
+    np.testing.assert_array_equal(words_np(tw), np.asarray(w))
+    back = ops.unpack_bits_flat(w, n, bits, interpret=True)
+    np.testing.assert_array_equal(
+        words_np(tops.unpack_bits_flat(tw, n, bits)), np.asarray(back))
+
+
+@pytest.mark.parametrize('n', [1, 3, 4, 5, 11, 511, 512, 513])
+@pytest.mark.parametrize('bits', [1, 3, 16])
+@pytest.mark.parametrize('mod_ok', [0.0, 1.0])
+def test_dequant_zero_step_matches_pallas_bit_for_bit(n, bits, mod_ok):
+    """Constant |g| (gmin = gmax, knob step 0) at n around the vector
+    width and a block's tile: gmin + q * 0 and the gbar select leave no
+    product that XLA could contract, so both sides agree bit for bit."""
+    rng = np.random.RandomState(n + 7 * bits)
+    sign = rng.randint(-1, 2, n).astype(np.int8)
+    qidx = rng.randint(0, 2 ** bits, n).astype(np.int32)
+    gbar = rng.uniform(0, 0.05, n).astype(np.float32)
+    lo = hi = np.float32(0.25)
+    out = ops.dequant_compensate_flat(jnp.asarray(sign), jnp.asarray(qidx),
+                                      jnp.asarray(gbar), lo, hi, mod_ok,
+                                      0.77, bits, interpret=True)
+    tout = tops.dequant_compensate_flat(_t(sign), _t(qidx), _t(gbar), lo, hi,
+                                        mod_ok, 0.77, bits)
+    np.testing.assert_array_equal(tout.numpy().view(np.int32),
+                                  np.asarray(out).view(np.int32))
+
+
+@pytest.mark.parametrize('row', [0, 1, 2])
+@pytest.mark.parametrize('bits', [1, 3, 32])
+def test_pack_unpack_bits_on_row_views_match_pallas(row, bits):
+    """Rows of (3, 62,006) values and (3, words) tensors: views whose
+    starts are 248,024 B apart (8 mod 16), as phase 6's rows are."""
+    n = 62006
+    rng = np.random.RandomState(row + 10 * bits)
+    v = rng.randint(0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.uint32)
+    tv = _t(v.view(np.int32))
+    assert tv[row].storage_offset() == row * n
+    w = ops.pack_bits_flat(jnp.asarray(v[row]), bits, interpret=True)
+    tw = tops.pack_bits_flat(tv[row], bits)
+    np.testing.assert_array_equal(words_np(tw), np.asarray(w))
+    words = torch.stack([tops.pack_bits_flat(tv[i], bits) for i in range(3)])
+    back = ops.unpack_bits_flat(w, n, bits, interpret=True)
+    np.testing.assert_array_equal(
+        words_np(tops.unpack_bits_flat(words[row], n, bits)),
+        np.asarray(back))
+
+
+@pytest.mark.parametrize('row', [0, 1, 2])
+@pytest.mark.parametrize('mod_ok,zero_step', [(0.0, False), (0.0, True),
+                                              (1.0, True)])
+def test_dequant_on_row_views_matches_pallas_bit_for_bit(row, mod_ok,
+                                                         zero_step):
+    """Rows of (3, 62,006) sign, knob and gbar tensors (starts at row * n
+    B and row * 4 n B: not aligned alike), bit for bit where the knob
+    step leaves XLA nothing to contract (mod_ok 0, or step 0)."""
+    n, bits = 62006, 3
+    rng = np.random.RandomState(row)
+    sign = rng.randint(-1, 2, (3, n)).astype(np.int8)
+    qidx = rng.randint(0, 2 ** bits, (3, n)).astype(np.int32)
+    gbar = rng.uniform(0, 0.05, (3, n)).astype(np.float32)
+    lo, hi = ((np.float32(0.25),) * 2 if zero_step
+              else (np.float32(0.013), np.float32(0.71)))
+    out = ops.dequant_compensate_flat(
+        jnp.asarray(sign[row]), jnp.asarray(qidx[row]), jnp.asarray(gbar[row]),
+        lo, hi, mod_ok, 1.5, bits, interpret=True)
+    ts, tq, tg = _t(sign)[row], _t(qidx)[row], _t(gbar)[row]
+    assert tq.storage_offset() == row * n
+    tout = tops.dequant_compensate_flat(ts, tq, tg, lo, hi, mod_ok, 1.5, bits)
+    np.testing.assert_array_equal(tout.numpy().view(np.int32),
+                                  np.asarray(out).view(np.int32))
 
 
 @pytest.mark.parametrize('mod_ok', [0.0, 1.0])

@@ -214,7 +214,9 @@ def test_library_path_hashes_the_included_headers(other_sources):
     ('spfl_accumulate', {'TILE', 'CHUNK', 'CPT'}),
     ('fold_words', {'CLUSTER', 'THREADS', 'UNROLL'}),
     ('quantize_pack', {'THREADS', 'GPW'}),
-    ('corrupt_fold', {'THREADS'})])
+    ('corrupt_fold', {'THREADS'}),
+    ('pack_bits', {'THREADS', 'GPW'}),
+    ('dequant', {'THREADS', 'CPT'})])
 def test_constants_read_the_launch_shape_from_the_source(name, keys):
     """The launch constants that chip_smoke.py's unit counts and edge
     sweep use are the literals of the kernel's source."""
@@ -329,20 +331,30 @@ def test_use_sources_moves_the_build_and_not_the_repo_paths(tmp_path):
         build.library_path('fold_words').name
 
 
-def test_kernel_ab_calls_each_round_kernels_wrapper():
+@pytest.mark.parametrize('path', ['round', 'api'])
+def test_kernel_ab_calls_each_round_kernels_wrapper(path):
     """The calls kernel_ab.py times, here through the plain versions on
-    the CPU: each of the four round kernels' wrappers at the main shapes,
-    on the bulk inputs that its cold timing copies."""
+    the CPU.  'round': each of the four round kernels' wrappers at the
+    main shapes, on the bulk inputs that its cold timing copies.  'api':
+    each kernel API wrapper at phase 6's shapes, with the second calls of
+    pack_bits (bits 1) and dequant (mod_ok 0), the dependent chains,
+    whose one input takes the shape of their output, the PDL kernels
+    behind the call before them in phase 6, and one client's phase 6
+    calls."""
     sys.path.insert(0, str(ROOT))
     try:
         import kernel_ab
     finally:
         sys.path.remove(str(ROOT))
-    calls = kernel_ab.wrapper_calls(_chip_smoke(), device='cpu')
-    assert list(calls) == ['quantize_pack', 'spfl_accumulate',
-                           'corrupt_fold', 'fold_words']
+    cs = _chip_smoke()
+    calls = kernel_ab.wrapper_calls(cs, device='cpu', path=path)
     shapes = {name: [tuple(t.shape) for t in inputs]
               for name, (_, inputs) in calls.items()}
+    if path == 'api':
+        _check_api_calls(kernel_ab, cs, calls, shapes)
+        return
+    assert list(calls) == ['quantize_pack', 'spfl_accumulate',
+                           'corrupt_fold', 'fold_words']
     assert shapes['quantize_pack'] == [(20, 62006)] * 2 + [(20,)] * 2
     assert shapes['spfl_accumulate'] == [(20, 1938), (20, 5814), (62006,)]
     assert shapes['corrupt_fold'] == [(20, 5822), (20,)]
@@ -354,6 +366,122 @@ def test_kernel_ab_calls_each_round_kernels_wrapper():
     rx, fold, flips = calls['corrupt_fold'][0](*calls['corrupt_fold'][1])
     assert rx.shape == (20, 5822) and int(flips.sum()) > 0
     assert calls['fold_words'][0](*calls['fold_words'][1]).shape == (20,)
+
+
+def _check_api_calls(kernel_ab, cs, calls, shapes):
+    import torch
+    assert list(calls) == [
+        'quantize', 'dequant', 'dequant:mod_ok0', 'dequant:chain',
+        'roundtrip', 'pack_bits', 'pack_bits:bits1', 'pack_bits:chain',
+        'unpack_bits', 'unpack_dequant', 'pack_bits:after_quantize',
+        'pack_bits:after_sign_to_bits', 'dequant:after_roundtrip',
+        'client:queued', 'client:synced']
+    assert sorted({kernel_ab.kernel_of(c) for c in calls} - {'client'}) == \
+        sorted(cs.kernels_on('api'))
+    n = 62006
+    assert shapes['quantize'] == [(n,)] * 2
+    assert shapes['dequant'] == shapes['dequant:mod_ok0'] == [(n,)] * 3
+    assert shapes['roundtrip'] == [(n,)] * 3
+    assert shapes['pack_bits'] == shapes['pack_bits:bits1'] == [(n,)]
+    assert shapes['unpack_bits'] == [(1938 * 3,)]
+    assert shapes['unpack_dequant'] == [(1938,), (1938 * 3,), (n,)]
+    out = {c: fn(*inputs) for c, (fn, inputs) in calls.items()}
+    assert out['pack_bits'].shape == (1938 * 3,)
+    assert out['pack_bits:bits1'].shape == (1938,)
+    assert torch.equal(out['unpack_bits'], calls['pack_bits'][1][0])
+    assert not torch.equal(out['dequant'], out['dequant:mod_ok0'])
+    # a chain's output is its next input; two 32 x 32 bit transposes
+    # give back the values
+    for chain in ('dequant:chain', 'pack_bits:chain'):
+        fn, (x,) = calls[chain]
+        assert out[chain].shape == x.shape and out[chain].dtype == x.dtype
+    fn, (x,) = calls['pack_bits:chain']
+    assert x.shape[0] % 32 == 0 and torch.equal(fn(fn(x)), x)
+    # a call behind the one before it in phase 6 gives the lone call's
+    # output; one client's calls hold phase 6's identities
+    assert torch.equal(out['pack_bits:after_quantize'], out['pack_bits'])
+    assert torch.equal(out['pack_bits:after_sign_to_bits'],
+                       out['pack_bits:bits1'])
+    for got, want in zip(out['dequant:after_roundtrip'],
+                         (out['roundtrip'], out['dequant'])):
+        assert torch.equal(got, want)
+    (held, contrib), (unread, queued) = out['client:synced'], \
+        out['client:queued']
+    assert all(held.values()) and set(unread.values()) == {None}
+    assert contrib.shape == (n,) and torch.equal(contrib, queued)
+
+
+def test_memory_before_wait_reads_the_sass_up_to_the_grid_wait():
+    """Global loads and stores that a path from the entry reaches before
+    an ACQBULK (griddepcontrol.wait) are reported, also past the wait
+    by a forward branch; constant-bank and shared-memory accesses are
+    not; a kernel without the wait raises."""
+    listing = LISTING.replace(
+        '        /*0010*/                   IMAD.MOV.U32 R0, RZ, RZ, 0x1 ;',
+        '        /*0008*/                   LDG.E.CONSTANT R7, desc[R2.64] ;\n'
+        '        /*000c*/                   LDS R8, [R9] ;\n'
+        '        /*0010*/                   ACQBULK ;\n'
+        '        /*0018*/                   STG.E desc[UR4][R2.64], R7 ;')
+    instrs = sass.parse(listing)['_Z6kernelPj']
+    early = sass.memory_before_wait(instrs)
+    assert [i.op for i in early] == ['LDG']
+    assert sass.memory_before_wait([i for i in instrs
+                                    if i.op not in ('LDG',)]) == []
+    with pytest.raises(RuntimeError, match='griddepcontrol.wait'):
+        sass.memory_before_wait(sass.parse(LISTING)['_Z6kernelPj'])
+    # a guarded branch over the wait reaches the store behind it, a
+    # guarded exit does not end the path, an unguarded one does
+    jump = LISTING.replace(
+        '        /*0010*/                   IMAD.MOV.U32 R0, RZ, RZ, 0x1 ;',
+        '        /*0004*/               @P2 EXIT ;\n'
+        '        /*0008*/               @P2 BRA 0x18 ;\n'
+        '        /*0010*/                   ACQBULK ;\n'
+        '        /*0018*/                   STG.E desc[UR4][R2.64], R7 ;')
+    instrs = sass.parse(jump)['_Z6kernelPj']
+    assert [i.addr for i in sass.memory_before_wait(instrs)] == [0x18]
+    assert sass.memory_before_wait([i._replace(op='EXIT', text='EXIT ;')
+                                    if i.addr == 0x4 else i
+                                    for i in instrs]) == []
+
+
+@pytest.mark.parametrize('n,bits', [(62006, 3), (62006, 1), (1, 32),
+                                    (129, 16), (2048, 3), (2049, 8)])
+def test_pack_bits_units_walk_the_grid(n, bits):
+    """pack_bits' units against a walk of its grid: block b, warp j of it
+    owns groups from (b * THREADS / 32 + j) * GPW on, a warp whose first
+    group is past the last exits, and a live warp's lanes store its
+    groups' words, one a lane and trip."""
+    cs = _chip_smoke()
+    shape = build.constants('pack_bits')
+    warps, gpw = shape['THREADS'] // 32, shape['GPW']
+    groups = -(-n // 32)
+    blocks = -(-groups // (warps * gpw))
+    starts = [(b * warps + j) * gpw for b in range(blocks)
+              for j in range(warps)]
+    live = [g for g in starts if g < groups]
+    units = cs.pack_bits_units(n, bits)
+    assert units['live_thread'] == 32 * len(live)
+    assert units['idle_thread'] == 32 * (len(starts) - len(live))
+    assert units['store_word'] == sum(min(gpw, groups - g) * bits
+                                      for g in live) == groups * bits
+    assert units['plane'] == n * bits
+
+
+@pytest.mark.parametrize('n', [1, 3, 4, 5, 62006, 62008, 512, 513])
+def test_dequant_units_cover_the_coordinates(n):
+    """dequant's units on aligned rows: CPT coordinates a vector thread,
+    one a tail thread, every coordinate once, and whole blocks."""
+    cs = _chip_smoke()
+    shape = build.constants('dequant')
+    cpt, threads = shape['CPT'], shape['THREADS']
+    units = cs.dequant_units(n)
+    assert (units['vector_thread'] * cpt + units['tail_thread']
+            == units['coordinate'] == n)
+    assert 0 <= units['tail_thread'] < cpt
+    assert units['live_thread'] == units['vector_thread'] + \
+        units['tail_thread'] <= units['thread']
+    assert units['thread'] % threads == 0
+    assert units['thread'] - units['live_thread'] < threads
 
 
 def test_main_path_picks_the_function_by_fingerprint(monkeypatch):
