@@ -14,17 +14,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ragged shape — every output bit-exact, the f32 sum also within the
    reference's FMA-wobble bound — and time both with CUDA events (a
    kernel from device memory, ``kernel_ms``, and warm; pack_bits at bits
-   1 and dequant at mod_ok 0 too); then the four round kernels, pack_bits
-   and dequant, untimed, across the shapes their tiles, client chunks,
-   clusters, warps, vectors and blocks make edges and on unaligned rows
-   (``check_edges``); then that a ``corrupt_fold_words`` call writes
-   every output (stale memory in between; calls on two streams at once)
-   and launches one kernel and no fill; that the kernels launched with
-   programmatic dependent launch wait before any global load or store
-   (their SASS) and agree with their plain versions when the kernel
-   before writes their input or reads their output, and on two streams
-   (``check_pdl_hazards``); then the whole packed, bit-level transport
-   on the card against the same transport on the CPU at full width;
+   1, dequant and roundtrip at mod_ok 0 too); then the four round
+   kernels, pack_bits, dequant, quantize and roundtrip, untimed, across
+   the shapes their tiles, client chunks, clusters, warps, vectors and
+   blocks make edges and on unaligned rows (``check_edges``); then that
+   a ``corrupt_fold_words`` call writes every output (stale memory in
+   between; calls on two streams at once) and launches one kernel and no
+   fill; that the kernels launched with programmatic dependent launch
+   wait before any global load or store (their SASS) and agree with
+   their plain versions when the kernel before writes their input or
+   reads their output, and on two streams (``check_pdl_hazards``); then
+   the whole packed, bit-level transport on the card against the same
+   transport on the CPU at full width;
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
@@ -47,8 +48,9 @@ over the busiest pipe's rate, each shift and bit set placed on the ALU
 or IMAD pipe where the busier of the two is least loaded; the SASS of
 the build on the same path is printed beside it as a diagnostic.  Its
 ``ms`` is timed from device memory (``kernel_ms``), ``warm_ms`` on one
-set of tensors; the rows of pack_bits and dequant add ``variants``, the
-same for their other phase 6 calls (bits 1, mod_ok 0).  It imports
+set of tensors; the rows of pack_bits, dequant and roundtrip add
+``variants``, the same for their other phase 6 calls (bits 1, mod_ok
+0).  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -360,14 +362,15 @@ def pack_bits_units(n: int, bits: int) -> dict:
                 idle_thread=blocks * threads - warps * 32, plane=n * bits)
 
 
-def dequant_units(n: int) -> dict:
-    """Units of work (``sass.MAIN_PATHS``) of one dequant launch over n
-    coordinates whose rows are all 16-byte aligned (the wrapper's fresh
-    tensors): every thread, the threads with coordinates, of which those
-    that take CPT by vector loads and those that take one of the ragged
-    tail, and the function's coordinates."""
+def vector_units(name: str, n: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one launch of kernel
+    ``name`` (dequant, quantize or roundtrip) over n coordinates whose
+    rows are all 16-byte aligned (the wrapper's fresh tensors): every
+    thread, the threads with coordinates, of which those that take CPT by
+    vector loads and those that take one of the ragged tail, and the
+    function's coordinates."""
     from repro_torch.kernels import build
-    shape = build.constants('dequant')
+    shape = build.constants(name)
     cpt, threads = shape['CPT'], shape['THREADS']
     vector = n // cpt
     tail = n - vector * cpt
@@ -578,11 +581,12 @@ def same_f32(a, b) -> bool:
 
 
 def check_edges(seed: int) -> int:
-    """The four round kernels and the two redesigned API kernels, bit for
+    """The four round kernels and the four redesigned API kernels, bit for
     bit against their plain versions, at the shapes their tiles, client
     chunks, clusters, warps, vectors and blocks make edges (quantize_pack:
     ``_quantize_pack_edges``, corrupt_fold: ``_corrupt_fold_edges``,
-    pack_bits: ``_pack_bits_edges``, dequant: ``_dequant_edges``).
+    pack_bits: ``_pack_bits_edges``, dequant: ``_dequant_edges``,
+    quantize: ``_quantize_edges``, roundtrip: ``_roundtrip_edges``).
     spfl_accumulate: K one client, one chunk, one past it and past two
     chunks; bits 1, 3, 16 (the planes unrolled at their narrowest, main
     and widest width), 22-24 (rolled, the two stages just under, at and
@@ -662,6 +666,7 @@ def check_edges(seed: int) -> int:
                 shapes += 1
     shapes += _quantize_pack_edges(gen) + _corrupt_fold_edges(gen)
     shapes += _pack_bits_edges(gen) + _dequant_edges(gen)
+    shapes += _quantize_edges(gen) + _roundtrip_edges(gen)
     torch.cuda.synchronize()
     return shapes
 
@@ -870,6 +875,148 @@ def _dequant_edges(gen) -> int:
     return shapes
 
 
+def _api_edge_sizes(name: str) -> tuple:
+    """The n to sweep of a per-client API kernel with a vector body: one
+    to three coordinates, around the vector width and the block's tile
+    (+-1), and the main width."""
+    from repro_torch.kernels import build
+    shape = build.constants(name)
+    cpt = shape['CPT']
+    tile = cpt * shape['THREADS']
+    return (1, 2, 3, cpt - 1, cpt, cpt + 1, tile - 1, tile, tile + 1, 62006)
+
+
+def _quantize_edges(gen) -> int:
+    """quantize, bit for bit against its plain version: n from
+    ``_api_edge_sizes``; bits 1, 3, 16; the rows of ``edge_gradients``
+    (g = +-0 and g on the knob boundaries; row 0 a live knob step, row 1
+    a zero one); through the wrapper on fresh outputs, and through the C
+    entry point with every input and output one to three elements past a
+    16-byte boundary (a scalar head, then vectors), with the sign output
+    at another offset than the knob output and with the inputs one
+    element past the outputs' boundary (both all scalar), the memory
+    around each output untouched; and each row of (3, 62,006) g and
+    uniforms (rows 8 mod 16 apart) on fresh outputs.  -> the number of
+    shapes checked."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    sizes = _api_edge_sizes('quantize')
+    dev = gen.device
+    entry = build.kernel('quantize')
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = 0
+    for n in sizes:
+        for bits in (1, BITS, 16):
+            g, rand, gmin, gmax = edge_gradients(2, n + 3, bits, gen)
+            for row, kind in ((0, 'live'), (1, 'zero')):
+                x, r = g[row], rand[row]
+                lo, hi = gmin[row:row + 1], gmax[row:row + 1]
+                at = f'n={n} bits={bits} {kind} step'
+                _exact(f'quantize {at}', *zip(
+                    ops.stochastic_quantize_flat(x[:n], r[:n], lo, hi, bits),
+                    ref.quantize(x[:n], r[:n], lo, hi, bits)))
+                for i_off, off, s_off in ((1, 1, 1), (2, 2, 2), (3, 3, 3),
+                                          (0, 0, 1), (1, 0, 0)):
+                    sign = torch.full((n + 6,), 7, dtype=torch.int8,
+                                      device=dev)
+                    qidx = torch.full((n + 6,), -1, dtype=torch.int32,
+                                      device=dev)
+                    rc = entry(x[i_off:].data_ptr(), r[i_off:].data_ptr(),
+                               lo.data_ptr(), hi.data_ptr(),
+                               sign[s_off:].data_ptr(), qidx[off:].data_ptr(),
+                               n, bits, stream)
+                    if rc:
+                        raise AssertionError(f'quantize launch {rc}')
+                    want_s, want_q = ref.quantize(x[i_off:i_off + n],
+                                                  r[i_off:i_off + n], lo, hi,
+                                                  bits)
+                    _exact(f'quantize {at}, inputs {i_off}, knobs {off} and '
+                           f'signs {s_off} past 16 B',
+                           (sign[s_off:s_off + n], want_s),
+                           (qidx[off:off + n], want_q))
+                    if (bool((sign[:s_off] != 7).any())
+                            or bool((sign[s_off + n:] != 7).any())
+                            or bool((qidx[:off] != -1).any())
+                            or bool((qidx[off + n:] != -1).any())):
+                        raise AssertionError(f'quantize {at}: wrote past its '
+                                             'outputs')
+                shapes += 6
+    g, rand, gmin, gmax = edge_gradients(3, 62006, BITS, gen)
+    for i in range(3):
+        lo, hi = gmin[i:i + 1], gmax[i:i + 1]
+        _exact(f'quantize row {i} of (3, 62006)', *zip(
+            ops.stochastic_quantize_flat(g[i], rand[i], lo, hi, BITS),
+            ref.quantize(g[i], rand[i], lo, hi, BITS)))
+        shapes += 1
+    return shapes
+
+
+def _roundtrip_edges(gen) -> int:
+    """roundtrip, bit for bit against its plain version: n from
+    ``_api_edge_sizes``; bits 1, 3, 16; the rows of ``edge_gradients``
+    (row 0 a live knob step, row 1 a zero one); mod_ok 1 and 0; through
+    the wrapper on fresh tensors, and through the C entry point with g,
+    the uniforms, gbar and the output one to three elements past a
+    16-byte boundary, and with the inputs one element past the output's
+    boundary (all scalar), the memory around the output untouched; and
+    each row of (3, 62,006) g and uniforms (rows 8 mod 16 apart) against
+    an aligned gbar and a fresh output.  -> the number of shapes
+    checked."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    sizes = _api_edge_sizes('roundtrip')
+    dev = gen.device
+    entry = build.kernel('roundtrip')
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = 0
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.float32, device=dev)
+
+    for n in sizes:
+        for bits in (1, BITS, 16):
+            g, rand, gmin, gmax = edge_gradients(2, n + 3, bits, gen)
+            gbar = torch.rand((n + 3,), generator=gen, device=dev)
+            for row, kind in ((0, 'live'), (1, 'zero')):
+                x, r = g[row], rand[row]
+                for ok in (1.0, 0.0):
+                    args = (gmin[row:row + 1], gmax[row:row + 1], one(ok),
+                            one(0.8125))
+                    at = f'n={n} bits={bits} {kind} step mod_ok={ok}'
+                    _exact(f'roundtrip {at}', (
+                        ops.spfl_roundtrip_flat(x[:n], r[:n], gbar[:n], *args,
+                                                bits),
+                        ref.roundtrip(x[:n], r[:n], gbar[:n], *args, bits)))
+                    for i_off, off in ((1, 1), (2, 2), (3, 3), (1, 0)):
+                        out = torch.full((n + 6,), float('nan'), device=dev)
+                        rc = entry(*(t[i_off:].data_ptr()
+                                     for t in (x, r, gbar)),
+                                   *(a.data_ptr() for a in args),
+                                   out[off:].data_ptr(), n, bits, stream)
+                        if rc:
+                            raise AssertionError(f'roundtrip launch {rc}')
+                        _exact(f'roundtrip {at}, inputs {i_off} and output '
+                               f'{off} past 16 B',
+                               (out[off:off + n], ref.roundtrip(
+                                   x[i_off:i_off + n], r[i_off:i_off + n],
+                                   gbar[i_off:i_off + n], *args, bits)))
+                        if not (bool(out[:off].isnan().all())
+                                and bool(out[off + n:].isnan().all())):
+                            raise AssertionError(f'roundtrip {at}: wrote '
+                                                 'past its output')
+                    shapes += 5
+    g, rand, gmin, gmax = edge_gradients(3, 62006, BITS, gen)
+    gbar = torch.rand((62006,), generator=gen, device=dev)
+    for i in range(3):
+        for ok in (1.0, 0.0):
+            args = (gmin[i:i + 1], gmax[i:i + 1], one(ok), one(1.5))
+            _exact(f'roundtrip row {i} of (3, 62006) mod_ok={ok}', (
+                ops.spfl_roundtrip_flat(g[i], rand[i], gbar, *args, BITS),
+                ref.roundtrip(g[i], rand[i], gbar, *args, BITS)))
+            shapes += 1
+    return shapes
+
+
 def check_stale_outputs(seed: int) -> None:
     """corrupt_fold_words writes every output: a call, then one at another
     BER into the memory the first freed (after it was filled with ones),
@@ -934,17 +1081,30 @@ def _dequant_chain(y, steps: int, dequant, sign, qidx, args):
     return y
 
 
+def _roundtrip_chain(y, steps: int, roundtrip, g, rand, args):
+    """``steps`` calls of ``roundtrip`` with mod_ok 0, each on the output
+    of the one before it as gbar: y <- (w * sign(g)) * y, as in
+    ``_dequant_chain``."""
+    for _ in range(steps):
+        y = roundtrip(g, rand, y, *args, BITS)
+    return y
+
+
 def check_pdl_hazards(seed: int, reps: int = 300) -> None:
     """The kernels launched with programmatic dependent launch
-    (pack_bits, dequant: kernel_api_v2.cuh) wait for the kernel before
-    them, ``reps`` times each, bit for bit against their plain versions:
+    (pack_bits, dequant, quantize, roundtrip: kernel_api_v2.cuh) wait for
+    the kernel before them, ``reps`` times each, bit for bit against
+    their plain versions:
 
     - read after write: chains where each call reads what the call just
-      before it wrote (``_pack_chain``, ``_dequant_chain``), and calls
-      right after a copy kernel that writes their input;
+      before it wrote (``_pack_chain``, ``_dequant_chain``,
+      ``_roundtrip_chain``), and calls right after a copy kernel that
+      writes their input;
     - write after read: pairs of launches where the second writes the
       buffer the first reads (C entry points, no call in between);
-    - the chains on two streams at once."""
+    - the chains, and quantize calls, on two streams at once
+    (pack_bits and dequant here, quantize and roundtrip in
+    ``_quantize_roundtrip_hazards``)."""
     import torch
     from repro_torch.kernels import build, ops, ref
     dev = torch.device('cuda')
@@ -1020,6 +1180,94 @@ def check_pdl_hazards(seed: int, reps: int = 300) -> None:
     for j in range(2):
         _exact(f'pack_bits / dequant chains on two streams at once ({j})',
                (xs[j], want_p), (ys[j], want_d))
+    _quantize_roundtrip_hazards(gen, reps)
+
+
+def _quantize_roundtrip_hazards(gen, reps: int) -> None:
+    """``check_pdl_hazards`` for quantize and roundtrip on phase 6's
+    shapes (l = 62,006, bits 3): a roundtrip chain at mod_ok 0, each
+    output the next gbar; quantize and roundtrip right after a copy
+    kernel that writes their g; pairs of C-entry launches where the
+    second writes what the first reads (quantize: the first's g;
+    roundtrip at mod_ok 0: the first's gbar); and the roundtrip chain
+    and quantize calls on two streams at once."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    dev = gen.device
+    m = 62006
+    g0, r0, gmin, gmax = edge_gradients(1, m, BITS, gen)
+    g0, r0 = g0[0], r0[0]
+    b0 = torch.rand((m,), generator=gen, device=dev)
+    lo, hi = gmin[:1], gmax[:1]
+    lost = tuple(torch.tensor([x], device=dev) for x in (0.0, 1.25))
+    args = (lo, hi, *lost)
+    want_q = ref.quantize(g0, r0, lo, hi, BITS)
+    want_c = _roundtrip_chain(b0, reps, ref.roundtrip, g0, r0, args)
+    torch.cuda.synchronize()
+    _exact(f'roundtrip chain of {reps}',
+           (_roundtrip_chain(b0, reps, ops.spfl_roundtrip_flat, g0, r0,
+                             args), want_c))
+    # a copy kernel writes g just before each call
+    x = torch.empty_like(g0)
+    gs = (g0, -g0.roll(5))
+    wants = [(*ref.quantize(v, r0, lo, hi, BITS),
+              ref.roundtrip(v, r0, b0, *args, BITS)) for v in gs]
+    for r in range(reps):
+        x.copy_(gs[r % 2])
+        s8, q32 = ops.stochastic_quantize_flat(x, r0, lo, hi, BITS)
+        x.copy_(gs[(r + 1) % 2])
+        out = ops.spfl_roundtrip_flat(x, r0, b0, *args, BITS)
+        _exact(f'quantize / roundtrip after a copy kernel, call {r}',
+               (s8, wants[r % 2][0]), (q32, wants[r % 2][1]),
+               (out, wants[(r + 1) % 2][2]))
+    # write after read: the second launch of each pair overwrites the
+    # first's g (quantize, its knob output) or gbar (roundtrip)
+    stream = torch.cuda.current_stream().cuda_stream
+    quant, trip = build.kernel('quantize'), build.kernel('roundtrip')
+    s8, q32 = torch.empty_like(want_q[0]), torch.empty_like(want_q[1])
+    s8_other = torch.empty_like(s8)
+    y, out, other = torch.empty_like(b0), torch.empty_like(b0), gs[1]
+    want_r = ref.roundtrip(g0, r0, b0, *args, BITS)
+    ptrs = [a.data_ptr() for a in args]
+    for r in range(reps):
+        x.copy_(g0)
+        y.copy_(b0)
+        rc = (quant(x.data_ptr(), r0.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), s8.data_ptr(), q32.data_ptr(), m, BITS,
+                    stream),
+              quant(other.data_ptr(), r0.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), s8_other.data_ptr(), x.data_ptr(), m,
+                    BITS, stream),
+              trip(g0.data_ptr(), r0.data_ptr(), y.data_ptr(), *ptrs,
+                   out.data_ptr(), m, BITS, stream),
+              trip(other.data_ptr(), r0.data_ptr(), b0.data_ptr(), *ptrs,
+                   y.data_ptr(), m, BITS, stream))
+        if any(rc):
+            raise AssertionError(f'launch errors {rc}')
+        _exact(f'quantize / roundtrip before a launch that overwrites '
+               f'their input, pair {r}', (s8, want_q[0]), (q32, want_q[1]),
+               (out, want_r))
+    # the chain and quantize calls on two streams at once
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    steps = max(1, reps // 3)
+    ys, quantized = [b0, b0], []
+    for _ in range(steps):
+        for j, st in enumerate((torch.cuda.current_stream(), side)):
+            with torch.cuda.stream(st):
+                quantized.append(ops.stochastic_quantize_flat(g0, r0, lo, hi,
+                                                              BITS))
+                ys[j] = _roundtrip_chain(ys[j], 1, ops.spfl_roundtrip_flat,
+                                         g0, r0, args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    want_c = _roundtrip_chain(b0, steps, ref.roundtrip, g0, r0, args)
+    for j in range(2):
+        _exact(f'roundtrip chains on two streams at once ({j})',
+               (ys[j], want_c))
+    for k, got in enumerate(quantized):
+        _exact(f'quantize on two streams at once, call {k}',
+               *zip(got, want_q))
 
 
 def check_grid_waits() -> list:
@@ -1095,6 +1343,40 @@ def _exact(label: str, *pairs) -> float:
     return err
 
 
+def api_work(n: int, bits: int) -> dict:
+    """{kernel: {'bytes', 'units'[, 'variants']}} of one call of each
+    kernel API kernel on one client's n coordinates at ``bits``: the bytes
+    the function must move (each input it needs read once, each output
+    written once) and its units of work (``sass.MAIN_PATHS``); pack_bits,
+    dequant and roundtrip add their other phase 6 calls (sign packets at
+    bits 1; clients whose modulus packet was lost)."""
+    groups = -(-n // 32)
+    planes = groups * bits * 4                      # knob word bytes
+    # dequant reads the sign and, by mod_ok, the knob index (mod_ok 1) or
+    # gbar (mod_ok 0), never both; the roundtrip reads g and, by mod_ok,
+    # the uniforms or gbar
+    work = {
+        'quantize': dict(bytes=n * 8 + 8 + n * 5,
+                         units=vector_units('quantize', n)),
+        'dequant': dict(bytes=n * 5 + 16 + n * 4,
+                        units=vector_units('dequant', n)),
+        'roundtrip': dict(bytes=n * 8 + 16 + n * 4,
+                          units=vector_units('roundtrip', n)),
+        'pack_bits': dict(bytes=n * 4 + planes,
+                          units=pack_bits_units(n, bits)),
+        'unpack_bits': dict(bytes=planes + n * 4,
+                            units=dict(coordinate=n, plane=n * bits)),
+        'unpack_dequant': dict(bytes=groups * 4 + planes + n * 4 + 16
+                               + n * 4,
+                               units=dict(coordinate=n, plane=n * bits)),
+    }
+    work['pack_bits']['variants'] = {'bits 1': dict(
+        bytes=n * 4 + groups * 4, units=pack_bits_units(n, 1))}
+    for name in ('dequant', 'roundtrip'):
+        work[name]['variants'] = {'mod_ok 0': dict(work[name])}
+    return work
+
+
 def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
     """The six kernels of the per-client API against their plain versions
     on k clients' flat (n,) vectors: coordinates 0 and 1 are g = 0 and
@@ -1164,32 +1446,9 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
     if not timed:
         return None
 
-    groups = fmt.n_groups(n)
-    planes = groups * bits * 4                      # knob word bytes
-    # bytes each call must move: dequant reads the sign and, by mod_ok,
-    # the knob index (mod_ok 1) or gbar (mod_ok 0), never both
-    results = {
-        'quantize': dict(bytes=n * 8 + 8 + n * 5,
-                         units=dict(coordinate=n)),
-        'dequant': dict(bytes=n * 5 + 16 + n * 4, units=dequant_units(n)),
-        'roundtrip': dict(bytes=n * 12 + 16 + n * 4,
-                          units=dict(coordinate=n)),
-        'pack_bits': dict(bytes=n * 4 + planes,
-                          units=pack_bits_units(n, bits)),
-        'unpack_bits': dict(bytes=planes + n * 4,
-                            units=dict(coordinate=n, plane=n * bits)),
-        'unpack_dequant': dict(bytes=groups * 4 + planes + n * 4 + 16
-                               + n * 4,
-                               units=dict(coordinate=n, plane=n * bits)),
-    }
+    results = api_work(n, bits)
     for name in results:
         results[name]['max_abs_err'] = err[name]
-    # the other half of phase 6's calls of the two redesigned kernels: sign
-    # packets (bits 1) and clients whose modulus packet was lost
-    results['pack_bits']['variants'] = {'bits 1': dict(
-        bytes=n * 4 + groups * 4, units=pack_bits_units(n, 1))}
-    results['dequant']['variants'] = {'mod_ok 0': dict(
-        bytes=n * 5 + 16 + n * 4, units=dequant_units(n))}
     # client 0 (mod_ok = 1), through the C entry points so that the timing
     # holds no wrapper overhead and no launch is counted
     lo, hi, mok, w = (x[0:1] for x in (gmin, gmax, mod_ok, weight))
@@ -1219,6 +1478,9 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
         ('roundtrip', None): ((g0, r0, gbar, lo, hi, mok, w, out), (n, bits),
                               lambda: ref.roundtrip(g0, r0, gbar, lo, hi,
                                                     mok, w, bits)),
+        ('roundtrip', 'mod_ok 0'): (
+            (g0, r0, gbar, lo, hi, lost, w, out), (n, bits),
+            lambda: ref.roundtrip(g0, r0, gbar, lo, hi, lost, w, bits)),
         ('pack_bits', None): ((qidx, wout), (n, bits),
                               lambda: ref.pack_bits(qidx, bits)),
         ('pack_bits', 'bits 1'): ((sbits, sout), (n, 1),
@@ -1449,8 +1711,9 @@ def main() -> int:
     w_mod = results['corrupt_fold'].pop('words')
     for name, units in round_units(K, l_main, w_mod).items():
         results[name]['units'] = units
-    print(f'edge sweep: the four round kernels, pack_bits and dequant '
-          f'bit-exact at {check_edges(seed=11)} shapes', flush=True)
+    print(f'edge sweep: the four round kernels, pack_bits, dequant, '
+          f'quantize and roundtrip bit-exact at {check_edges(seed=11)} '
+          'shapes', flush=True)
     check_stale_outputs(seed=12)
     print(f'programmatic dependent launch: {check_grid_waits()} wait before '
           'any global load or store (SASS); read after write, write after '

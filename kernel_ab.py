@@ -117,17 +117,21 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     """{call: (call, inputs)} of the per-client kernel API at phase 6's
     shapes: one client, l=62,006, 3 bits, mod_ok 1.  A call named
     'KERNEL:VARIANT' is another call of KERNEL: pack_bits on sign bits
-    (bits 1), dequant for a client whose modulus packet was lost (mod_ok
-    0), and each one's dependent chain ('chain': its one input is the
-    output of the call before it, see ``chain_ms``), pack_bits at 32 bits
-    on n = 62,016 values (a multiple of 32, so n words out) and dequant at
-    mod_ok 0 with its output as the next gbar.  'KERNEL:after_X' is the
-    call with the call that comes just before it in phase 6
-    (``chip_smoke.api_client``): pack_bits after quantize and after
-    sign_to_bits, dequant after the roundtrip.  'client:queued' is phase
-    6's calls for one client (``chip_smoke.api_client``) with nothing
-    read on the host, 'client:synced' the same with its identities read
-    on the host between the calls, as phase 6 runs them."""
+    (bits 1), dequant and the roundtrip for a client whose modulus packet
+    was lost (mod_ok 0), quantize and the roundtrip on row 1 of (2, n)
+    g and uniforms ('odd_row': rows 8 mod 16 apart, as phase 6's odd
+    clients'), and each one's dependent chain ('chain': its one input is
+    the output of the call before it, see ``chain_ms``), pack_bits at 32
+    bits on n = 62,016 values (a multiple of 32, so n words out), dequant
+    and the roundtrip at mod_ok 0 with the output as the next gbar.
+    'KERNEL:after_X' is the call with the call that comes just before it
+    in phase 6 (``chip_smoke.api_client``): pack_bits after quantize and
+    after sign_to_bits, dequant after the roundtrip, the roundtrip after
+    unpack_bits, and quantize after the previous client's
+    unpack_dequant.  'client:queued' is phase 6's calls for one client
+    (``chip_smoke.api_client``) with nothing read on the host,
+    'client:synced' the same with its identities read on the host between
+    the calls, as phase 6 runs them."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.wire import format as fmt
@@ -145,10 +149,13 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     sw, qw = ops.pack_bits_flat(sbits, 1), ops.pack_bits_flat(qidx, bits)
     words = torch.randint(-2 ** 31, 2 ** 31, (fmt.n_groups(n) * 32,),
                           generator=gen, device=dev, dtype=torch.int32)
+    g2, rand2 = torch.stack([g, g]), torch.stack([rand, rand])
     client = (lo, hi, one, weight)
     return {
         'quantize': (lambda x, r: ops.stochastic_quantize_flat(
             x, r, lo, hi, bits), (g, rand)),
+        'quantize:odd_row': (lambda x, r: ops.stochastic_quantize_flat(
+            x[1], r[1], lo, hi, bits), (g2, rand2)),
         'dequant': (lambda s, q, gb: ops.dequant_compensate_flat(
             s, q, gb, lo, hi, one, weight, bits), (sign, qidx, gbar)),
         'dequant:mod_ok0': (lambda s, q, gb: ops.dequant_compensate_flat(
@@ -157,6 +164,12 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
             sign, qidx, gb, lo, hi, lost, one, bits), (gbar,)),
         'roundtrip': (lambda x, r, gb: ops.spfl_roundtrip_flat(
             x, r, gb, lo, hi, one, weight, bits), (g, rand, gbar)),
+        'roundtrip:mod_ok0': (lambda x, r, gb: ops.spfl_roundtrip_flat(
+            x, r, gb, lo, hi, lost, weight, bits), (g, rand, gbar)),
+        'roundtrip:odd_row': (lambda x, r, gb: ops.spfl_roundtrip_flat(
+            x[1], r[1], gb, lo, hi, one, weight, bits), (g2, rand2, gbar)),
+        'roundtrip:chain': (lambda gb: ops.spfl_roundtrip_flat(
+            g, rand, gb, lo, hi, lost, one, bits), (gbar,)),
         'pack_bits': (lambda v: ops.pack_bits_flat(v, bits), (qidx,)),
         'pack_bits:bits1': (lambda v: ops.pack_bits_flat(v, 1), (sbits,)),
         'pack_bits:chain': (lambda v: ops.pack_bits_flat(v, 32), (words,)),
@@ -172,6 +185,14 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
             ops.spfl_roundtrip_flat(x, r, gb, lo, hi, one, weight, bits),
             ops.dequant_compensate_flat(s, q, gb, lo, hi, one, weight,
                                         bits)), (g, rand, gbar, sign, qidx)),
+        'quantize:after_unpack_dequant': (lambda s, q, gb, x, r: (
+            ops.unpack_dequant_flat(s, q, gb, lo, hi, one, weight, n, bits),
+            ops.stochastic_quantize_flat(x, r, lo, hi, bits)),
+            (sw, qw, gbar, g, rand)),
+        'roundtrip:after_unpack_bits': (lambda w, x, r, gb: (
+            ops.unpack_bits_flat(w, n, bits),
+            ops.spfl_roundtrip_flat(x, r, gb, lo, hi, one, weight, bits)),
+            (qw, g, rand, gbar)),
         'client:queued': (lambda x, r, gb, s, q: chip_smoke.api_client(
             x, r, gb, client, s, q, check=False), (g, rand, gbar, sw, qw)),
         'client:synced': (lambda x, r, gb, s, q: chip_smoke.api_client(

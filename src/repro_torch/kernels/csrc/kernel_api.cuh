@@ -1,7 +1,8 @@
 // Device functions shared by the per-client kernel API (quantize.cu,
 // dequant.cu, roundtrip.cu, unpack_bits.cu, unpack_dequant.cu): the
-// eq. (8) stochastic rounding, the eq. (15)-(16) compensated modulus and
-// the bit-plane unpack of one value.
+// knob step, the eq. (8) stochastic rounding of a thread's coordinates,
+// the eq. (15)-(16) compensated modulus and the bit-plane unpack of one
+// value.
 //
 // Every float operation is an explicitly rounded intrinsic in the plain
 // version's order (kernels/ref.py), so nvcc cannot contract or
@@ -20,17 +21,33 @@ __device__ __forceinline__ float knob_step(float lo, float hi, float nk) {
   return __fdiv_rn(__fsub_rn(hi, lo), nk);
 }
 
-// Eq. (8): the stochastic knob index of |x| in [0, nk], as a float.  A
+// Eq. (8): the stochastic knob indices q[c] of |x[c]| in [0, nk], as
+// floats, for a thread's C coordinates.  Every quotient comes first, so
+// the IEEE divisions' rare slow paths rejoin before the compares.  A
 // zero step (constant |g|) gives index 0.
-__device__ __forceinline__ float stochastic_knob(float x, float r, float lo,
-                                                 float step, float nk) {
-  const float safe = step > 0.0f ? step : 1.0f;
-  const float u = step > 0.0f ? __fdiv_rn(__fsub_rn(fabsf(x), lo), safe)
-                              : 0.0f;
-  const float lower = fminf(fmaxf(floorf(u), 0.0f), nk);
-  const float frac = __fsub_rn(u, lower);
-  const float up = r < frac ? 1.0f : 0.0f;
-  return fminf(fmaxf(__fadd_rn(lower, up), 0.0f), nk);
+template <int C>
+__device__ __forceinline__ void stochastic_knobs(const float* x,
+                                                 const float* r, float lo,
+                                                 float step, float nk,
+                                                 float* q) {
+  const bool live = step > 0.0f;
+  const float safe = live ? step : 1.0f;
+  float u[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    u[c] = live ? __fdiv_rn(__fsub_rn(fabsf(x[c]), lo), safe) : 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float lower = fminf(fmaxf(floorf(u[c]), 0.0f), nk);
+    const float frac = __fsub_rn(u[c], lower);
+    const float up = r[c] < frac ? 1.0f : 0.0f;
+    q[c] = fminf(fmaxf(__fadd_rn(lower, up), 0.0f), nk);
+  }
+}
+
+// sign(x) in {-1, 0, +1}: 0 for x = 0 and x = -0.
+__device__ __forceinline__ int sign_of(float x) {
+  return (x > 0.0f) - (x < 0.0f);
 }
 
 // Eq. (15)-(16): gmin + q * step when the modulus packet arrived

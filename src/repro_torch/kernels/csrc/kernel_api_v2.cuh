@@ -1,6 +1,6 @@
 // Device and launch helpers of the redesigned per-client kernels
-// (pack_bits.cu, dequant.cu): streamed loads, and programmatic dependent
-// launch (PDL, Hopper).
+// (pack_bits.cu, dequant.cu, quantize.cu, roundtrip.cu): streamed loads,
+// and programmatic dependent launch (PDL, Hopper).
 //
 // PDL: a kernel launched with launch_pdl() may be scheduled
 // while the kernel before it on the stream is still running, once every
@@ -56,6 +56,49 @@ __device__ __forceinline__ uint4 load_streamed_v4(const void* p) {
       : "l"(p)
       : "memory");
   return v;
+}
+
+__device__ __forceinline__ uint2 load_streamed_v2(const void* p) {
+  uint2 v;
+  asm volatile("ld.global.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The f32 views of the loads above.
+__device__ __forceinline__ float load_streamed_f32(const float* p) {
+  return __uint_as_float(load_streamed((const uint32_t*)p));
+}
+
+// Four consecutive floats from p, by loads of VEC floats each (VEC 4: one
+// 16-byte load, 2: two 8-byte loads; p aligned to 4 * VEC bytes), both
+// issued before either is used.
+template <int VEC>
+__device__ __forceinline__ void load_streamed_f32x4(const float* p,
+                                                    float (&v)[4]) {
+  static_assert(VEC == 2 || VEC == 4, "VEC is 2 or 4");
+  if constexpr (VEC == 4) {
+    const uint4 w = load_streamed_v4(p);
+    v[0] = __uint_as_float(w.x);
+    v[1] = __uint_as_float(w.y);
+    v[2] = __uint_as_float(w.z);
+    v[3] = __uint_as_float(w.w);
+  } else {
+    const uint2 a = load_streamed_v2(p), b = load_streamed_v2(p + 2);
+    v[0] = __uint_as_float(a.x);
+    v[1] = __uint_as_float(a.y);
+    v[2] = __uint_as_float(b.x);
+    v[3] = __uint_as_float(b.y);
+  }
+}
+
+// The wider of 4 and 2 floats whose loads an address is aligned for, or 0
+// when it is only 4-byte aligned; pass the or of several addresses for
+// the width that all of them take.
+static inline int f32_vector_width(uintptr_t addrs) {
+  return (addrs & 15) == 0 ? 4 : (addrs & 7) == 0 ? 2 : 0;
 }
 
 // One signed byte, sign-extended.

@@ -348,9 +348,23 @@ MAIN_PATHS = {
     # the per-client kernel API: both float divisions on their fast path,
     # step > 0, mod_ok > 0; the bit-plane loops of the kernels that include
     # kernel_api.cuh are not unrolled, so one trip of each is one plane
-    'quantize': ('2461f1814426022b', {
-        'coordinate': ((0x0000, 0x0270), (0x02b0, 0x0390),
-                       (0x03d0, 0x0560)),
+    'quantize': ('4d0895fad64d07d3', {
+        # quantize_kernel<4> (16-byte input loads; the library holds one
+        # function per load width, 4 and 2 floats): every thread:
+        # set-up and the exit test; a thread with coordinates: the wait,
+        # its loads (both kinds are predicated, so both issue), the two
+        # scalar loads and the knob step's division on its fast path; then
+        # a tail thread's quotient, knob, sign and two stores, or a vector
+        # thread's CPT quotients (each division on its fast path), knobs,
+        # signs and its 4- and 16-byte stores.  A coordinate has no span
+        # of its own.
+        'thread': ((0x0000, 0x00f0),),
+        'live_thread': ((0x0100, 0x02e0), (0x0320, 0x03a0)),
+        'tail_thread': ((0x03b0, 0x0470), (0x04b0, 0x05d0)),
+        'vector_thread': ((0x05e0, 0x06b0), (0x0700, 0x07d0),
+                          (0x0820, 0x0910), (0x0960, 0x0a30),
+                          (0x0a80, 0x0e70)),
+        'coordinate': (),
     }),
     'dequant': ('d969def6d87faceb', {
         # every thread: set-up and the exit test (threads past the end
@@ -366,9 +380,19 @@ MAIN_PATHS = {
         'tail_thread': ((0x04c0, 0x0550),),
         'coordinate': (),
     }),
-    'roundtrip': ('4d6e023e7f620eca', {
-        'coordinate': ((0x0000, 0x0270), (0x02c0, 0x03a0),
-                       (0x03f0, 0x0610)),
+    'roundtrip': ('44a21741e34ddb2c', {
+        # roundtrip_kernel<4>, with quantize's thread kinds: a thread
+        # with coordinates adds the gbar load and the mod_ok and weight
+        # scalar loads; a tail or vector thread the decode (predicated on
+        # mod_ok, so it issues at mod_ok 1 only), the weighted product and
+        # a 4- or 16-byte store.
+        'thread': ((0x0000, 0x00f0),),
+        'live_thread': ((0x0100, 0x0390), (0x03e0, 0x0400)),
+        'tail_thread': ((0x0410, 0x04d0), (0x0520, 0x06c0)),
+        'vector_thread': ((0x06d0, 0x07a0), (0x07f0, 0x08c0),
+                          (0x0910, 0x0a00), (0x0a50, 0x0b20),
+                          (0x0b70, 0x1050)),
+        'coordinate': (),
     }),
     'pack_bits': ('1d080b580ac4eafb', {
         # pack_bits_kernel<3>: a thread of a warp with a live group waits,

@@ -220,6 +220,127 @@ def test_dequant_on_row_views_matches_pallas_bit_for_bit(row, mod_ok,
                                   np.asarray(out).view(np.int32))
 
 
+# the n at which the redesigned quantize and roundtrip kernels' vectors
+# (CPT coordinates a thread) and blocks (a tile of CPT * THREADS) end
+_QT = build.constants('quantize')
+_QTILE = _QT['CPT'] * _QT['THREADS']
+QUANTIZE_N = (1, 3, _QT['CPT'] + 1, _QTILE - 1, _QTILE + 1, 62006)
+
+
+def _edge_grad(n, bits, seed, zero_step):
+    """g with g = +-0 at every fifth coordinate and, after the first two,
+    g on the knob boundaries gmin + j * step (half of them negative),
+    uniforms with 0 at every fourth; or a constant |g| (gmin = gmax, knob
+    step 0).  Ranges as np.float32; the step is the IEEE quotient, as in
+    both quantizers."""
+    rng = np.random.RandomState(seed)
+    rand = rng.uniform(0, 1, n).astype(np.float32)
+    rand[::4] = 0.0
+    if zero_step:
+        g = np.where(rng.rand(n) < 0.5, -0.25, 0.25).astype(np.float32)
+        return g, rand, np.float32(0.25), np.float32(0.25)
+    g = (rng.randn(n) * 0.03).astype(np.float32)
+    g[::5] = 0.0
+    g[1::10] = -0.0
+    a = np.abs(g)
+    lo, hi = np.float32(a.min()), np.float32(a.max())
+    step = np.float32(np.float32(hi - lo) / np.float32(2 ** bits - 1))
+    m = max(0, min(n - 2, 2 ** bits))
+    edge = (lo + np.arange(m, dtype=np.float32) * step).astype(np.float32)
+    edge[1::2] = -edge[1::2]
+    g[2:2 + m] = edge
+    return g, rand, lo, hi
+
+
+def _same_values_and_bits_off_zero(got, want, g):
+    """Equal values everywhere, equal bits wherever g != 0: at g = -0 the
+    reference's round trip multiplies by jnp.sign(-0) = -0 and gives -0,
+    the port's gives +0, as dequant(quantize()) does on both sides (the
+    int8 sign of g = +-0 is 0)."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(got, want)
+    live = g != 0
+    np.testing.assert_array_equal(got.view(np.int32)[live],
+                                  want.view(np.int32)[live])
+
+
+@pytest.mark.parametrize('n', QUANTIZE_N)
+@pytest.mark.parametrize('bits', [1, 3, 16])
+@pytest.mark.parametrize('zero_step', [False, True])
+def test_stochastic_quantize_at_signed_zeros_and_knob_edges(n, bits,
+                                                           zero_step):
+    """g = +-0 (sign 0) and g on the knob boundaries, at n around the
+    redesigned kernel's vector width and tile: sign and knob index bit
+    for bit."""
+    g, rand, lo, hi = _edge_grad(n, bits, 3 * n + bits, zero_step)
+    s, q = ops.stochastic_quantize_flat(jnp.asarray(g), jnp.asarray(rand),
+                                        lo, hi, bits, interpret=True)
+    ts, tq = tops.stochastic_quantize_flat(_t(g), _t(rand), lo, hi, bits)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(q))
+    assert not ts.numpy()[g == 0].any()          # sign(0) = sign(-0) = 0
+
+
+@pytest.mark.parametrize('n', [1, 5, 513, 62006])
+@pytest.mark.parametrize('mod_ok,zero_step', [(0.0, False), (0.0, True),
+                                              (1.0, True), (1.0, False)])
+def test_roundtrip_mod_ok_and_zero_step_match_pallas(n, mod_ok, zero_step):
+    """The round trip at mod_ok 0 (the output is (w * s) * gbar) and at
+    a zero knob step (gmin + q * 0 = gmin): no product is left for XLA
+    to contract, so both sides agree bit for bit (but for the sign of a
+    zero output at g = -0, ``_same_values_and_bits_off_zero``); at mod_ok
+    1 with a live step within 1e-6 (XLA may fuse gmin + q * step into an
+    FMA)."""
+    bits = 3
+    g, rand, lo, hi = _edge_grad(n, bits, n + int(mod_ok), zero_step)
+    gbar = np.random.RandomState(n).uniform(0, 0.05, n).astype(np.float32)
+    out = ops.spfl_roundtrip_flat(jnp.asarray(g), jnp.asarray(rand),
+                                  jnp.asarray(gbar), lo, hi, mod_ok, 1.25,
+                                  bits, interpret=True)
+    tout = tops.spfl_roundtrip_flat(_t(g), _t(rand), _t(gbar), lo, hi,
+                                    mod_ok, 1.25, bits)
+    if mod_ok and not zero_step:
+        np.testing.assert_allclose(tout.numpy(), np.asarray(out), rtol=0,
+                                   atol=1e-6)
+    else:
+        _same_values_and_bits_off_zero(tout.numpy(), out, g)
+
+
+@pytest.mark.parametrize('row', [0, 1, 2])
+@pytest.mark.parametrize('mod_ok', [0.0, 1.0])
+def test_quantize_and_roundtrip_on_row_views_match_pallas(row, mod_ok):
+    """Rows of (3, 62,006) g and uniform tensors (starts 248,024 B apart:
+    8 mod 16, as phase 6's rows) with an aligned gbar: quantize bit for
+    bit; the round trip bit for bit at mod_ok 0 (off g = +-0), within
+    1e-6 at mod_ok 1 (XLA may contract gmin + q * step)."""
+    n, bits = 62006, 3
+    rng = np.random.RandomState(row)
+    g = (rng.randn(3, n) * 0.02).astype(np.float32)
+    g[:, :2] = [0.0, -0.0]
+    rand = rng.uniform(0, 1, (3, n)).astype(np.float32)
+    gbar = rng.uniform(0, 0.05, n).astype(np.float32)
+    a = np.abs(g[row])
+    lo, hi = np.float32(a.min()), np.float32(a.max())
+    tg, tr = _t(g)[row], _t(rand)[row]
+    assert tg.storage_offset() == row * n and tr.storage_offset() == row * n
+    s, q = ops.stochastic_quantize_flat(jnp.asarray(g[row]),
+                                        jnp.asarray(rand[row]), lo, hi, bits,
+                                        interpret=True)
+    ts, tq = tops.stochastic_quantize_flat(tg, tr, lo, hi, bits)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(q))
+    out = ops.spfl_roundtrip_flat(jnp.asarray(g[row]), jnp.asarray(rand[row]),
+                                  jnp.asarray(gbar), lo, hi, mod_ok, 0.6,
+                                  bits, interpret=True)
+    tout = tops.spfl_roundtrip_flat(tg, tr, _t(gbar), lo, hi, mod_ok, 0.6,
+                                    bits)
+    if mod_ok:
+        np.testing.assert_allclose(tout.numpy(), np.asarray(out), rtol=0,
+                                   atol=1e-6)
+    else:
+        _same_values_and_bits_off_zero(tout.numpy(), out, g[row])
+
+
 @pytest.mark.parametrize('mod_ok', [0.0, 1.0])
 def test_unpack_dequant_matches_pallas(mod_ok):
     n, bits, weight = 8192 + 7, 3, 1.7

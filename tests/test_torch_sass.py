@@ -216,7 +216,9 @@ def test_library_path_hashes_the_included_headers(other_sources):
     ('quantize_pack', {'THREADS', 'GPW'}),
     ('corrupt_fold', {'THREADS'}),
     ('pack_bits', {'THREADS', 'GPW'}),
-    ('dequant', {'THREADS', 'CPT'})])
+    ('dequant', {'THREADS', 'CPT'}),
+    ('quantize', {'THREADS', 'CPT'}),
+    ('roundtrip', {'THREADS', 'CPT'})])
 def test_constants_read_the_launch_shape_from_the_source(name, keys):
     """The launch constants that chip_smoke.py's unit counts and edge
     sweep use are the literals of the kernel's source."""
@@ -371,17 +373,22 @@ def test_kernel_ab_calls_each_round_kernels_wrapper(path):
 def _check_api_calls(kernel_ab, cs, calls, shapes):
     import torch
     assert list(calls) == [
-        'quantize', 'dequant', 'dequant:mod_ok0', 'dequant:chain',
-        'roundtrip', 'pack_bits', 'pack_bits:bits1', 'pack_bits:chain',
-        'unpack_bits', 'unpack_dequant', 'pack_bits:after_quantize',
+        'quantize', 'quantize:odd_row', 'dequant', 'dequant:mod_ok0',
+        'dequant:chain', 'roundtrip', 'roundtrip:mod_ok0',
+        'roundtrip:odd_row', 'roundtrip:chain', 'pack_bits',
+        'pack_bits:bits1', 'pack_bits:chain', 'unpack_bits',
+        'unpack_dequant', 'pack_bits:after_quantize',
         'pack_bits:after_sign_to_bits', 'dequant:after_roundtrip',
+        'quantize:after_unpack_dequant', 'roundtrip:after_unpack_bits',
         'client:queued', 'client:synced']
     assert sorted({kernel_ab.kernel_of(c) for c in calls} - {'client'}) == \
         sorted(cs.kernels_on('api'))
     n = 62006
     assert shapes['quantize'] == [(n,)] * 2
+    assert shapes['quantize:odd_row'] == [(2, n)] * 2
     assert shapes['dequant'] == shapes['dequant:mod_ok0'] == [(n,)] * 3
-    assert shapes['roundtrip'] == [(n,)] * 3
+    assert shapes['roundtrip'] == shapes['roundtrip:mod_ok0'] == [(n,)] * 3
+    assert shapes['roundtrip:odd_row'] == [(2, n)] * 2 + [(n,)]
     assert shapes['pack_bits'] == shapes['pack_bits:bits1'] == [(n,)]
     assert shapes['unpack_bits'] == [(1938 * 3,)]
     assert shapes['unpack_dequant'] == [(1938,), (1938 * 3,), (n,)]
@@ -392,7 +399,7 @@ def _check_api_calls(kernel_ab, cs, calls, shapes):
     assert not torch.equal(out['dequant'], out['dequant:mod_ok0'])
     # a chain's output is its next input; two 32 x 32 bit transposes
     # give back the values
-    for chain in ('dequant:chain', 'pack_bits:chain'):
+    for chain in ('dequant:chain', 'pack_bits:chain', 'roundtrip:chain'):
         fn, (x,) = calls[chain]
         assert out[chain].shape == x.shape and out[chain].dtype == x.dtype
     fn, (x,) = calls['pack_bits:chain']
@@ -409,6 +416,54 @@ def _check_api_calls(kernel_ab, cs, calls, shapes):
         out['client:queued']
     assert all(held.values()) and set(unread.values()) == {None}
     assert contrib.shape == (n,) and torch.equal(contrib, queued)
+
+
+@pytest.mark.parametrize('call', ['roundtrip:mod_ok0', 'roundtrip:chain',
+                                  'quantize:after_unpack_dequant',
+                                  'roundtrip:after_unpack_bits',
+                                  'quantize:odd_row', 'roundtrip:odd_row'])
+def test_kernel_ab_times_the_quantize_and_roundtrip_calls(call):
+    """kernel_ab.py's calls of the redesigned quantize and roundtrip, on
+    the CPU: the roundtrip at mod_ok 0 is dequant at mod_ok 0 of the
+    quantized client (phase 6 identity (d)); its chain, at weight 1,
+    maps gbar to sign(g) * gbar, so a second step keeps each |value|;
+    a call behind the one phase 6 makes before it gives both lone
+    calls' outputs; a call on row 1 of (2, n) inputs (8 mod 16 apart)
+    gives the lone call's output."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    try:
+        import kernel_ab
+    finally:
+        sys.path.remove(str(ROOT))
+    calls = kernel_ab.api_calls(_chip_smoke(), device='cpu')
+
+    def run(name):
+        fn, inputs = calls[name]
+        return fn(*inputs)
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return len(a) == len(b) and all(map(same, a, b))
+
+    got = run(call)
+    if call == 'roundtrip:mod_ok0':
+        assert same(got, run('dequant:mod_ok0'))
+        assert not same(got, run('roundtrip'))
+    elif call == 'roundtrip:chain':
+        fn, (gbar,) = calls[call]
+        assert got.shape == gbar.shape and got.dtype == gbar.dtype
+        assert same(fn(got).abs(), got.abs())
+        assert same(got.abs(), gbar * (got != 0))
+    elif call.endswith(':odd_row'):
+        fn, inputs = calls[call]
+        assert inputs[0][1].storage_offset() * 4 % 16 == 8
+        assert same(got, run(call.split(':')[0]))
+    else:
+        before = {'quantize:after_unpack_dequant': 'unpack_dequant',
+                  'roundtrip:after_unpack_bits': 'unpack_bits'}[call]
+        assert same(got, (run(before), run(call.split(':')[0])))
 
 
 def test_memory_before_wait_reads_the_sass_up_to_the_grid_wait():
@@ -474,7 +529,7 @@ def test_dequant_units_cover_the_coordinates(n):
     cs = _chip_smoke()
     shape = build.constants('dequant')
     cpt, threads = shape['CPT'], shape['THREADS']
-    units = cs.dequant_units(n)
+    units = cs.vector_units('dequant', n)
     assert (units['vector_thread'] * cpt + units['tail_thread']
             == units['coordinate'] == n)
     assert 0 <= units['tail_thread'] < cpt
@@ -482,6 +537,48 @@ def test_dequant_units_cover_the_coordinates(n):
         units['tail_thread'] <= units['thread']
     assert units['thread'] % threads == 0
     assert units['thread'] - units['live_thread'] < threads
+
+
+@pytest.mark.parametrize('name', ['quantize', 'roundtrip'])
+@pytest.mark.parametrize('n', [1, 3, 4, 5, 511, 512, 513, 515, 62006, 62008])
+def test_quantize_and_roundtrip_units_cover_the_coordinates(name, n):
+    """quantize's and roundtrip's units on aligned rows, as dequant's:
+    CPT coordinates a vector thread, one a tail thread, every coordinate
+    once, and whole blocks (n around the vector width and the tile)."""
+    cs = _chip_smoke()
+    shape = build.constants(name)
+    cpt, threads = shape['CPT'], shape['THREADS']
+    units = cs.vector_units(name, n)
+    assert (units['vector_thread'] * cpt + units['tail_thread']
+            == units['coordinate'] == n)
+    assert 0 <= units['tail_thread'] < cpt
+    assert units['live_thread'] == units['vector_thread'] + \
+        units['tail_thread'] <= units['thread']
+    assert units['thread'] % threads == 0
+    assert units['thread'] - units['live_thread'] < threads
+    assert set(cs.FUNCTION_OPS[name]) <= set(units)
+
+
+@pytest.mark.parametrize('n,bits', [(62006, 3), (1007, 1), (1, 16)])
+def test_api_work_counts_what_each_call_needs(n, bits):
+    """The bytes that bound each kernel API call: every input the
+    function needs read once, every output written once.  The roundtrip
+    reads g and, by mod_ok, the uniforms or gbar (12 B a coordinate with
+    its output, at either mod_ok); dequant the sign and the knob index
+    or gbar (9 B); quantize g and the uniforms and writes a sign byte and
+    a knob index (13 B).  At l = 62,006 the roundtrip moves 744,088 B."""
+    cs = _chip_smoke()
+    work = cs.api_work(n, bits)
+    assert set(work) == set(cs.kernels_on('api'))
+    assert work['roundtrip']['bytes'] == 12 * n + 16
+    assert work['roundtrip']['variants']['mod_ok 0']['bytes'] == 12 * n + 16
+    assert work['dequant']['bytes'] == 9 * n + 16
+    assert work['dequant']['variants']['mod_ok 0']['bytes'] == 9 * n + 16
+    assert work['quantize']['bytes'] == 13 * n + 8
+    for name in ('quantize', 'dequant', 'roundtrip'):
+        assert work[name]['units'] == cs.vector_units(name, n)
+    if n == 62006:
+        assert work['roundtrip']['bytes'] == 744088
 
 
 def test_main_path_picks_the_function_by_fingerprint(monkeypatch):
