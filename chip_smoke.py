@@ -14,16 +14,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ragged shape — every output bit-exact, the f32 sum also within the
    reference's FMA-wobble bound — and time both with CUDA events (a
    kernel from device memory, ``kernel_ms``, and warm; pack_bits at bits
-   1, dequant and roundtrip at mod_ok 0 too); then the four round
-   kernels, pack_bits, dequant, quantize and roundtrip, untimed, across
-   the shapes their tiles, client chunks, clusters, warps, vectors and
-   blocks make edges and on unaligned rows (``check_edges``); then that
-   a ``corrupt_fold_words`` call writes every output (stale memory in
+   1, dequant, roundtrip and unpack_dequant at mod_ok 0 too); then the
+   four round kernels and the six API kernels, untimed, across the
+   shapes their tiles, client chunks, clusters, warps, vectors and blocks
+   make edges and on unaligned rows (``check_edges``); then that a
+   ``corrupt_fold_words`` call writes every output (stale memory in
    between; calls on two streams at once) and launches one kernel and no
-   fill; that the kernels launched with programmatic dependent launch
-   wait before any global load or store (their SASS) and agree with
-   their plain versions when the kernel before writes their input or
-   reads their output, and on two streams (``check_pdl_hazards``); then
+   fill, and that an ``unpack_bits_flat`` or ``unpack_dequant_flat``
+   call is one device operation, its kernel
+   (``check_unpack_launches``); that the kernels launched with
+   programmatic dependent launch wait before any global load or store
+   (their SASS) and agree with their plain versions when the kernel
+   before writes their input or reads their output, and on two streams
+   (``check_pdl_hazards``); then
    the whole packed, bit-level transport on the card against the same
    transport on the CPU at full width;
 4. the main path: ``build_simulator(FLConfig(wire='packed',
@@ -48,9 +51,9 @@ over the busiest pipe's rate, each shift and bit set placed on the ALU
 or IMAD pipe where the busier of the two is least loaded; the SASS of
 the build on the same path is printed beside it as a diagnostic.  Its
 ``ms`` is timed from device memory (``kernel_ms``), ``warm_ms`` on one
-set of tensors; the rows of pack_bits, dequant and roundtrip add
-``variants``, the same for their other phase 6 calls (bits 1, mod_ok
-0).  It imports
+set of tensors; the rows of pack_bits, dequant, roundtrip and
+unpack_dequant add ``variants``, the same for their other phase 6 calls
+(bits 1, mod_ok 0).  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -379,6 +382,30 @@ def vector_units(name: str, n: int) -> dict:
                 vector_thread=vector, tail_thread=tail, coordinate=n)
 
 
+def unpack_units(name: str, n: int, bits: int) -> dict:
+    """Units of work (``sass.MAIN_PATHS``) of one launch of kernel
+    ``name`` (unpack_bits or unpack_dequant) over n coordinates at
+    ``bits`` on the wrapper's fresh, 16-byte aligned tensors.
+    unpack_bits: its threads with a value and those past the end (they
+    exit).  unpack_dequant: the lanes of the vector warps (each loads and
+    stages its warp's words), the vectors of 4 coordinates (one lane
+    each), the scalar threads of the ragged tail and the threads
+    past the end.  Both: the function's coordinates and planes."""
+    from repro_torch.kernels import build
+    shape = build.constants(name)
+    threads = shape['THREADS']
+    if name == 'unpack_bits':
+        return dict(coordinate=n, idle_thread=-(-n // threads) * threads - n,
+                    plane=n * bits)
+    vectors = n // 4
+    warps = -(-vectors // 32)
+    tail = n - 4 * vectors
+    blocks = -(-(32 * warps + tail) // threads)
+    return dict(warp_lane=32 * warps, vector=vectors, scalar_thread=tail,
+                idle_thread=blocks * threads - 32 * warps - tail,
+                coordinate=n, plane=n * bits)
+
+
 def corrupt_fold_units(k: int, w: int) -> dict:
     """Units of work (``sass.MAIN_PATHS``) of one corrupt_fold launch over
     (k, w) words: every thread, the threads with a word, each word (one
@@ -581,12 +608,14 @@ def same_f32(a, b) -> bool:
 
 
 def check_edges(seed: int) -> int:
-    """The four round kernels and the four redesigned API kernels, bit for
-    bit against their plain versions, at the shapes their tiles, client
+    """The four round kernels and the six API kernels, bit for bit
+    against their plain versions, at the shapes their tiles, client
     chunks, clusters, warps, vectors and blocks make edges (quantize_pack:
     ``_quantize_pack_edges``, corrupt_fold: ``_corrupt_fold_edges``,
     pack_bits: ``_pack_bits_edges``, dequant: ``_dequant_edges``,
-    quantize: ``_quantize_edges``, roundtrip: ``_roundtrip_edges``).
+    quantize: ``_quantize_edges``, roundtrip: ``_roundtrip_edges``,
+    unpack_bits: ``_unpack_bits_edges``, unpack_dequant:
+    ``_unpack_dequant_edges``).
     spfl_accumulate: K one client, one chunk, one past it and past two
     chunks; bits 1, 3, 16 (the planes unrolled at their narrowest, main
     and widest width), 22-24 (rolled, the two stages just under, at and
@@ -667,6 +696,7 @@ def check_edges(seed: int) -> int:
     shapes += _quantize_pack_edges(gen) + _corrupt_fold_edges(gen)
     shapes += _pack_bits_edges(gen) + _dequant_edges(gen)
     shapes += _quantize_edges(gen) + _roundtrip_edges(gen)
+    shapes += _unpack_bits_edges(gen) + _unpack_dequant_edges(gen)
     torch.cuda.synchronize()
     return shapes
 
@@ -1017,6 +1047,167 @@ def _roundtrip_edges(gen) -> int:
     return shapes
 
 
+def plain_unpack_dequant(sw, qw, gbar, gmin, gmax, mod_ok, weight, n: int,
+                         bits: int):
+    """The plain version of an ``unpack_dequant_flat`` call with the same
+    arguments: ``ref.unpack_dequant`` with the knob step of
+    ``knob_step(gmin, gmax, bits)``, which the kernel computes itself."""
+    from repro_torch.core.quantize import knob_step
+    from repro_torch.kernels import ref
+    step = knob_step(gmin, gmax, bits)
+    return ref.unpack_dequant(sw, qw, gbar, gmin, step, mod_ok, weight, n,
+                              bits)
+
+
+def _unpack_edge_sizes(name: str) -> tuple:
+    """The n to sweep of an unpack kernel: one value, around a group,
+    around a warp's and a block's coordinates (+-1 group, +-1 value), and
+    the main width."""
+    from repro_torch.kernels import build
+    shape = build.constants(name)
+    # unpack_bits: a value a thread; unpack_dequant: 4 a vector lane
+    warp = 32 if name == 'unpack_bits' else 128
+    block = warp * shape['THREADS'] // 32
+    around = (warp - 32, warp - 1, warp, warp + 1, warp + 32, block - 32,
+              block - 1, block, block + 1, block + 32)
+    return tuple(sorted({1, 31, 32, 33, 62006, *around} - {0}))
+
+
+def _unpack_bits_edges(gen) -> int:
+    """unpack_bits, bit for bit against its plain version: bits 1..32 on
+    arbitrary words, at n from ``_unpack_edge_sizes``, through the wrapper
+    on a fresh output; at bits 1, 3 and 32 through the C entry point with
+    the output one to three values past a 16-byte boundary, the memory
+    around it untouched; and bits 1, 3 and 32 on each row of a (3, G * bits) word
+    tensor (rows 8 mod 16 apart at bits 1 and 3).  -> the number of shapes
+    checked."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.wire import format as fmt
+    entry = build.kernel('unpack_bits')
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = gen.device
+    shapes = 0
+
+    def words(*size):
+        return torch.randint(-2 ** 31, 2 ** 31, size, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    for n in _unpack_edge_sizes('unpack_bits'):
+        for bits in range(1, 33):
+            w = words(fmt.payload_words(n, bits))
+            want = ref.unpack_bits(w, n, bits)
+            _exact(f'unpack_bits n={n} bits={bits}',
+                   (ops.unpack_bits_flat(w, n, bits), want))
+            shapes += 1
+            if bits not in (1, BITS, 32):
+                continue
+            for off in (1, 2, 3):
+                out = torch.full((n + 6,), -7, dtype=torch.int32, device=dev)
+                rc = entry(w.data_ptr(), out[off:].data_ptr(), n, bits,
+                           stream)
+                if rc:
+                    raise AssertionError(f'unpack_bits launch {rc}')
+                _exact(f'unpack_bits n={n} bits={bits}, output {off} past '
+                       '16 B', (out[off:off + n], want))
+                if bool((out[:off] != -7).any()) or bool(
+                        (out[off + n:] != -7).any()):
+                    raise AssertionError(f'unpack_bits n={n} bits={bits}: '
+                                         'wrote past its output')
+                shapes += 1
+    for bits in (1, BITS, 32):
+        rows = words(3, fmt.payload_words(62006, bits))
+        for i in range(3):
+            _exact(f'unpack_bits row {i} of {tuple(rows.shape)}',
+                   (ops.unpack_bits_flat(rows[i], 62006, bits),
+                    ref.unpack_bits(rows[i], 62006, bits)))
+            shapes += 1
+    return shapes
+
+
+def _unpack_dequant_edges(gen) -> int:
+    """unpack_dequant, bit for bit against its plain version (with the
+    knob step of ``knob_step``): n from ``_unpack_edge_sizes``; bits 1, 3,
+    16; a live and a zero knob step (gmin = gmax); mod_ok 1 and 0; through
+    the wrapper on fresh tensors (vectors and a scalar tail), and through
+    the C entry point with the words one element past a 16-byte boundary
+    and gbar and the output on it (vectors), and with the words, gbar and
+    the output one to three elements past it, gbar three elements past and
+    the output one, or gbar one past and the output on it (every
+    coordinate scalar), the memory around the output untouched; and each
+    row of (3, G) sign and (3, G * bits) knob word tensors (rows 8 mod 16
+    apart) at mod_ok 1 and 0.  -> the number of shapes checked."""
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.wire import format as fmt
+    entry = build.kernel('unpack_dequant')
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = gen.device
+    shapes = 0
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.float32, device=dev)
+
+    def words(*size):
+        return torch.randint(-2 ** 31, 2 ** 31, size, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    for n in _unpack_edge_sizes('unpack_dequant'):
+        groups = fmt.n_groups(n)
+        for bits in (1, BITS, 16):
+            sw, qw = words(groups + 3), words(groups * bits + 3)
+            gbar = torch.rand((n + 3,), generator=gen, device=dev)
+            for lo, hi in ((0.01, 0.7), (0.25, 0.25)):
+                for ok in (1.0, 0.0):
+                    args = (one(lo), one(hi), one(ok), one(0.8125))
+                    at = f'n={n} bits={bits} step {lo}..{hi} mod_ok={ok}'
+
+                    def want(w_off, g_off):
+                        return plain_unpack_dequant(
+                            sw[w_off:w_off + groups],
+                            qw[w_off:w_off + groups * bits],
+                            gbar[g_off:g_off + n], *args, n, bits)
+
+                    _exact(f'unpack_dequant {at}', (ops.unpack_dequant_flat(
+                        sw[:groups], qw[:groups * bits], gbar[:n], *args, n,
+                        bits), want(0, 0)))
+                    for w_off, g_off, off in ((1, 0, 0), (1, 1, 1),
+                                              (2, 2, 2), (3, 3, 3),
+                                              (1, 3, 1), (0, 1, 0)):
+                        out = torch.full((n + 6,), float('nan'), device=dev)
+                        rc = entry(sw[w_off:].data_ptr(),
+                                   qw[w_off:].data_ptr(),
+                                   gbar[g_off:].data_ptr(),
+                                   *(a.data_ptr() for a in args),
+                                   out[off:].data_ptr(), n, bits, stream)
+                        if rc:
+                            raise AssertionError(
+                                f'unpack_dequant launch {rc}')
+                        _exact(f'unpack_dequant {at}, words {w_off}, gbar '
+                               f'{g_off} and output {off} past 16 B',
+                               (out[off:off + n], want(w_off, g_off)))
+                        if not (bool(out[:off].isnan().all())
+                                and bool(out[off + n:].isnan().all())):
+                            raise AssertionError(f'unpack_dequant {at}: '
+                                                 'wrote past its output')
+                    shapes += 7
+    n = 62006
+    groups = fmt.n_groups(n)
+    sw, qw = words(3, groups), words(3, groups * BITS)
+    gbar = torch.rand((n,), generator=gen, device=dev)
+    for i in range(3):
+        for ok in (1.0, 0.0):
+            args = (one(0.01), one(0.7), one(ok), one(1.5))
+            _exact(f'unpack_dequant row {i} of (3, {groups}) words '
+                   f'mod_ok={ok}', (
+                       ops.unpack_dequant_flat(sw[i], qw[i], gbar, *args, n,
+                                               BITS),
+                       plain_unpack_dequant(sw[i], qw[i], gbar, *args, n,
+                                            BITS)))
+            shapes += 1
+    return shapes
+
+
 def check_stale_outputs(seed: int) -> None:
     """corrupt_fold_words writes every output: a call, then one at another
     BER into the memory the first freed (after it was filled with ones),
@@ -1092,9 +1283,9 @@ def _roundtrip_chain(y, steps: int, roundtrip, g, rand, args):
 
 def check_pdl_hazards(seed: int, reps: int = 300) -> None:
     """The kernels launched with programmatic dependent launch
-    (pack_bits, dequant, quantize, roundtrip: kernel_api_v2.cuh) wait for
-    the kernel before them, ``reps`` times each, bit for bit against
-    their plain versions:
+    (pack_bits, dequant, quantize, roundtrip, unpack_bits, unpack_dequant:
+    kernel_api_v2.cuh) wait for the kernel before them, ``reps`` times
+    each, bit for bit against their plain versions:
 
     - read after write: chains where each call reads what the call just
       before it wrote (``_pack_chain``, ``_dequant_chain``,
@@ -1104,7 +1295,8 @@ def check_pdl_hazards(seed: int, reps: int = 300) -> None:
       buffer the first reads (C entry points, no call in between);
     - the chains, and quantize calls, on two streams at once
     (pack_bits and dequant here, quantize and roundtrip in
-    ``_quantize_roundtrip_hazards``)."""
+    ``_quantize_roundtrip_hazards``, unpack_bits and unpack_dequant in
+    ``_unpack_hazards``)."""
     import torch
     from repro_torch.kernels import build, ops, ref
     dev = torch.device('cuda')
@@ -1181,6 +1373,7 @@ def check_pdl_hazards(seed: int, reps: int = 300) -> None:
         _exact(f'pack_bits / dequant chains on two streams at once ({j})',
                (xs[j], want_p), (ys[j], want_d))
     _quantize_roundtrip_hazards(gen, reps)
+    _unpack_hazards(gen, reps)
 
 
 def _quantize_roundtrip_hazards(gen, reps: int) -> None:
@@ -1270,6 +1463,113 @@ def _quantize_roundtrip_hazards(gen, reps: int) -> None:
                *zip(got, want_q))
 
 
+def _unpack_chain(x, steps: int, unpack):
+    """``steps`` calls of ``unpack(words, n, 32)``, each on the output of
+    the one before it less its first group (n a multiple of 32, so the
+    values are n words again): a 32 x 32 bit transpose per group, shifted
+    by one group a call, as in ``_pack_chain``."""
+    for _ in range(steps):
+        x = unpack(x[32:], x.shape[0] - 32, 32)
+    return x
+
+
+def _unpack_dequant_chain(y, steps: int, unpack_dequant, sw, qw, args):
+    """``steps`` calls of ``unpack_dequant`` with mod_ok 0, each on the
+    output of the one before it as gbar: y <- w * (s * y), as in
+    ``_dequant_chain``."""
+    for _ in range(steps):
+        y = unpack_dequant(sw, qw, y, *args, y.shape[0], BITS)
+    return y
+
+
+def _unpack_hazards(gen, reps: int) -> None:
+    """``check_pdl_hazards`` for unpack_bits and unpack_dequant: an
+    unpack_bits chain at bits 32 (``_unpack_chain``) and an unpack_dequant
+    chain at mod_ok 0, each output the next gbar; both right after a copy
+    kernel that writes their input (the words, gbar); pairs of C-entry
+    launches where the second writes what the first reads (unpack_bits:
+    the first's words; unpack_dequant at mod_ok 0: its gbar); and the
+    chains on two streams at once."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.wire import format as fmt
+    dev = gen.device
+    n = 32 * (reps + 64)
+    v0 = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    m = 62006
+    groups = fmt.n_groups(m)
+    sw = torch.randint(-2 ** 31, 2 ** 31, (groups,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (groups * BITS,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    g0 = torch.rand((m,), generator=gen, device=dev)
+    args = tuple(torch.tensor([x], device=dev)
+                 for x in (0.01, 0.7, 0.0, 1.25))
+    ref_ud = plain_unpack_dequant
+    want_u = _unpack_chain(v0, reps, ref.unpack_bits)
+    want_d = _unpack_dequant_chain(g0, reps, ref_ud, sw, qw, args)
+    torch.cuda.synchronize()
+    _exact(f'unpack_bits chain of {reps}',
+           (_unpack_chain(v0, reps, ops.unpack_bits_flat), want_u))
+    _exact(f'unpack_dequant chain of {reps}',
+           (_unpack_dequant_chain(g0, reps, ops.unpack_dequant_flat, sw, qw,
+                                  args), want_d))
+    # a copy kernel writes the input just before each call
+    x, y = torch.empty_like(v0), torch.empty_like(g0)
+    vs, gs = (v0, v0.roll(7)), (g0, want_d)
+    wants = [(ref.unpack_bits(v, n, 32), ref_ud(sw, qw, g, *args, m, BITS))
+             for v, g in zip(vs, gs)]
+    for r in range(reps):
+        x.copy_(vs[r % 2])
+        u = ops.unpack_bits_flat(x, n, 32)
+        y.copy_(gs[r % 2])
+        d = ops.unpack_dequant_flat(sw, qw, y, *args, m, BITS)
+        _exact(f'unpack_bits / unpack_dequant after a copy kernel, call {r}',
+               *zip((u, d), wants[r % 2]))
+    # write after read: the second launch of each pair overwrites the
+    # first's input
+    stream = torch.cuda.current_stream().cuda_stream
+    unpack, deq = build.kernel('unpack_bits'), build.kernel('unpack_dequant')
+    y_u, other_u = torch.empty_like(v0), v0.flip(0).contiguous()
+    y_d, other_d = torch.empty_like(g0), want_d.clone()
+    want = (ref.unpack_bits(v0, n, 32), ref_ud(sw, qw, g0, *args, m, BITS))
+    ptrs = [a.data_ptr() for a in args]
+    for r in range(reps):
+        x.copy_(v0)
+        y.copy_(g0)
+        rc = (unpack(x.data_ptr(), y_u.data_ptr(), n, 32, stream),
+              unpack(other_u.data_ptr(), x.data_ptr(), n, 32, stream),
+              deq(sw.data_ptr(), qw.data_ptr(), y.data_ptr(), *ptrs,
+                  y_d.data_ptr(), m, BITS, stream),
+              deq(sw.data_ptr(), qw.data_ptr(), other_d.data_ptr(), *ptrs,
+                  y.data_ptr(), m, BITS, stream))
+        if any(rc):
+            raise AssertionError(f'launch errors {rc}')
+        _exact(f'unpack_bits / unpack_dequant before a launch that '
+               f'overwrites their input, pair {r}', (y_u, want[0]),
+               (y_d, want[1]))
+    # the chains on two streams at once
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    steps = max(1, reps // 3)
+    xs, ys = [v0, v0], [g0, g0]
+    for _ in range(steps):
+        for j, st in enumerate((torch.cuda.current_stream(), side)):
+            with torch.cuda.stream(st):
+                xs[j] = _unpack_chain(xs[j], 1, ops.unpack_bits_flat)
+                ys[j] = _unpack_dequant_chain(ys[j], 1,
+                                              ops.unpack_dequant_flat, sw,
+                                              qw, args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    want_u = _unpack_chain(v0, steps, ref.unpack_bits)
+    want_d = _unpack_dequant_chain(g0, steps, ref_ud, sw, qw, args)
+    for j in range(2):
+        _exact(f'unpack_bits / unpack_dequant chains on two streams at once '
+               f'({j})', (xs[j], want_u), (ys[j], want_d))
+
+
 def check_grid_waits() -> list:
     """Every function of each kernel whose source waits for the kernel
     before it (``grid_dependency_wait``: programmatic dependent launch)
@@ -1327,6 +1627,43 @@ def check_corrupt_fold_launches() -> dict:
     return names
 
 
+def check_unpack_launches() -> dict:
+    """One ``unpack_bits_flat`` and one ``unpack_dequant_flat`` call at
+    phase 6's shapes, with its per-client scalars as phase 6 passes them
+    (0-dim views of (K,) card tensors) and as one-element tensors, each
+    run exactly one device operation: its kernel, no fill, no torch op
+    (the knob step is the kernel's).  -> {call: its device operations by
+    name}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+    dev = torch.device('cuda')
+    n = 62006
+    groups = fmt.n_groups(n)
+    sw = torch.zeros((groups,), dtype=torch.int32, device=dev)
+    qw = torch.zeros((groups * BITS,), dtype=torch.int32, device=dev)
+    gbar = torch.zeros((n,), device=dev)
+    col = torch.tensor([[0.01, 0.7, 1.0, 0.75]] * 2, device=dev).T
+    calls = {
+        'unpack_bits': lambda: ops.unpack_bits_flat(qw, n, BITS),
+        'unpack_dequant': lambda: ops.unpack_dequant_flat(
+            sw, qw, gbar, *(c[1] for c in col), n, BITS),
+        'unpack_dequant (one-element scalars)':
+            lambda: ops.unpack_dequant_flat(
+                sw, qw, gbar, *(c[1:] for c in col), n, BITS),
+    }
+    out = {}
+    for label, call in calls.items():
+        call()
+        names = device_launches(call)
+        kernel = label.split()[0] + '_kernel'
+        if sum(names.values()) != 1 or not any(kernel in k for k in names):
+            raise AssertionError(f'{label}: device operations {names}, '
+                                 'not its kernel alone')
+        out[label] = names
+    return out
+
+
 def _exact(label: str, *pairs) -> float:
     """Raise unless every (kernel, plain) pair is equal element for
     element (f32 -0 equals 0); -> max |a - b| (uint32 for int32 words)."""
@@ -1348,13 +1685,14 @@ def api_work(n: int, bits: int) -> dict:
     kernel API kernel on one client's n coordinates at ``bits``: the bytes
     the function must move (each input it needs read once, each output
     written once) and its units of work (``sass.MAIN_PATHS``); pack_bits,
-    dequant and roundtrip add their other phase 6 calls (sign packets at
-    bits 1; clients whose modulus packet was lost)."""
+    dequant, roundtrip and unpack_dequant add their other phase 6 calls
+    (sign packets at bits 1; clients whose modulus packet was lost)."""
     groups = -(-n // 32)
     planes = groups * bits * 4                      # knob word bytes
     # dequant reads the sign and, by mod_ok, the knob index (mod_ok 1) or
-    # gbar (mod_ok 0), never both; the roundtrip reads g and, by mod_ok,
-    # the uniforms or gbar
+    # gbar (mod_ok 0), never both; unpack_dequant the sign words and the
+    # knob words or gbar; the roundtrip reads g and, by mod_ok, the
+    # uniforms or gbar
     work = {
         'quantize': dict(bytes=n * 8 + 8 + n * 5,
                          units=vector_units('quantize', n)),
@@ -1365,15 +1703,17 @@ def api_work(n: int, bits: int) -> dict:
         'pack_bits': dict(bytes=n * 4 + planes,
                           units=pack_bits_units(n, bits)),
         'unpack_bits': dict(bytes=planes + n * 4,
-                            units=dict(coordinate=n, plane=n * bits)),
-        'unpack_dequant': dict(bytes=groups * 4 + planes + n * 4 + 16
-                               + n * 4,
-                               units=dict(coordinate=n, plane=n * bits)),
+                            units=unpack_units('unpack_bits', n, bits)),
+        'unpack_dequant': dict(bytes=groups * 4 + planes + 16 + n * 4,
+                               units=unpack_units('unpack_dequant', n,
+                                                  bits)),
     }
     work['pack_bits']['variants'] = {'bits 1': dict(
         bytes=n * 4 + groups * 4, units=pack_bits_units(n, 1))}
     for name in ('dequant', 'roundtrip'):
         work[name]['variants'] = {'mod_ok 0': dict(work[name])}
+    work['unpack_dequant']['variants'] = {'mod_ok 0': dict(
+        work['unpack_dequant'], bytes=groups * 4 + n * 4 + 16 + n * 4)}
     return work
 
 
@@ -1384,7 +1724,6 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
     alternates 1, 0 over the clients.  Also the packers at 32 bits on
     arbitrary words.  Client 0 is timed when ``timed``."""
     import torch
-    from repro_torch.core.quantize import knob_step
     from repro_torch.kernels import build, ops, ref
     from repro_torch.wire import format as fmt
 
@@ -1432,11 +1771,10 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
         err['unpack_bits'] = max(err['unpack_bits'], _exact(
             f'unpack_bits {at}', (back, ref.unpack_bits(qw, n, bits)),
             (back, qidx)))
-        step = knob_step(lo, hi, bits)
         out = ops.unpack_dequant_flat(sw, qw, gbar, lo, hi, mok, w, n, bits)
         err['unpack_dequant'] = max(err['unpack_dequant'], _exact(
-            f'unpack_dequant {at}', (out, ref.unpack_dequant(
-                sw, qw, gbar, lo, step, mok, w, n, bits))))
+            f'unpack_dequant {at}', (out, plain_unpack_dequant(
+                sw, qw, gbar, lo, hi, mok, w, n, bits))))
     words = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
                           device=dev, dtype=torch.int32)
     packed = ops.pack_bits_flat(words, 32)
@@ -1453,7 +1791,6 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
     # holds no wrapper overhead and no launch is counted
     lo, hi, mok, w = (x[0:1] for x in (gmin, gmax, mod_ok, weight))
     lost = torch.zeros_like(mok)
-    step = knob_step(lo, hi, bits)
     g0, r0 = g[0], rand[0]
     sign, qidx = ref.quantize(g0, r0, lo, hi, bits)
     sbits = fmt.sign_to_bits(sign)
@@ -1488,9 +1825,13 @@ def check_api_kernels(k: int, n: int, bits: int, timed: bool, seed: int):
         ('unpack_bits', None): ((qw, q32), (n, bits),
                                 lambda: ref.unpack_bits(qw, n, bits)),
         ('unpack_dequant', None): (
-            (sw, qw, gbar, lo, step, mok, w, out), (n, bits),
-            lambda: ref.unpack_dequant(sw, qw, gbar, lo, step, mok, w, n,
-                                       bits)),
+            (sw, qw, gbar, lo, hi, mok, w, out), (n, bits),
+            lambda: plain_unpack_dequant(sw, qw, gbar, lo, hi, mok, w, n,
+                                         bits)),
+        ('unpack_dequant', 'mod_ok 0'): (
+            (sw, qw, gbar, lo, hi, lost, w, out), (n, bits),
+            lambda: plain_unpack_dequant(sw, qw, gbar, lo, hi, lost, w, n,
+                                         bits)),
     }
     stream = torch.cuda.current_stream().cuda_stream
     for (name, variant), (tensors, ints, plain) in launches.items():
@@ -1711,9 +2052,8 @@ def main() -> int:
     w_mod = results['corrupt_fold'].pop('words')
     for name, units in round_units(K, l_main, w_mod).items():
         results[name]['units'] = units
-    print(f'edge sweep: the four round kernels, pack_bits, dequant, '
-          f'quantize and roundtrip bit-exact at {check_edges(seed=11)} '
-          'shapes', flush=True)
+    print(f'edge sweep: the four round kernels and the six API kernels '
+          f'bit-exact at {check_edges(seed=11)} shapes', flush=True)
     check_stale_outputs(seed=12)
     print(f'programmatic dependent launch: {check_grid_waits()} wait before '
           'any global load or store (SASS); read after write, write after '
@@ -1721,6 +2061,9 @@ def main() -> int:
     names = check_corrupt_fold_launches()
     print(f'corrupt_fold_words: one kernel, no fill, outputs written whole '
           f'(device operations of one call: {json.dumps(names)})',
+          flush=True)
+    print('unpack_bits_flat / unpack_dequant_flat: one device operation a '
+          f'call, the kernel ({json.dumps(check_unpack_launches())})',
           flush=True)
     results.update(check_api_kernels(2, l_main, BITS, timed=True, seed=5))
     for bits in (1, BITS, 16):

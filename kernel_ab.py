@@ -123,15 +123,20 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     clients'), and each one's dependent chain ('chain': its one input is
     the output of the call before it, see ``chain_ms``), pack_bits at 32
     bits on n = 62,016 values (a multiple of 32, so n words out), dequant
-    and the roundtrip at mod_ok 0 with the output as the next gbar.
-    'KERNEL:after_X' is the call with the call that comes just before it
-    in phase 6 (``chip_smoke.api_client``): pack_bits after quantize and
-    after sign_to_bits, dequant after the roundtrip, the roundtrip after
-    unpack_bits, and quantize after the previous client's
-    unpack_dequant.  'client:queued' is phase 6's calls for one client
-    (``chip_smoke.api_client``) with nothing read on the host,
-    'client:synced' the same with its identities read on the host between
-    the calls, as phase 6 runs them."""
+    and the roundtrip at mod_ok 0 with the output as the next gbar,
+    unpack_bits at 32 bits on the same words, unpack_dequant at mod_ok 0
+    with the output as the next gbar; unpack_bits and unpack_dequant also
+    on row 1 of (2, words) tensors ('odd_row': rows 8 mod 16 apart) and
+    unpack_dequant at mod_ok 0.  'KERNEL:after_X' is the call with the
+    call that comes just before it in phase 6 (``chip_smoke.api_client``):
+    pack_bits after quantize and after sign_to_bits, dequant after the
+    roundtrip, the roundtrip after unpack_bits, quantize after the
+    previous client's unpack_dequant, unpack_bits after pack_bits (of the
+    sign bits) and unpack_dequant after dequant.  'client:queued' is
+    phase 6's calls for one client (``chip_smoke.api_client``) with
+    nothing read on the host, 'client:synced' the same with its
+    identities read on the host between the calls, as phase 6 runs
+    them."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.wire import format as fmt
@@ -150,6 +155,7 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     words = torch.randint(-2 ** 31, 2 ** 31, (fmt.n_groups(n) * 32,),
                           generator=gen, device=dev, dtype=torch.int32)
     g2, rand2 = torch.stack([g, g]), torch.stack([rand, rand])
+    sw2, qw2 = torch.stack([sw, sw]), torch.stack([qw, qw])
     client = (lo, hi, one, weight)
     return {
         'quantize': (lambda x, r: ops.stochastic_quantize_flat(
@@ -176,6 +182,16 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
         'unpack_bits': (lambda w: ops.unpack_bits_flat(w, n, bits), (qw,)),
         'unpack_dequant': (lambda s, q, gb: ops.unpack_dequant_flat(
             s, q, gb, lo, hi, one, weight, n, bits), (sw, qw, gbar)),
+        'unpack_bits:odd_row': (lambda w: ops.unpack_bits_flat(
+            w[1], n, bits), (qw2,)),
+        'unpack_bits:chain': (lambda w: ops.unpack_bits_flat(
+            w, w.shape[0], 32), (words,)),
+        'unpack_dequant:mod_ok0': (lambda s, q, gb: ops.unpack_dequant_flat(
+            s, q, gb, lo, hi, lost, weight, n, bits), (sw, qw, gbar)),
+        'unpack_dequant:odd_row': (lambda s, q, gb: ops.unpack_dequant_flat(
+            s[1], q[1], gb, lo, hi, one, weight, n, bits), (sw2, qw2, gbar)),
+        'unpack_dequant:chain': (lambda gb: ops.unpack_dequant_flat(
+            sw, qw, gb, lo, hi, lost, one, n, bits), (gbar,)),
         'pack_bits:after_quantize': (lambda x, r: ops.pack_bits_flat(
             ops.stochastic_quantize_flat(x, r, lo, hi, bits)[1], bits),
             (g, rand)),
@@ -193,6 +209,13 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
             ops.unpack_bits_flat(w, n, bits),
             ops.spfl_roundtrip_flat(x, r, gb, lo, hi, one, weight, bits)),
             (qw, g, rand, gbar)),
+        'unpack_bits:after_pack_bits': (lambda sb, w: (
+            ops.pack_bits_flat(sb, 1), ops.unpack_bits_flat(w, n, bits)),
+            (sbits, qw)),
+        'unpack_dequant:after_dequant': (lambda s, q, gb, sw_, qw_: (
+            ops.dequant_compensate_flat(s, q, gb, lo, hi, one, weight, bits),
+            ops.unpack_dequant_flat(sw_, qw_, gb, lo, hi, one, weight, n,
+                                    bits)), (sign, qidx, gbar, sw, qw)),
         'client:queued': (lambda x, r, gb, s, q: chip_smoke.api_client(
             x, r, gb, client, s, q, check=False), (g, rand, gbar, sw, qw)),
         'client:synced': (lambda x, r, gb, s, q: chip_smoke.api_client(

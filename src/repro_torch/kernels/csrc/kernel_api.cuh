@@ -1,8 +1,6 @@
 // Device functions shared by the per-client kernel API (quantize.cu,
-// dequant.cu, roundtrip.cu, unpack_bits.cu, unpack_dequant.cu): the
-// knob step, the eq. (8) stochastic rounding of a thread's coordinates,
-// the eq. (15)-(16) compensated modulus and the bit-plane unpack of one
-// value.
+// dequant.cu, roundtrip.cu, unpack_dequant.cu): the knob step, the
+// eq. (8) stochastic rounding of a thread's coordinates and their sign.
 //
 // Every float operation is an explicitly rounded intrinsic in the plain
 // version's order (kernels/ref.py), so nvcc cannot contract or
@@ -48,26 +46,4 @@ __device__ __forceinline__ void stochastic_knobs(const float* x,
 // sign(x) in {-1, 0, +1}: 0 for x = 0 and x = -0.
 __device__ __forceinline__ int sign_of(float x) {
   return (x > 0.0f) - (x < 0.0f);
-}
-
-// Eq. (15)-(16): gmin + q * step when the modulus packet arrived
-// (mod_ok > 0), else the compensation gbar (read only then).  The decode
-// is computed before the select, so its operands' loads do not wait for
-// mod_ok's.
-__device__ __forceinline__ float decoded_modulus(float mod_ok, float lo,
-                                                 float q, float step,
-                                                 const float* gbar) {
-  const float decoded = __fadd_rn(lo, __fmul_rn(q, step));
-  return mod_ok > 0.0f ? decoded : *gbar;
-}
-
-// The value of lane `lane` of a group from its `bits` plane words.  The
-// loop is not unrolled, so one trip is one plane in the SASS
-// (kernels/sass.py MAIN_PATHS).
-__device__ __forceinline__ uint32_t unpack_value(const uint32_t* planes,
-                                                 int lane, int bits) {
-  uint32_t v = 0u;
-#pragma unroll 1
-  for (int j = 0; j < bits; ++j) v |= ((planes[j] >> lane) & 1u) << j;
-  return v;
 }

@@ -1,6 +1,7 @@
 // Device and launch helpers of the redesigned per-client kernels
-// (pack_bits.cu, dequant.cu, quantize.cu, roundtrip.cu): streamed loads,
-// and programmatic dependent launch (PDL, Hopper).
+// (pack_bits.cu, dequant.cu, quantize.cu, roundtrip.cu, unpack_bits.cu,
+// unpack_dequant.cu): streamed loads, programmatic dependent launch (PDL,
+// Hopper), and the bit-plane unpack of one value.
 //
 // PDL: a kernel launched with launch_pdl() may be scheduled
 // while the kernel before it on the stream is still running, once every
@@ -129,4 +130,26 @@ static int launch_pdl(void (*kernel)(Params...), unsigned blocks,
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();   // clear it either way
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// ---------------------------------------------------------------------
+// The bit-plane unpack of one value (unpack_bits.cu, and unpack_dequant.cu's
+// scalar threads): its group's plane words, then its lane's bits.
+
+// A group's BITS plane words from p, every load issued before any is used.
+template <int BITS>
+__device__ __forceinline__ void load_planes(const uint32_t* p,
+                                            uint32_t (&x)[BITS]) {
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) x[b] = load_streamed(p + b);
+}
+
+// The value of lane `lane` of a group from its plane words.
+template <int BITS>
+__device__ __forceinline__ uint32_t lane_value(const uint32_t (&x)[BITS],
+                                               int lane) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int b = 0; b < BITS; ++b) v |= ((x[b] >> lane) & 1u) << b;
+  return v;
 }

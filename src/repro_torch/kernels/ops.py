@@ -220,8 +220,10 @@ def unpack_dequant_flat(sign_words: Tensor, qidx_words: Tensor,
                         gbar: Tensor, gmin, gmax, mod_ok, weight, n: int,
                         bits: int) -> Tensor:
     """Fused PS decode of one client from its packed payload words:
-    w * (s * (mod_ok ? gmin + q * step : gbar)), (n,) f32.  The knob step
-    is computed here with ``quantize.knob_step`` (IEEE division)."""
+    w * (s * (mod_ok ? gmin + q * step : gbar)), (n,) f32, with the knob
+    step (an IEEE division) computed in the kernel: on the card a call
+    is one device operation.  On the CPU the plain version takes the
+    step from ``quantize.knob_step``."""
     _bits(bits, 16)
     groups = fmt.n_groups(n)
     sign_words = fmt.to_words(_flat(sign_words, 'sign_words'))
@@ -231,19 +233,19 @@ def unpack_dequant_flat(sign_words: Tensor, qidx_words: Tensor,
     gbar = gbar.to(torch.float32)
     _expect(gbar, 'gbar', torch.float32, (n,))
     dev = sign_words.device
-    gmin = _scalar(gmin, dev)
-    step = knob_step(gmin, _scalar(gmax, dev), bits)
+    gmin, gmax = _scalar(gmin, dev), _scalar(gmax, dev)
     mod_ok, weight = _scalar(mod_ok, dev), _scalar(weight, dev)
     if not _on_card(sign_words, qidx_words, gbar, gmin):
-        return ref.unpack_dequant(sign_words, qidx_words, gbar, gmin, step,
-                                  mod_ok, weight, n, bits)
+        return ref.unpack_dequant(sign_words, qidx_words, gbar, gmin,
+                                  knob_step(gmin, gmax, bits), mod_ok,
+                                  weight, n, bits)
     for t, name in ((sign_words, 'sign_words'), (qidx_words, 'qidx_words'),
                     (gbar, 'gbar')):
         _contig(t, name)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch('unpack_dequant', sign_words, sign_words.data_ptr(),
             qidx_words.data_ptr(), gbar.data_ptr(), gmin.data_ptr(),
-            step.data_ptr(), mod_ok.data_ptr(), weight.data_ptr(),
+            gmax.data_ptr(), mod_ok.data_ptr(), weight.data_ptr(),
             out.data_ptr(), n, bits)
     return out
 

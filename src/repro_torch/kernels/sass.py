@@ -345,9 +345,8 @@ MAIN_PATHS = {
         'leader_warp_thread': ((0x0e70, 0x0ed0), (0x0ee0, 0x1050)),
         'word': (),
     }),
-    # the per-client kernel API: both float divisions on their fast path,
-    # step > 0, mod_ok > 0; the bit-plane loops of the kernels that include
-    # kernel_api.cuh are not unrolled, so one trip of each is one plane
+    # the per-client kernel API: every float division on its fast path,
+    # step > 0, mod_ok > 0
     'quantize': ('4d0895fad64d07d3', {
         # quantize_kernel<4> (16-byte input loads; the library holds one
         # function per load width, 4 and 2 floats): every thread:
@@ -405,13 +404,32 @@ MAIN_PATHS = {
         'idle_thread': ((0x0000, 0x0080),),
         'plane': (),
     }),
-    'unpack_bits': ('cb89fc041d28a4ab', {
-        'coordinate': ((0x0000, 0x01b0), (0x0280, 0x02c0)),
-        'plane': ((0x01c0, 0x0270),),
+    'unpack_bits': ('ab49676818bf08ce', {
+        # unpack_bits_kernel<3> (the library holds one function per bit
+        # width 1..32): a thread with a value waits, loads its group's 3
+        # plane words (warp broadcasts), builds its value and stores it;
+        # threads past the end exit.  A plane has no span of its own.
+        'coordinate': ((0x0000, 0x01d0),),
+        'idle_thread': ((0x0000, 0x0060),),
+        'plane': (),
     }),
-    'unpack_dequant': ('bd52e653673db8cf', {
-        'coordinate': ((0x0000, 0x0280), (0x0350, 0x04a0)),
-        'plane': ((0x0290, 0x0340),),
+    'unpack_dequant': ('b89c87e4cfe116c0', {
+        # unpack_dequant_kernel<3> on the wrapper's aligned tensors: every
+        # lane of a vector warp runs the set-up, the wait, its loads (the
+        # warp's words, of which lanes 4..15 take knob words, its gbar
+        # vector, predicated, and the four scalar loads), the staging and
+        # the knob step's division on its fast path; a lane with a vector
+        # of 4 adds the planes, the outputs and the 16-byte store; a
+        # scalar thread of the tail loads its group's words, gbar and the
+        # scalars and decodes one coordinate; threads past the end exit.
+        # A coordinate and a plane have no span of their own.
+        'warp_lane': ((0x0000, 0x00a0), (0x04f0, 0x0600), (0x0660, 0x08c0),
+                      (0x0900, 0x0900)),
+        'vector': ((0x0910, 0x0dd0),),
+        'scalar_thread': ((0x0000, 0x03c0), (0x0400, 0x04e0)),
+        'idle_thread': ((0x0000, 0x0100),),
+        'coordinate': (),
+        'plane': (),
     }),
 }
 

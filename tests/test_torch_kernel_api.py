@@ -448,3 +448,88 @@ def test_launch_counts_stay_zero_on_the_cpu():
 def test_wrappers_reject_bad_inputs(call, error):
     with pytest.raises(error):
         call()
+
+
+# n around a group, around the end of a warp of unpack_dequant's vectors
+# (32 vectors of 4 coordinates), and the main width
+UNPACK_N = (1, 31, 32, 33, 127, 129, 62006)
+
+
+def _payload(lead, n, bits, seed):
+    """Arbitrary sign and knob payload words (np.uint32, shapes lead +
+    (G,) and lead + (G * bits,)) and gbar in [0, 0.05)."""
+    rng = np.random.RandomState(seed)
+    g = tfmt.n_groups(n)
+    sw = rng.randint(0, 2 ** 32, lead + (g,), dtype=np.uint64)
+    qw = rng.randint(0, 2 ** 32, lead + (g * bits,), dtype=np.uint64)
+    gbar = rng.uniform(0, 0.05, n).astype(np.float32)
+    return sw.astype(np.uint32), qw.astype(np.uint32), gbar
+
+
+def _range(zero_step):
+    return ((np.float32(0.25),) * 2 if zero_step
+            else (np.float32(0.013), np.float32(0.71)))
+
+
+@pytest.mark.parametrize('n', UNPACK_N)
+@pytest.mark.parametrize('bits', [1, 3, 16])
+@pytest.mark.parametrize('mod_ok,zero_step', [(0.0, False), (0.0, True),
+                                              (1.0, True)])
+def test_unpack_dequant_matches_pallas_bit_for_bit(n, bits, mod_ok,
+                                                   zero_step):
+    """Arbitrary payload words at n around a group and a warp's vectors:
+    at mod_ok 0 (w * (s * gbar)) or a zero knob step (gmin + q * 0) XLA
+    has no product to contract, so both sides agree bit for bit."""
+    sw, qw, gbar = _payload((), n, bits, seed=n + 17 * bits)
+    lo, hi = _range(zero_step)
+    out = ops.unpack_dequant_flat(jnp.asarray(sw), jnp.asarray(qw),
+                                  jnp.asarray(gbar), lo, hi, mod_ok, 0.77, n,
+                                  bits, interpret=True)
+    tout = tops.unpack_dequant_flat(_t(sw.view(np.int32)),
+                                    _t(qw.view(np.int32)), _t(gbar), lo, hi,
+                                    mod_ok, 0.77, n, bits)
+    np.testing.assert_array_equal(tout.numpy().view(np.int32),
+                                  np.asarray(out).view(np.int32))
+
+
+@pytest.mark.parametrize('row', [0, 1, 2])
+@pytest.mark.parametrize('mod_ok,zero_step', [(0.0, False), (0.0, True),
+                                              (1.0, True)])
+def test_unpack_dequant_on_row_views_matches_pallas_bit_for_bit(
+        row, mod_ok, zero_step):
+    """Rows of (3, G) sign and (3, G * bits) knob word tensors (starts
+    7,752 B and 23,256 B apart: 8 mod 16, as phase 6's rows), bit for bit
+    where the knob step leaves XLA nothing to contract."""
+    n, bits = 62006, 3
+    sw, qw, gbar = _payload((3,), n, bits, seed=row)
+    lo, hi = _range(zero_step)
+    out = ops.unpack_dequant_flat(jnp.asarray(sw[row]), jnp.asarray(qw[row]),
+                                  jnp.asarray(gbar), lo, hi, mod_ok, 1.5, n,
+                                  bits, interpret=True)
+    tsw, tqw = _t(sw.view(np.int32))[row], _t(qw.view(np.int32))[row]
+    assert tqw.storage_offset() * 4 % 16 == (8 if row % 2 else 0)
+    tout = tops.unpack_dequant_flat(tsw, tqw, _t(gbar), lo, hi, mod_ok, 1.5,
+                                    n, bits)
+    np.testing.assert_array_equal(tout.numpy().view(np.int32),
+                                  np.asarray(out).view(np.int32))
+
+
+@pytest.mark.parametrize('bits', [1, 3, 16])
+@pytest.mark.parametrize('mod_ok', [0.0, 1.0])
+def test_unpack_dequant_takes_gmax_and_makes_the_knob_step(bits, mod_ok):
+    """``unpack_dequant_flat(gmin, gmax)`` equals the plain version given
+    the knob step ``knob_step(gmin, gmax)`` (the IEEE quotient that the
+    kernel computes), bit for bit, here through the plain path."""
+    from repro_torch.core.quantize import knob_step
+    from repro_torch.kernels import ref
+    n = 1000
+    sw, qw, gbar = _payload((), n, bits, seed=bits)
+    tsw, tqw = _t(sw.view(np.int32)), _t(qw.view(np.int32))
+    lo, hi = torch.tensor([0.013]), torch.tensor([0.71])
+    args = (torch.tensor([mod_ok]), torch.tensor([0.77]))
+    got = tops.unpack_dequant_flat(tsw, tqw, _t(gbar), lo, hi, *args, n,
+                                   bits)
+    want = ref.unpack_dequant(tsw, tqw, _t(gbar), lo, knob_step(lo, hi, bits),
+                              *args, n, bits)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))

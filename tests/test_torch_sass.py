@@ -218,7 +218,9 @@ def test_library_path_hashes_the_included_headers(other_sources):
     ('pack_bits', {'THREADS', 'GPW'}),
     ('dequant', {'THREADS', 'CPT'}),
     ('quantize', {'THREADS', 'CPT'}),
-    ('roundtrip', {'THREADS', 'CPT'})])
+    ('roundtrip', {'THREADS', 'CPT'}),
+    ('unpack_bits', {'THREADS'}),
+    ('unpack_dequant', {'THREADS'})])
 def test_constants_read_the_launch_shape_from_the_source(name, keys):
     """The launch constants that chip_smoke.py's unit counts and edge
     sweep use are the literals of the kernel's source."""
@@ -377,9 +379,12 @@ def _check_api_calls(kernel_ab, cs, calls, shapes):
         'dequant:chain', 'roundtrip', 'roundtrip:mod_ok0',
         'roundtrip:odd_row', 'roundtrip:chain', 'pack_bits',
         'pack_bits:bits1', 'pack_bits:chain', 'unpack_bits',
-        'unpack_dequant', 'pack_bits:after_quantize',
+        'unpack_dequant', 'unpack_bits:odd_row', 'unpack_bits:chain',
+        'unpack_dequant:mod_ok0', 'unpack_dequant:odd_row',
+        'unpack_dequant:chain', 'pack_bits:after_quantize',
         'pack_bits:after_sign_to_bits', 'dequant:after_roundtrip',
         'quantize:after_unpack_dequant', 'roundtrip:after_unpack_bits',
+        'unpack_bits:after_pack_bits', 'unpack_dequant:after_dequant',
         'client:queued', 'client:synced']
     assert sorted({kernel_ab.kernel_of(c) for c in calls} - {'client'}) == \
         sorted(cs.kernels_on('api'))
@@ -391,7 +396,13 @@ def _check_api_calls(kernel_ab, cs, calls, shapes):
     assert shapes['roundtrip:odd_row'] == [(2, n)] * 2 + [(n,)]
     assert shapes['pack_bits'] == shapes['pack_bits:bits1'] == [(n,)]
     assert shapes['unpack_bits'] == [(1938 * 3,)]
-    assert shapes['unpack_dequant'] == [(1938,), (1938 * 3,), (n,)]
+    assert shapes['unpack_dequant'] == shapes['unpack_dequant:mod_ok0'] \
+        == [(1938,), (1938 * 3,), (n,)]
+    assert shapes['unpack_bits:odd_row'] == [(2, 1938 * 3)]
+    assert shapes['unpack_dequant:odd_row'] == [(2, 1938), (2, 1938 * 3),
+                                                (n,)]
+    assert shapes['unpack_bits:chain'] == [(1938 * 32,)]
+    assert shapes['unpack_dequant:chain'] == [(n,)]
     out = {c: fn(*inputs) for c, (fn, inputs) in calls.items()}
     assert out['pack_bits'].shape == (1938 * 3,)
     assert out['pack_bits:bits1'].shape == (1938,)
@@ -399,7 +410,8 @@ def _check_api_calls(kernel_ab, cs, calls, shapes):
     assert not torch.equal(out['dequant'], out['dequant:mod_ok0'])
     # a chain's output is its next input; two 32 x 32 bit transposes
     # give back the values
-    for chain in ('dequant:chain', 'pack_bits:chain', 'roundtrip:chain'):
+    for chain in ('dequant:chain', 'pack_bits:chain', 'roundtrip:chain',
+                  'unpack_bits:chain', 'unpack_dequant:chain'):
         fn, (x,) = calls[chain]
         assert out[chain].shape == x.shape and out[chain].dtype == x.dtype
     fn, (x,) = calls['pack_bits:chain']
@@ -464,6 +476,101 @@ def test_kernel_ab_times_the_quantize_and_roundtrip_calls(call):
         before = {'quantize:after_unpack_dequant': 'unpack_dequant',
                   'roundtrip:after_unpack_bits': 'unpack_bits'}[call]
         assert same(got, (run(before), run(call.split(':')[0])))
+
+
+@pytest.mark.parametrize('call', ['unpack_bits:odd_row', 'unpack_bits:chain',
+                                  'unpack_dequant:mod_ok0',
+                                  'unpack_dequant:odd_row',
+                                  'unpack_dequant:chain',
+                                  'unpack_bits:after_pack_bits',
+                                  'unpack_dequant:after_dequant'])
+def test_kernel_ab_times_the_unpack_calls(call):
+    """kernel_ab.py's calls of the redesigned unpack_bits and
+    unpack_dequant, on the CPU: a call on row 1 of (2, words) tensors
+    (8 mod 16 apart) gives the lone call's output; the unpack_bits chain
+    is a 32 x 32 bit transpose a group, which pack_bits at 32 bits
+    undoes; the unpack_dequant chain (mod_ok 0, weight 1) maps gbar to
+    +-gbar; unpack_dequant at mod_ok 0 is (w * s) * gbar, which equals
+    dequant at mod_ok 0 of the client's signs (the wire sends sign 0 as
+    +1); a call behind the one phase 6 makes before it gives both lone
+    calls' outputs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+    sys.path.insert(0, str(ROOT))
+    try:
+        import kernel_ab
+    finally:
+        sys.path.remove(str(ROOT))
+    calls = kernel_ab.api_calls(_chip_smoke(), device='cpu')
+
+    def run(name):
+        fn, inputs = calls[name]
+        return fn(*inputs)
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return len(a) == len(b) and all(map(same, a, b))
+
+    got = run(call)
+    kernel = call.split(':')[0]
+    if call.endswith(':odd_row'):
+        fn, inputs = calls[call]
+        assert all(t[1].storage_offset() * 4 % 16 == 8 for t in inputs
+                   if t.dim() == 2)
+        assert same(got, run(kernel))
+    elif call == 'unpack_bits:chain':
+        fn, (words,) = calls[call]
+        assert got.shape == words.shape and not same(got, words)
+        assert same(ops.pack_bits_flat(got, 32), words)
+    elif call == 'unpack_dequant:chain':
+        fn, (gbar,) = calls[call]
+        assert got.shape == gbar.shape and got.dtype == gbar.dtype
+        assert same(got.abs(), gbar) and same(fn(got).abs(), gbar)
+    elif call == 'unpack_dequant:mod_ok0':
+        assert not same(got, run('unpack_dequant'))
+        # the same client through dequant at mod_ok 0, its signs as sent
+        sign, qidx, gbar = calls['dequant:mod_ok0'][1]
+        sent = fmt.bits_to_sign(fmt.sign_to_bits(sign))
+        assert same(got, calls['dequant:mod_ok0'][0](sent, qidx, gbar))
+    else:
+        before = {'unpack_bits:after_pack_bits': 'pack_bits:bits1',
+                  'unpack_dequant:after_dequant': 'dequant'}[call]
+        assert same(got, (run(before), run(kernel)))
+
+
+@pytest.mark.parametrize('n,bits', [(62006, 3), (62006, 32), (1, 1), (3, 5),
+                                    (4, 3), (127, 16), (128, 3), (129, 3),
+                                    (4096, 3), (4099, 8)])
+@pytest.mark.parametrize('name', ['unpack_bits', 'unpack_dequant'])
+def test_unpack_units_walk_the_grid(name, n, bits):
+    """The unpack kernels' units against a walk of their grid on an
+    aligned output.  unpack_bits: one thread a value, in whole blocks.
+    unpack_dequant: vectors of 4 coordinates in warps of 32, whole warps
+    first, then one scalar thread per coordinate of the
+    ragged tail, in whole blocks; every coordinate once."""
+    cs = _chip_smoke()
+    shape = build.constants(name)
+    units = cs.unpack_units(name, n, bits)
+    assert units['coordinate'] == n and units['plane'] == n * bits
+    assert set(cs.FUNCTION_OPS[name]) <= set(units)
+    assert 0 <= units['idle_thread'] < shape['THREADS']
+    if name == 'unpack_bits':
+        assert (n + units['idle_thread']) % shape['THREADS'] == 0
+        return
+    covered = []
+    for warp in range(units['warp_lane'] // 32):
+        for u in range(32 * warp, 32 * (warp + 1)):
+            if u < units['vector']:
+                covered += range(4 * u, 4 * u + 4)
+    covered += range(4 * units['vector'], n)
+    assert covered == list(range(n))
+    assert units['scalar_thread'] == n - 4 * units['vector'] < 4
+    assert units['warp_lane'] == 32 * -(-units['vector'] // 32)
+    total = units['warp_lane'] + units['scalar_thread'] + \
+        units['idle_thread']
+    assert total % shape['THREADS'] == 0
 
 
 def test_memory_before_wait_reads_the_sass_up_to_the_grid_wait():
@@ -566,7 +673,10 @@ def test_api_work_counts_what_each_call_needs(n, bits):
     reads g and, by mod_ok, the uniforms or gbar (12 B a coordinate with
     its output, at either mod_ok); dequant the sign and the knob index
     or gbar (9 B); quantize g and the uniforms and writes a sign byte and
-    a knob index (13 B).  At l = 62,006 the roundtrip moves 744,088 B."""
+    a knob index (13 B).  unpack_dequant reads the sign words and, by
+    mod_ok, the knob words or gbar, never both.  At l = 62,006 the
+    roundtrip moves 744,088 B, unpack_dequant 279,048 B at mod_ok 1 and
+    503,816 B at mod_ok 0."""
     cs = _chip_smoke()
     work = cs.api_work(n, bits)
     assert set(work) == set(cs.kernels_on('api'))
@@ -577,8 +687,19 @@ def test_api_work_counts_what_each_call_needs(n, bits):
     assert work['quantize']['bytes'] == 13 * n + 8
     for name in ('quantize', 'dequant', 'roundtrip'):
         assert work[name]['units'] == cs.vector_units(name, n)
+    groups = -(-n // 32)
+    unpack = work['unpack_dequant']
+    assert unpack['bytes'] == 4 * groups * (1 + bits) + 16 + 4 * n
+    assert unpack['variants']['mod_ok 0']['bytes'] == 4 * groups + 8 * n + 16
+    assert set(unpack['variants']) == {'mod_ok 0'}
+    for name in ('unpack_bits', 'unpack_dequant'):
+        assert work[name]['units'] == cs.unpack_units(name, n, bits)
+    assert work['unpack_dequant']['variants']['mod_ok 0']['units'] == \
+        unpack['units']
     if n == 62006:
         assert work['roundtrip']['bytes'] == 744088
+        assert unpack['bytes'] == 279048
+        assert unpack['variants']['mod_ok 0']['bytes'] == 503816
 
 
 def test_main_path_picks_the_function_by_fingerprint(monkeypatch):
