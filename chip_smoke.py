@@ -28,12 +28,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    before writes their input or reads their output, and on two streams
    (``check_pdl_hazards``); then
    the whole packed, bit-level transport on the card against the same
-   transport on the CPU at full width;
+   transport on the CPU at full width; then the eq. (28) solver kernel
+   (``alloc_solve``) against its plain version on the card, one batched
+   call per method on the CPU tests' parity grid plus a K=20 problem,
+   within the engine-parity contract (bit for bit is the aim; the script
+   says which outputs differ if any), and the batch against each problem
+   alone and unpadded, bit for bit (``check_alloc_kernel``);
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
    just before and read just after; then the device operations of one
-   more round under ``torch.profiler``;
+   more round under ``torch.profiler``; the solver kernel on that run's
+   own host problems against the host solutions
+   (``check_host_problems``); the same main path with
+   ``allocation_backend='jax'`` for 5 rounds (counters reset, the solver
+   launched once a round), both backends' round times, each round's
+   solve again alone with its kernel time, effort and trip counts
+   (``time_device_solves``), that nothing from a round's gradients to
+   its (q, p) waits for the card (``check_no_sync``), and one more round
+   under ``torch.profiler`` split into gradients, stats, solve,
+   transport, update and evaluation (``round_split``);
 5. ``spfl_retx`` at -40 dBm with the uniform allocator for 3 rounds, where
    the bit channel really flips bits and sign packets are resent;
 6. the per-client kernel API (``kernels.ops.*_flat``) on the main path's
@@ -43,8 +57,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
-the run of its own path (``path``: 'round' is phase 4, 'api' phase 6),
-with every counter reset just before that run.  Its ``bound_ms`` is the
+the run of its own path (``path``: 'round' is phase 4's main run, 'alloc'
+its ``allocation_backend='jax'`` run, 'api' phase 6), with every counter
+reset just before that run.  The solver's row times the last main-jax
+round's solve (``ms`` and ``warm_ms`` are the same measurement: its
+inputs are a few hundred bytes) and its plain version once; its bound
+counts the work of that solve's trip counts.  Its ``bound_ms`` is the
 larger of its bytes (each input read once, each output written once) over
 the HBM rate and the operations its function needs (``FUNCTION_OPS``)
 over the busiest pipe's rate, each shift and bit set placed on the ALU
@@ -128,6 +146,36 @@ FUNCTION_OPS = {
     'unpack_dequant': {'coordinate': {'fp32': 4, 'alu': 3, 'shift': 1,
                                       'xu': 1},
                        'plane': {'alu': 1, 'shift': 1, 'bitset': 1}},
+    # float64 (the eq. (28) solver), per client and unit of the work the
+    # kernel's trip counts record (alloc_units): an add, multiply,
+    # divide, min, max, exp, pow or sqrt is one fp64 operation (each
+    # divide, exp and pow is a sequence of DFMA on the card, so this is a
+    # lower bound), a compare or select one alu.  H(beta) and H'(beta)
+    # are 10 each, the four exponents of eq. (27) 10 (+2 selects), G 25,
+    # G' 38.  grid_point: G' and the grid point, the sign test and the
+    # argmin's compare; newton_step: G' twice, the slope, the Newton
+    # point and the midpoint, the bracket's tests and selects; bracket:
+    # its midpoint and G at the root; alpha_client: H_s, H_v and G at
+    # alpha_max; golden_pair: two surrogate evaluations (two H, the
+    # linearizations, four terms of 8, their sum, + lam beta: 63 each)
+    # and the bracket update; golden_call: the start, the midpoint and
+    # the sum's add; sca_round: the surrogate's set-up (H, H' of both
+    # packets, four exponents and bases); objective: two H, G, the sum;
+    # barrier_step: the slack's sum, dG/dbeta (two H, two H', four
+    # terms of 15), the barrier terms, the norm's square and add, the
+    # step and the stall test; backtrack: the new point and the sum.
+    'alloc_solve': {
+        'grid_point': {'fp64': 40, 'alu': 4},
+        'newton_step': {'fp64': 83, 'alu': 12},
+        'bracket': {'fp64': 27, 'alu': 3},
+        'alpha_client': {'fp64': 45, 'alu': 2},
+        'golden_pair': {'fp64': 130, 'alu': 11},
+        'golden_call': {'fp64': 8},
+        'sca_round': {'fp64': 75, 'alu': 4},
+        'objective': {'fp64': 47, 'alu': 2},
+        'barrier_step': {'fp64': 116, 'alu': 3},
+        'backtrack': {'fp64': 4, 'alu': 2},
+    },
 }
 
 
@@ -1590,19 +1638,28 @@ def check_grid_waits() -> list:
     return names
 
 
-def device_launches(fn) -> dict:
+def device_launches(fn, tries: int = 3) -> dict:
     """{name: count} of the device operations (kernels, memsets, copies)
-    that ``fn()`` runs, from ``torch.profiler``'s CUDA records."""
+    that ``fn()`` runs, from ``torch.profiler``'s CUDA records.  A profile
+    that holds no device record at all is taken again, up to ``tries``
+    times: the profiler has now and then delivered none for one short
+    launch (a kernel API call, PR 18's proof run), though the same call
+    showed its kernel in every other run."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    names = {}
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return dict(collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = dict(collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA))
+        if names:
+            break
+    return names
 
 
 def check_corrupt_fold_launches() -> dict:
@@ -1878,7 +1935,10 @@ def check_transport(k: int, n: int, seed: int) -> None:
         raise AssertionError('transport check drew no flips')
 
 
-def run_sim(fl, rounds: int, label: str):
+def run_sim(fl, rounds: int, label: str, hook=None):
+    """``rounds`` rounds of ``build_simulator(fl)`` at full width, with
+    every launch counter reset just before and read just after; ``hook``
+    (if any) is called with the simulator before the rounds."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.training.fl_loop import build_simulator
@@ -1887,13 +1947,16 @@ def run_sim(fl, rounds: int, label: str):
     sim = build_simulator(fl, per_device=500, n_test=2000)
     print(f'{label}: set-up {time.perf_counter() - t0:.3f} s '
           f'(K={sim.K}, l={sim.dim})', flush=True)
+    if hook is not None:
+        hook(sim)
     ops.reset_launch_counts()
     hist = sim.run(rounds)
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
     for n in range(rounds):
         print(f'{label} round {n}: {hist.round_time_s[n] * 1e3:.3f} ms '
-              f'(host eq. (28) {hist.alloc_time_s[n] * 1e3:.3f} ms) '
+              f'(eq. (28) host {hist.alloc_time_s[n] * 1e3:.3f} ms, '
+              f'{fl.allocation_backend} backend) '
               f'loss {hist.loss[n]:.6f} acc {hist.test_acc[n]:.4f} '
               f'payload_bits {hist.payload_bits[n]:.0f}', flush=True)
     print(f'{label} launches: {json.dumps(counts)}', flush=True)
@@ -1994,6 +2057,312 @@ def run_kernel_api(sim) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the on-device eq. (28) solver (alloc_solve)
+# ---------------------------------------------------------------------------
+
+# the engine-parity contract of src/repro/core/README.md
+ALLOC_CONTRACT = {
+    'alternating': dict(obj_rtol=1e-8, ab_atol=1e-4, qp_atol=1e-6),
+    'barrier': dict(obj_rtol=2e-5, ab_atol=5e-3, qp_atol=1e-4),
+}
+ALLOC_POWERS = (-4.0, -14.0, -24.0, -34.0)
+
+
+def alloc_problem(k: int, power_dbm: float, seed: int, dim: int = 60000):
+    """A host eq. (28) problem made with NumPy from ``seed``, as the CPU
+    tests make theirs (tests/test_torch_allocation_jax.py)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import allocation as PA
+    fl = dataclasses.replace(FLConfig(), tx_power_dbm=power_dbm)
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(0.0, 1.0, k)
+    dist = np.sqrt(10.0 ** 2 + (500.0 ** 2 - 10.0 ** 2) * u).astype(
+        np.float32)
+    g2 = np.abs(rng.randn(k)) + 0.2
+    gb2 = np.abs(rng.randn(k)) * 0.4 + 0.05
+    v = np.sqrt(g2 * gb2) * rng.uniform(0, 1, k)
+    d2 = np.abs(rng.randn(k)) * 0.05
+    return PA.problem_from_stats(g2, gb2, v, d2, dist ** (-fl.path_loss_exp),
+                                 np.full(k, fl.tx_power_w), dim, fl)
+
+
+def alloc_units(trips, k: int, n_grid: int = 256) -> dict:
+    """Units of work (``FUNCTION_OPS['alloc_solve']``) of one solve of k
+    clients from the kernel's trip counts (``ops.ALLOC_TRIPS`` order)."""
+    from repro_torch.kernels import ops
+    t = dict(zip(ops.ALLOC_TRIPS, (int(x) for x in trips)))
+    return {'grid_point': t['alpha'] * n_grid * k,
+            'newton_step': t['newton'], 'bracket': t['chains'],
+            'alpha_client': t['alpha'] * k, 'golden_pair': t['eval'] * k,
+            'golden_call': t['golden'] * k, 'sca_round': t['sca'] * k,
+            'objective': t['objective'] * k,
+            'barrier_step': t['barrier'] * k,
+            'backtrack': t['backtrack'] * k}
+
+
+def alloc_bytes(nb: int, k: int, max_iters: int) -> int:
+    """Bytes a solve of nb problems of k clients must move: each input
+    read once (four coefficients, gains, budgets and mask per client,
+    six scalars per problem), each output written once (alpha, beta, q,
+    p per client; objective, iterations, objectives and exit reason per
+    problem)."""
+    return nb * (k * 7 * 8 + 6 * 8 + k * 4 * 8 + 8 + 4 + max_iters * 8 + 4)
+
+
+def alloc_rows(sol, ks) -> list:
+    """A batched JaxAllocation as one host dict per problem, on its real
+    clients."""
+    host = {f: getattr(sol, f).cpu() for f in sol._fields}
+    return [{f: (v[i, :k] if f in ('alpha', 'beta', 'q', 'p') else v[i])
+             for f, v in host.items()} for i, k in enumerate(ks)]
+
+
+def alloc_compare(got, want, ks, method: str, label: str) -> float:
+    """Problem by problem, ``got`` within ``method``'s contract of
+    ``want`` (both batched JaxAllocations; iterations and exit reasons
+    equal); prints whether they agree bit for bit and, if not, on which
+    outputs.  -> the largest difference of any output."""
+    import torch
+    tol = ALLOC_CONTRACT[method]
+    worst, differ = 0.0, set()
+    for i, (a, b) in enumerate(zip(alloc_rows(got, ks), alloc_rows(want,
+                                                                   ks))):
+        for f in a:
+            x, y = a[f].double(), b[f].double()
+            if not torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)):
+                differ.add(f)
+            worst = max(worst, float((x - y).abs().nan_to_num(0.0).max()))
+        if int(a['iters']) != int(b['iters']) or \
+                int(a['exit_reason']) != int(b['exit_reason']):
+            raise AssertionError(f'{label} problem {i}: iterations or exit '
+                                 'reason differ')
+        obj = float(b['objective'])
+        if abs(float(a['objective']) - obj) > max(
+                tol['obj_rtol'] * abs(obj), 1e-12):
+            raise AssertionError(f'{label} problem {i}: objective')
+        for f, key in (('alpha', 'ab_atol'), ('beta', 'ab_atol'),
+                       ('q', 'qp_atol'), ('p', 'qp_atol')):
+            if float((a[f] - b[f]).abs().max()) > tol[key]:
+                raise AssertionError(f'{label} problem {i}: {f}')
+    same = 'bit for bit' if not differ else \
+        f'within the contract, bits differ in {sorted(differ)}'
+    print(f'{label}: {len(ks)} problems {same} (largest difference '
+          f'{worst:.3e})', flush=True)
+    return worst
+
+
+def check_alloc_kernel(seed: int) -> dict:
+    """The solver kernel on the card: (i) against its plain version on
+    the same card tensors, one batched call per method on the CPU tests'
+    parity grid (K in {4, 8} x 4 powers) plus one K=20 problem, padded
+    to K=20, at max_iters=2; (ii) the batch against each problem alone
+    (unpadded) and the K=8 problems as a batch of one size, bit for bit.
+    -> {'max_abs_err', 'plain_s'}."""
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    probs = [alloc_problem(k, p, 10 * k + int(-p)) for k in (4, 8)
+             for p in ALLOC_POWERS] + [alloc_problem(20, -14.0, seed)]
+    ks = [p.n for p in probs]
+    batch = AJ.stack_problems(probs, device='cuda')
+    out = {'max_abs_err': 0.0, 'plain_s': {}}
+    for method in ('alternating', 'barrier'):
+        kern = ops.alloc_solve(batch, method, max_iters=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = AJ.solve_plain(batch, method, max_iters=2)
+        torch.cuda.synchronize()
+        out['plain_s'][method] = time.perf_counter() - t0
+        out['max_abs_err'] = max(out['max_abs_err'], alloc_compare(
+            kern, plain, ks, method, f'alloc_solve {method}: kernel vs '
+            f'plain (plain {out["plain_s"][method]:.1f} s)'))
+        singles = [ops.alloc_solve(AJ.from_reference(p, device='cuda'),
+                                   method, max_iters=2) for p in probs]
+        for i, (one, k) in enumerate(zip(singles, ks)):
+            row = AJ.JaxAllocation(*(x[i] for x in kern))
+            for f in one._fields:
+                a, b = getattr(row, f), getattr(one, f)
+                if f in ('alpha', 'beta', 'q', 'p'):
+                    a = a[:k]
+                if not torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)):
+                    raise AssertionError(f'alloc_solve {method}: ragged '
+                                         f'batch != alone, problem {i} {f}')
+        same = [i for i, k in enumerate(ks) if k == 8]
+        homo = ops.alloc_solve(AJ.stack_problems([probs[i] for i in same],
+                                                 device='cuda'),
+                               method, max_iters=2)
+        for j, i in enumerate(same):
+            for f in homo._fields:
+                if not torch.equal(getattr(homo, f)[j].nan_to_num(7.0),
+                                   getattr(singles[i], f).nan_to_num(7.0)):
+                    raise AssertionError(f'alloc_solve {method}: batch != '
+                                         f'alone, problem {i} {f}')
+        print(f'alloc_solve {method}: ragged batch == each alone, batch '
+              f'of K=8 == each alone, bit for bit', flush=True)
+    return out
+
+
+def keep_host_solves(sim, kept: list) -> None:
+    """Keep each round's host problem and solution of a 'numpy'-backend
+    simulator (its allocate, wrapped)."""
+    allocate = sim.allocate
+
+    def wrapped(grads, gbar):
+        sol, stats = allocate(grads, gbar)
+        kept.append((stats['prob'], sol))
+        return sol, stats
+
+    sim.allocate = wrapped
+
+
+def keep_device_problems(sim, kept: list) -> None:
+    """Keep each round's device problem and stats of a 'jax'-backend
+    simulator (its allocate_on_device, wrapped)."""
+    allocate = sim.allocate_on_device
+
+    def wrapped(grads, gbar):
+        sol, stats = allocate(grads, gbar)
+        kept.append(stats)
+        return sol, stats
+
+    sim.allocate_on_device = wrapped
+
+
+def check_host_problems(kept: list, max_iters: int) -> float:
+    """The kernel on the main run's own host problems (the rounds that
+    solved), at that run's max_iters, within the alternating contract of
+    the host solutions.  -> the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    solved = [(prob, sol) for prob, sol in kept
+              if sol.info['method'] == 'alternating']
+    if not solved:
+        raise AssertionError('the main run solved no round')
+    batch = AJ.stack_problems([prob for prob, _ in solved], device='cuda')
+    got = ops.alloc_solve(batch, 'alternating', max_iters=max_iters)
+    f64 = dict(dtype=torch.float64)
+    want = AJ.JaxAllocation(
+        *(torch.as_tensor(np.stack([getattr(sol, f) for _, sol in solved]),
+                          **f64) for f in ('alpha', 'beta', 'q', 'p')),
+        torch.tensor([sol.objective for _, sol in solved], **f64),
+        torch.tensor([sol.info['iters_used'] for _, sol in solved],
+                     dtype=torch.int32),
+        got.objectives.cpu(),
+        torch.tensor([sol.info['exit_reason'] for _, sol in solved],
+                     dtype=torch.int32))
+    return alloc_compare(got, want, [prob.n for prob, _ in solved],
+                         'alternating', 'alloc_solve on the main run\'s host '
+                         f'problems (max_iters={max_iters}) vs the host solve')
+
+
+def time_device_solves(sim, kept: list) -> list:
+    """Each kept round's solve again, alone: its kernel time (CUDA events,
+    median of 5), trip counts and effort.  -> one dict per round."""
+    import torch
+    from repro_torch.kernels import ops
+    fl = sim.fl
+    out = []
+    for n, stats in enumerate(kept):
+        prob, gate = stats['prob'], torch.amax(stats['gb2'])
+        trips = torch.zeros((1, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
+                            device='cuda')
+
+        def solve(prob=prob, gate=gate, trips=trips):
+            return ops.alloc_solve(
+                prob, fl.allocator, max_iters=fl.allocation_max_iters or 6,
+                tol=fl.allocation_tol or 1e-5,
+                early_exit=fl.allocation_early_exit, gate=gate, trips=trips)
+
+        ms = device_ms([solve], reps=5, inner=1)
+        sol = solve()
+        torch.cuda.synchronize()
+        out.append(dict(round=n, ms=ms, iters=int(sol.iters),
+                        exit_reason=int(sol.exit_reason),
+                        trips=trips[0].tolist(), prob=prob, gate=gate,
+                        sol=sol))
+        print(f'main-jax round {n}: alloc_solve kernel {ms:.4f} ms, '
+              f'iters_used {int(sol.iters)}, exit_reason '
+              f'{int(sol.exit_reason)}, trips '
+              f'{json.dumps(dict(zip(ops.ALLOC_TRIPS, trips[0].tolist())))}',
+              flush=True)
+    return out
+
+
+def check_no_sync(sim) -> None:
+    """A 'jax'-backend round from its gradients to (q, p) queues its work
+    without a host synchronization: the stats, the problem, the solve and
+    the casts run under ``torch.cuda.set_sync_debug_mode('error')``, which
+    raises at any operation that waits for the card."""
+    import torch
+    _, grads = sim.client_grads(sim.params)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        sol, _ = sim.allocate_on_device(grads, sim.gbar)
+        sol.q.to(torch.float32), sol.p.to(torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    print('main-jax: from the gradients to (q, p) nothing waits for the '
+          "card (sync debug mode 'error')", flush=True)
+
+
+def round_split(sim, tries: int = 3) -> dict:
+    """One more round of ``sim`` (and its evaluation) under
+    ``torch.profiler``: for each of its spans (``round/...`` in
+    ``training.fl_loop``) the host ms and the device ms (the profiler's
+    device-side span of the annotation: from the first to the end of the
+    last device operation launched in it), the device's busy ms (the sum
+    of its operations) and idle share of the round's wall time, and the
+    operations that took most of it.  A profile without device records
+    is taken again on the next round, up to ``tries`` rounds (see
+    ``device_launches``)."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cpu = torch.autograd.DeviceType.CPU
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim.run(1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        host = collections.Counter()
+        device = collections.Counter()
+        ops = collections.Counter()
+        for e in prof.events():
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            if e.device_type == cpu:
+                if e.name.startswith('round/'):
+                    host[e.name] += ms
+            elif e.name.startswith('round/'):
+                device[e.name] += ms
+            else:
+                ops[e.name.split('(')[0][:48]] += ms
+        busy = sum(ops.values())
+        if busy > 0.0:
+            break
+    print(f'main-jax round split (torch.profiler, one round): wall '
+          f'{wall:.3f} ms, device busy {busy:.3f} ms (idle share '
+          f'{1 - busy / wall:.4f})', flush=True)
+    for name in ('round/gradients', 'round/stats', 'round/solve',
+                 'round/transport', 'round/update', 'round/evaluation'):
+        print(f'  {name}: host {host.get(name, 0.0):.3f} ms, device '
+              f'{device.get(name, 0.0):.3f} ms', flush=True)
+    print(f'  device operations, most time first: '
+          f'{json.dumps(dict(ops.most_common(6)))} ms', flush=True)
+    if busy <= 0.0:
+        raise AssertionError('the profiler recorded no device time')
+    return {'wall_ms': wall, 'host': dict(host), 'device': dict(device),
+            'busy_ms': busy}
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
     ``r['bytes']`` and does ``r['units']`` units of work of kernel
@@ -2070,20 +2439,43 @@ def main() -> int:
         check_api_kernels(3, 1007, bits, timed=False, seed=6 + bits)
     check_transport(K, l_main, seed=3)
     check_transport(3, 1007, seed=4)
+    alloc = check_alloc_kernel(seed=13)
     print('kernels and transport agree with their plain versions', flush=True)
 
     from repro_torch.configs.base import FLConfig
     from repro_torch.wire import format as fmt
 
-    # 4. the main path at full width
+    # 4. the main path at full width, with the host solver and then the
+    # solver kernel
     fl = FLConfig(wire='packed', channel='bitlevel')
-    sim, hist, counts = run_sim(fl, 5, 'main')
+    host_solves = []
+    sim, hist, counts = run_sim(
+        fl, 5, 'main', hook=lambda s: keep_host_solves(s, host_solves))
     want = fmt.measured_uplink_bits(sim.dim, fl.quant_bits, sim.K)
     if any(b != want for b in hist.payload_bits):
         raise AssertionError(f'payload_bits {hist.payload_bits} != '
                              f'measured frames {want}')
     print(f'main round device operations: {round_launches(sim)}',
           flush=True)
+    check_host_problems(host_solves, fl.allocation_max_iters or 2)
+    fl_j = FLConfig(wire='packed', channel='bitlevel',
+                    allocation_backend='jax')
+    device_probs = []
+    sim_j, hist_j, counts_j = run_sim(
+        fl_j, 5, 'main-jax',
+        hook=lambda s: keep_device_problems(s, device_probs))
+    if counts_j['alloc_solve'] != 5:
+        raise AssertionError(f'main-jax: alloc_solve launched '
+                             f'{counts_j["alloc_solve"]} times in 5 rounds')
+    if any(b != want for b in hist_j.payload_bits):
+        raise AssertionError('main-jax: payload_bits != measured frames')
+    for name, h in (('numpy', hist), ('jax', hist_j)):
+        print(f'main rounds 1-4, {name} backend: '
+              f'{json.dumps([t * 1e3 for t in h.round_time_s[1:]])} ms',
+              flush=True)
+    solves = time_device_solves(sim_j, device_probs)
+    check_no_sync(sim_j)
+    round_split(sim_j)
     # 5. the operating point where the bit channel flips and resends
     fl5 = FLConfig(wire='packed', channel='bitlevel',
                    transport='spfl_retx', allocator='uniform',
@@ -2107,8 +2499,30 @@ def main() -> int:
     if leaked:
         return fail(f'imported {leaked}')
 
+    # the solver kernel's row: the last main-jax round's solve, its plain
+    # version once on the same card tensors
+    from repro_torch.core import allocation_jax as AJ
+    last = solves[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = AJ.solve_plain(last['prob'], fl_j.allocator,
+                           max_iters=fl_j.allocation_max_iters or 6,
+                           gate=last['gate'])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((getattr(plain, f).double() - getattr(last['sol'], f)
+                     .double()).abs().nan_to_num(0.0).max())
+              for f in plain._fields)
+    print(f'alloc_solve on the last main-jax round: plain {plain_ms:.1f} ms '
+          f'on the card, kernel - plain {err:.3e}', flush=True)
+    results['alloc_solve'] = {
+        'ms': last['ms'], 'warm_ms': last['ms'], 'plain_ms': plain_ms,
+        'max_abs_err': max(err, alloc['max_abs_err']),
+        'bytes': alloc_bytes(1, sim_j.K, fl_j.allocation_max_iters or 6),
+        'units': alloc_units(last['trips'], sim_j.K)}
+
     sass_mixes = sass_unit_mixes(build.KERNELS)
-    launches = {'round': counts, 'api': api_counts}
+    launches = {'round': counts, 'api': api_counts, 'alloc': counts_j}
     rows = []
     for name, kern in build.TABLE.items():
         r = results[name]

@@ -41,7 +41,8 @@ class FLConfig:
     collective: str = 'gather'           # gather | sharded (packed wire)
     allocation_backend: str = 'numpy'    # numpy | jax
     allocation_cadence: str = 'static'   # static | per_round
-    allocation_max_iters: int = 0        # 0 = auto (2 alternating, 6 barrier)
+    allocation_max_iters: int = 0        # 0 = auto: 2 alternating, 6 barrier
+    #   on the numpy backend; 6 for both on the jax backend
     allocation_tol: float = 0.0          # 0 = engine default 1e-5
     allocation_early_exit: bool = True   # while_loop early exit (jax)
     telemetry_flush_every: int = 8       # ring capacity / flush cadence

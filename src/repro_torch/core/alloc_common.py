@@ -1,12 +1,17 @@
 """Closed forms of the eq. (27)/(28) allocation problem (the port's own
-NumPy copy of ``repro.core.alloc_common``).
+copy of ``repro.core.alloc_common``).
 
 Every function takes the array namespace ``xp`` as its first argument and
-is pure elementwise algebra; the port's allocator (``allocation``) calls
-it with ``numpy`` in float64 on the host, as the reference's 'numpy'
-backend does.
+is pure elementwise algebra.  The port's host allocator (``allocation``)
+calls it with ``numpy`` in float64, as the reference's 'numpy' backend
+does; the on-device engine (``allocation_jax``) calls it with
+:data:`TORCH`, the same namespace on torch tensors.
 """
 from __future__ import annotations
+
+import math
+
+import torch
 
 # exponent clamp: beyond this exp() overflows the bound to +inf — we
 # saturate instead (f64 value; convergence.py re-exports it)
@@ -21,6 +26,69 @@ LOG_FLOOR = -745.0     # exp() underflow floor for success probabilities
 TERM_W = ((1.0, 0.0), (2.0, 0.0), (1.0, 1.0), (0.0, 1.0))
 
 _INF = float('inf')
+LN2 = math.log(2.0)
+
+
+def lane_stable(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise transcendental ``fn``, with every
+    element computed as it is in a problem of one row.
+
+    On the CPU PyTorch computes exp and pow with SLEEF on the vector part
+    of a contiguous run and with libm on its tail; the two differ by an
+    ulp now and then, so an element's result would depend on where it
+    lands in the flattened tensor, and a batch of problems would drift
+    from the same problems solved one by one.  Here the last axis (the
+    client axis) is copied into rows one element wider than itself, which
+    PyTorch cannot merge into one run, so each row is split into its
+    vector part and tail the same way whatever the batch; rows go in
+    chunks below PyTorch's parallel grain, which would otherwise cut a
+    row.  On a card every element takes the same path anyway."""
+    if x.device.type != 'cpu' or x.dim() == 0:
+        return fn(x)
+    k = x.shape[-1]
+    rows = x.reshape(-1, k)
+    padded = rows.new_empty((rows.shape[0], k + 1))[:, :k]
+    padded.copy_(rows)
+    step = max(1, 16384 // (k + 1))
+    if rows.shape[0] <= step:
+        return fn(padded).reshape(x.shape)
+    return torch.cat([fn(padded[i:i + step])
+                      for i in range(0, rows.shape[0], step)]).reshape(
+                          x.shape)
+
+
+class _TorchNamespace:
+    """The NumPy functions the closed forms call, on torch tensors.  A
+    bound given as a Python float clamps; exp and power are
+    :func:`lane_stable`.  Every operation is one PyTorch elementwise op in
+    the closed form's order, so a kernel that repeats the order with
+    rounded intrinsics gets the same bits."""
+
+    @staticmethod
+    def minimum(x, y):
+        return x.clamp(max=y) if isinstance(y, float) else torch.minimum(x, y)
+
+    @staticmethod
+    def maximum(x, y):
+        return x.clamp(min=y) if isinstance(y, float) else torch.maximum(x, y)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return x.clamp(lo, hi)
+
+    @staticmethod
+    def exp(x):
+        return lane_stable(torch.exp, x)
+
+    @staticmethod
+    def power(base, x):
+        return lane_stable(lambda t: torch.pow(base, t), x)
+
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
+
+
+TORCH = _TorchNamespace()
 
 
 # ---------------------------------------------------------------------------
@@ -32,7 +100,8 @@ def h_term(xp, beta, p_w, gain, n_bits, bandwidth_hz, noise_psd_w,
     """H(beta) = beta B N0 / (4 P g) (1 - 2^{2 R / (beta B tau)}), <= 0."""
     bb = beta * bandwidth_hz
     expo = xp.minimum(2.0 * n_bits / (bb * latency_s), pow_cap)
-    h = (bb * noise_psd_w / (4.0 * p_w * gain)) * (1.0 - 2.0 ** expo)
+    h = ((bb * noise_psd_w / (4.0 * p_w * gain))
+         * (1.0 - xp.power(2.0, expo)))
     return xp.maximum(h, h_floor)
 
 
@@ -42,8 +111,8 @@ def h_term_prime(xp, beta, p_w, gain, n_bits, bandwidth_hz, noise_psd_w,
     c1 = bandwidth_hz * noise_psd_w / (4.0 * p_w * gain)
     expo = xp.minimum(2.0 * n_bits / (beta * bandwidth_hz * latency_s),
                       pow_cap)
-    pow2 = 2.0 ** expo
-    return c1 * ((1.0 - pow2) + pow2 * xp.log(2.0) * expo)
+    pow2 = xp.power(2.0, expo)
+    return c1 * ((1.0 - pow2) + pow2 * LN2 * expo)
 
 
 def success_probs(xp, alpha, h_s, h_v, *, log_floor=LOG_FLOOR):

@@ -46,8 +46,9 @@ class Kernel(NamedTuple):
     ``entry``."""
     entry: str         # C entry point; returns its launch's cudaError_t
     argtypes: list
-    path: str          # 'round': the FL round; 'api': the *_flat kernel API
-    replaces: str      # the Pallas body it ports, as repo file:line
+    path: str          # 'round': the FL round; 'api': the *_flat kernel
+    #                    API; 'alloc': the on-device eq. (28) solver
+    replaces: str      # the TPU function it ports, as repo file:line
 
 
 _PK = 'src/repro/wire/pack_kernel.py'
@@ -81,6 +82,9 @@ TABLE = {
     'unpack_dequant': Kernel('spfl_unpack_dequant',
                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
                              'api', f'{_PK}:159'),
+    # the JAX engine's solve_traceable: one XLA program, no Pallas body
+    'alloc_solve': Kernel('alloc_solve', [_P] * 18 + [_I] * 7 + [_P],
+                          'alloc', 'src/repro/core/allocation_jax.py:584'),
 }
 KERNELS = tuple(TABLE)
 

@@ -1,8 +1,9 @@
 """Wrappers around the hand-written CUDA kernels (the port of
 ``repro.kernels.ops``): the four kernels of the packed, bit-level round,
-and the per-client kernel API (``*_flat``: the unfused quantizer and
+the per-client kernel API (``*_flat``: the unfused quantizer and
 dequantizer, the fused analytic round trip, the bit-plane packers and
-the single-client packed decode).
+the single-client packed decode), and the on-device eq. (28) solver
+(``alloc_solve``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then:
@@ -21,6 +22,8 @@ Words are int32 tensors holding uint32 bit patterns (``wire.format``).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -405,3 +408,106 @@ def fold_words(words: Tensor) -> Tensor:
     _launch('fold_words', words, words.data_ptr(), _rows(words, 'words'),
             out.data_ptr(), k, w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the on-device eq. (28) solver
+# ---------------------------------------------------------------------------
+
+ALLOC_TRIPS = ('outer', 'alpha', 'chains', 'newton', 'sca', 'dual', 'grow',
+               'bisect', 'golden', 'eval', 'barrier', 'backtrack',
+               'objective')
+
+
+@functools.lru_cache(maxsize=1)
+def alloc_limits() -> dict:
+    """The solver kernel's limits, read from its source: MAX_K clients a
+    problem, MAX_ITERS outer iterations."""
+    return build.constants('alloc_solve')
+
+
+def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
+                tol: float = 1e-5, n_grid: int = 256, newton_iters: int = 40,
+                early_exit: bool = True, inner_tol: float = 0.0,
+                gate: Optional[Tensor] = None,
+                trips: Optional[Tensor] = None):
+    """Solve eq. (28) for one problem or a batch
+    (``core.allocation_jax.JaxAllocationProblem``) -> ``JaxAllocation``.
+
+    On the card: one launch of the ``alloc_solve`` kernel (one thread
+    block a problem), float64 only; no value is read back to the host.
+    ``gate`` (one value per problem, or one for all, on the card) solves
+    a problem whose gate is not > 0 at the uniform point instead; with
+    ``trips`` (int32 (B, len(ALLOC_TRIPS)) on the card) the kernel counts
+    its work there (``ALLOC_TRIPS`` order).  On the CPU:
+    ``allocation_jax.solve_plain``; ``trips`` is left as it is."""
+    from repro_torch.core import allocation_jax as AJ
+    AJ._check_method(method)
+    fields = [getattr(prob, f) for f in AJ.PER_CLIENT + AJ.SCALARS]
+    extra = [t for t in (prob.mask, gate) if t is not None]
+    if not _on_card(*fields, *extra):
+        return AJ.solve_plain(prob, method, max_iters, tol, n_grid,
+                              newton_iters, early_exit, inner_tol, gate)
+    if any(t.dtype != torch.float64 for t in fields + extra):
+        raise NotImplementedError(
+            'the alloc_solve kernel solves float64 problems; a float32 '
+            'solve on the card (fused rounds) is ROADMAP Queue 1 item 11')
+    limits = alloc_limits()
+    batched = AJ.is_batched(prob)
+    nb, k = tuple(prob.A.shape) if batched else (1, prob.A.shape[0])
+    if not 1 <= k <= limits['MAX_K']:
+        raise ValueError(f'alloc_solve takes 1 to {limits["MAX_K"]} clients '
+                         f'a problem, got {k}')
+    if not 0 <= max_iters <= limits['MAX_ITERS']:
+        raise ValueError(f'max_iters must be in [0, {limits["MAX_ITERS"]}], '
+                         f'got {max_iters}')
+    if n_grid < 2 or newton_iters < 0:
+        raise ValueError('n_grid must be >= 2 and newton_iters >= 0')
+    dev = prob.A.device
+
+    def per_client(t):
+        return t.reshape(nb, k).contiguous()
+
+    # every tensor the kernel reads stays referenced until it is queued
+    coef = torch.stack([per_client(getattr(prob, f)) for f in 'ABCD'],
+                       dim=1).contiguous()
+    gains, p_w = per_client(prob.gains), per_client(prob.p_w)
+    mask = (per_client(prob.mask) if prob.mask is not None
+            else torch.ones((nb, k), dtype=torch.float64, device=dev))
+    scal = torch.stack([getattr(prob, f).reshape(nb) for f in AJ.SCALARS],
+                       dim=1).contiguous()
+    if gate is not None:
+        gate = gate.reshape(-1).expand(nb).contiguous()
+    if trips is not None:
+        _expect(trips, 'trips', torch.int32, (nb, len(ALLOC_TRIPS)))
+        _contig(trips, 'trips')
+    caps = AJ._caps(torch.float64)
+    consts = (ctypes.c_double * 16)(
+        caps.exp_cap, caps.pow_cap, caps.h_floor, caps.log_floor,
+        caps.newton_eps, caps.a_eps, 1.0 - caps.a_eps, AJ.AC.BETA_MIN,
+        AJ.AC.BETA_MAX, AJ.GOLDEN_RATIO, AJ.AC.LN2, AJ.LN10, tol, inner_tol,
+        AJ.SCA_TOL, AJ.BARRIER_LR)
+    f64 = dict(dtype=torch.float64, device=dev)
+    scratch = torch.empty((nb, 3 * n_grid * k + 2 * k), **f64)
+    brackets = torch.empty((nb, (n_grid - 1) * k), dtype=torch.int32,
+                           device=dev)
+    alpha, beta, q, p = (torch.empty((nb, k), **f64) for _ in range(4))
+    objective = torch.empty((nb,), **f64)
+    objectives = torch.empty((nb, max_iters), **f64)
+    iters, reason = (torch.empty((nb,), dtype=torch.int32, device=dev)
+                     for _ in range(2))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _launch('alloc_solve', coef, coef.data_ptr(), gains.data_ptr(),
+            p_w.data_ptr(), mask.data_ptr(), scal.data_ptr(), ptr(gate),
+            scratch.data_ptr(), brackets.data_ptr(), alpha.data_ptr(),
+            beta.data_ptr(), q.data_ptr(), p.data_ptr(),
+            objective.data_ptr(), iters.data_ptr(), objectives.data_ptr(),
+            reason.data_ptr(), ptr(trips), ctypes.addressof(consts), nb, k,
+            AJ.METHODS.index(method), max_iters, n_grid, newton_iters,
+            int(early_exit))
+    sol = AJ.JaxAllocation(alpha, beta, q, p, objective, iters, objectives,
+                           reason)
+    return sol if batched else AJ.JaxAllocation(*(x[0] for x in sol))

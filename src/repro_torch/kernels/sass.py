@@ -19,6 +19,7 @@ fp32      128   FADD, FMUL, FFMA
 imad      64    IMAD, IMUL (the multiply-add half of the FMA pipe)
 alu       64    LOP3, SHF, IADD3, ISETP, SEL, LEA, PRMT, ... (INT32)
 xu        16    I2F, F2I, POPC, FLO, BREV, MUFU (conversions, bit count)
+fp64      64    DADD, DMUL, DFMA, DSETP (float64)
 shfl      32    SHFL
 other     --    memory, control, moves, uniform datapath: issue only
 ========  ====  =====================================================
@@ -45,7 +46,7 @@ from pathlib import Path
 from typing import Dict, List, Mapping, NamedTuple
 
 PIPE_RATES = {'issue': 128, 'fp32': 128, 'imad': 64, 'alu': 64, 'xu': 16,
-              'shfl': 32}
+              'fp64': 64, 'shfl': 32}
 _PIPES = {
     'fp32': ('FADD', 'FMUL', 'FFMA', 'FADD32I', 'FMUL32I', 'FFMA32I'),
     'imad': ('IMAD', 'IMUL', 'IMAD32I', 'IMUL32I', 'IDP'),
@@ -54,6 +55,7 @@ _PIPES = {
             'IABS', 'BMSK', 'SGXT', 'PLOP3', 'LOP32I', 'IADD32I'),
     'xu': ('I2F', 'F2I', 'I2FP', 'F2IP', 'F2F', 'I2I', 'FRND', 'POPC', 'FLO',
            'BREV', 'MUFU'),
+    'fp64': ('DADD', 'DMUL', 'DFMA', 'DSETP', 'DMNMX'),
     'shfl': ('SHFL',),
 }
 PIPE_OF = {op: pipe for pipe, ops in _PIPES.items() for op in ops}
@@ -430,6 +432,29 @@ MAIN_PATHS = {
         'idle_thread': ((0x0000, 0x0100),),
         'coordinate': (),
         'plane': (),
+    }),
+    'alloc_solve': ('6a048124e690b9d0', {
+        # alloc_solve_kernel (float64): one trip of each loop by one
+        # client's thread, read from the loop structure (sass.regions):
+        # the grid loop's G' evaluation; a Newton step of a bracket's
+        # thread; a golden-section step of the bisection's golden section
+        # (its bracket update and the pair of surrogate evaluations, both
+        # branches of each term's sign test in the span, one of which
+        # runs); a barrier step without its backtracking loop (the
+        # ordered sums' add loops of thread 0 inside); one backtracking
+        # trip.  The float64 divisions' slow path, pow's and exp's
+        # subroutines are CALLs outside the spans (a division on its fast
+        # path is inline).  The other units have no span of their own.
+        'grid_point': ((0x04950, 0x06750),),
+        'newton_step': ((0x07a40, 0x0b1a0),),
+        'golden_pair': ((0x394e0, 0x40660),),
+        'barrier_step': ((0x53730, 0x58c10), (0x596c0, 0x59820)),
+        'backtrack': ((0x58c20, 0x596b0),),
+        'bracket': (),
+        'alpha_client': (),
+        'golden_call': (),
+        'sca_round': (),
+        'objective': (),
     }),
 }
 

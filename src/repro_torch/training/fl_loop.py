@@ -5,8 +5,11 @@ Per round n:
   1. each device computes g_{k,n} = ∇F_k(w_n): one batched
      ``torch.func.vmap`` of the gradient over the K clients, taken with
      respect to the flat reference-order parameter vector;
-  2. the PS solves eq. (28) on the host in float64 NumPy
-     (``core.allocation``, the reference's 'numpy' backend) -> (q, p);
+  2. the PS solves eq. (28) -> (q, p): on the host in float64 NumPy
+     (``core.allocation``, ``allocation_backend='numpy'``), or on the
+     device (``core.allocation_jax``, ``allocation_backend='jax'``: the
+     per-client scalars are reduced on the card and one ``alloc_solve``
+     launch solves, with no device-to-host copy before the transport);
   3. the uplink runs through ``core.transport.spfl_aggregate`` (on the
      packed, bit-level wire: the four CUDA kernels);
   4. SGD update w <- w - eta ghat, and the compensation vector rolls.
@@ -33,12 +36,15 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, vmap
+from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import allocation as alloc
+from repro_torch.core import allocation_jax as alloc_jax
 from repro_torch.core import channel, convergence, transport
 from repro_torch.core.quantize import expected_quant_mse
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.kernels import ops
 from repro_torch.models.cnn import CNN, cnn_loss, init_params, module_params
 from repro_torch.obs.record import RoundTelemetry, sign_agreement
 
@@ -47,8 +53,6 @@ _NOT_YET = (
     (lambda fl: fl.transport not in ('spfl', 'spfl_retx'),
      'transport {fl.transport!r}: the baselines dds/onebit/scheduling/'
      'error_free are ROADMAP Queue 1 item 5'),
-    (lambda fl: fl.allocation_backend != 'numpy',
-     "allocation_backend='jax' is ROADMAP Queue 1 item 7"),
     (lambda fl: fl.allocation_cadence != 'static',
      "allocation_cadence='per_round' needs the AR(1) shadowing of "
      'ROADMAP Queue 1 item 3'),
@@ -67,11 +71,17 @@ _NOT_YET = (
 )
 
 
+ALLOCATION_BACKENDS = ('numpy', 'jax')
+
+
 def check_supported(fl: FLConfig) -> None:
     """Raise on configurations the port cannot run (yet)."""
     for unsupported, message in _NOT_YET:
         if unsupported(fl):
             raise NotImplementedError(message.format(fl=fl))
+    if fl.allocation_backend not in ALLOCATION_BACKENDS:
+        raise ValueError(f'allocation_backend must be one of '
+                         f'{ALLOCATION_BACKENDS}')
     if fl.wire not in transport.WIRE_KINDS:
         raise ValueError(f'wire must be one of {transport.WIRE_KINDS}')
     if fl.channel not in channel.CHANNEL_KINDS:
@@ -95,7 +105,10 @@ class FLHistory:
     alloc_iters: List[float] = field(default_factory=list)
     alloc_exit_reason: List[float] = field(default_factory=list)
     retransmissions: List[float] = field(default_factory=list)
-    alloc_time_s: List[float] = field(default_factory=list)   # host eq. (28)
+    # host time of step 2: on allocation_backend='numpy' the whole
+    # eq. (28) solve; on 'jax' only the cost of queueing it (the solve
+    # runs on the card behind the gradients)
+    alloc_time_s: List[float] = field(default_factory=list)
     round_time_s: List[float] = field(default_factory=list)
 
     def as_dict(self) -> Dict[str, List[float]]:
@@ -108,9 +121,10 @@ class RoundResult(NamedTuple):
     grads: torch.Tensor           # (K, l) client gradients
     ghat: torch.Tensor            # (l,) aggregate
     telemetry: RoundTelemetry
-    allocation: alloc.Allocation
-    stats: dict                   # g2, gb2, v, d2, prob of the solve and
-    #                               the host grads/gbar they came from
+    allocation: object            # alloc.Allocation (host, 'numpy') or
+    #                               alloc_jax.JaxAllocation (card, 'jax')
+    stats: dict                   # g2, gb2, v, d2, prob of the solve (and
+    #                               on 'numpy' the host grads/gbar)
     alloc_time_s: float
 
 
@@ -152,6 +166,11 @@ class FLSimulator:
                                         fl.cell_radius_m)
         self.gains = channel.path_gain(dist, fl.path_loss_exp)
         self.p_w = np.full(self.K, fl.tx_power_w)
+        # the same gains and budgets in float64 on the device, for the
+        # on-device solver
+        self.gains_dev = torch.as_tensor(np.asarray(self.gains, np.float64),
+                                         device=self.device)
+        self.p_w_dev = torch.as_tensor(self.p_w, device=self.device)
         shape = (self.K, self.dim) if fl.compensation == 'last_local' \
             else (self.dim,)
         self.gbar = torch.zeros(shape, device=self.device)
@@ -221,6 +240,35 @@ class FLSimulator:
         return sol, dict(g2=g2, gb2=gb2, v=v, d2=d2, prob=prob,
                          grads=grads_np, gbar=gbar_np)
 
+    def allocate_on_device(self, grads: torch.Tensor, gbar: torch.Tensor):
+        """Steps 3-4 on the device: the per-client scalars reduced in
+        float64 where the gradients lie, and one solver call (one kernel
+        launch on the card) -> (JaxAllocation, stats).  Nothing is read
+        back to the host; the round-0 guard (no compensation history) is
+        the solver's gate, max(gb2) > 0."""
+        fl = self.fl
+        with record_function('round/stats'):
+            g64 = grads.detach().to(torch.float64)
+            gb = gbar if gbar.dim() == 2 else gbar.expand(grads.shape)
+            gb64 = gb.detach().to(torch.float64)
+            g2 = torch.sum(g64 ** 2, dim=1)
+            gb2 = torch.sum(gb64 ** 2, dim=1)
+            v = torch.sum(torch.abs(g64) * gb64, dim=1)
+            d2 = expected_quant_mse(grads.detach(), fl.quant_bits,
+                                    dim=1).to(torch.float64)
+            prob = alloc_jax.problem_from_stats(g2, gb2, v, d2,
+                                                self.gains_dev,
+                                                self.p_w_dev, self.dim, fl)
+        method = fl.allocator
+        with record_function('round/solve'):
+            gate = None if method == 'uniform' else torch.amax(gb2)
+            sol = ops.alloc_solve(prob, method,
+                                  max_iters=fl.allocation_max_iters or 6,
+                                  tol=fl.allocation_tol or 1e-5,
+                                  early_exit=fl.allocation_early_exit,
+                                  gate=gate)
+        return sol, dict(g2=g2, gb2=gb2, v=v, d2=d2, prob=prob)
+
     def draw(self) -> transport.Draws:
         """One round's transport draws from the simulator's generators."""
         n_retx = 1 if self.fl.transport == 'spfl_retx' else 0
@@ -235,32 +283,46 @@ class FLSimulator:
         current ``run`` (the seeded-random compensation keys on it)."""
         fl = self.fl
         n = self._round if n is None else n
-        losses, grads = self.client_grads(self.params)
+        with record_function('round/gradients'):
+            losses, grads = self.client_grads(self.params)
         ta = time.perf_counter()
-        sol, stats = self.allocate(grads, self.gbar)
-        alloc_t = time.perf_counter() - ta
-        q = torch.as_tensor(sol.q, dtype=torch.float32, device=self.device)
-        p = torch.as_tensor(sol.p, dtype=torch.float32, device=self.device)
-        draws = self.draw() if draws is None else draws
-        ghat, rec = transport.spfl_aggregate(
-            grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
-            n_retx=1 if fl.transport == 'spfl_retx' else 0, wire=fl.wire,
-            round_idx=self._round, channel=fl.channel,
-            min_participation=fl.min_participation)
-        self.params = self.params - fl.learning_rate * ghat
-        if fl.compensation == 'last_global':
-            self.gbar = torch.abs(ghat)
-        elif fl.compensation == 'last_local':
-            self.gbar = torch.abs(grads)
-        elif fl.compensation == 'seeded_random':
-            gen = torch.Generator().manual_seed(
-                (fl.seed + 99) * 1_000_003 + n)
-            self.gbar = (torch.abs(torch.randn(self.dim, generator=gen))
-                         * 0.01).to(self.device)
-        rec = rec.with_allocation(
-            q, p, objective=sol.objective, round_idx=self._round,
-            iters=int(sol.info.get('iters_used', 0)),
-            exit_reason=int(sol.info.get('exit_reason', 0)))
+        if fl.allocation_backend == 'jax':
+            sol, stats = self.allocate_on_device(grads, self.gbar)
+            alloc_t = time.perf_counter() - ta
+            q, p = sol.q.to(torch.float32), sol.p.to(torch.float32)
+            objective, iters, reason = (sol.objective, sol.iters,
+                                        sol.exit_reason)
+        else:
+            sol, stats = self.allocate(grads, self.gbar)
+            alloc_t = time.perf_counter() - ta
+            q = torch.as_tensor(sol.q, dtype=torch.float32,
+                                device=self.device)
+            p = torch.as_tensor(sol.p, dtype=torch.float32,
+                                device=self.device)
+            objective = sol.objective
+            iters = int(sol.info.get('iters_used', 0))
+            reason = int(sol.info.get('exit_reason', 0))
+        with record_function('round/transport'):
+            draws = self.draw() if draws is None else draws
+            ghat, rec = transport.spfl_aggregate(
+                grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
+                n_retx=1 if fl.transport == 'spfl_retx' else 0,
+                wire=fl.wire, round_idx=self._round, channel=fl.channel,
+                min_participation=fl.min_participation)
+        with record_function('round/update'):
+            self.params = self.params - fl.learning_rate * ghat
+            if fl.compensation == 'last_global':
+                self.gbar = torch.abs(ghat)
+            elif fl.compensation == 'last_local':
+                self.gbar = torch.abs(grads)
+            elif fl.compensation == 'seeded_random':
+                gen = torch.Generator().manual_seed(
+                    (fl.seed + 99) * 1_000_003 + n)
+                self.gbar = (torch.abs(torch.randn(self.dim, generator=gen))
+                             * 0.01).to(self.device)
+        rec = rec.with_allocation(q, p, objective=objective,
+                                  round_idx=self._round, iters=iters,
+                                  exit_reason=reason)
         self._round += 1
         return RoundResult(losses, grads, ghat, rec, sol, stats, alloc_t)
 
@@ -269,6 +331,11 @@ class FLSimulator:
             compute_bound: bool = False) -> FLHistory:
         hist = FLHistory()
         fl = self.fl
+        if compute_bound and fl.allocation_backend == 'jax':
+            # the Theorem-1 bound needs the host problem and stats that
+            # the on-device path never brings to the host
+            raise ValueError("compute_bound=True requires "
+                             "allocation_backend='numpy'")
         for n in range(n_rounds):
             t0 = time.perf_counter()
             res = self.round_step(n=n)
@@ -297,7 +364,8 @@ class FLSimulator:
             hist.alloc_exit_reason.append(float(rec.alloc_exit_reason))
             if n % eval_every == 0 or n == n_rounds - 1:
                 prev_loss = float(res.losses.mean())
-                loss, acc = self.global_metrics()
+                with record_function('round/evaluation'):
+                    loss, acc = self.global_metrics()
                 hist.loss.append(loss)
                 hist.test_acc.append(acc)
                 hist.loss_delta.append(loss - prev_loss)
