@@ -6,8 +6,10 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. the card: ``nvidia-smi`` name and power limit, CUDA version;
-2. build the ten hand-written CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` (one ``nvcc`` per source, in parallel);
+2. build the eleven hand-written CUDA kernels from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel), and print what
+   ptxas reports for the solver kernel (registers, stack, spills), which
+   must not spill (``check_spills``);
 3. hold each kernel against its plain PyTorch version on the same card
    tensors, at the main path's shapes (K=20 clients, l=62,006 CNN
    parameters, 3 bits, the framed sign/modulus widths) and at a small
@@ -33,7 +35,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    call per method on the CPU tests' parity grid plus a K=20 problem,
    within the engine-parity contract (bit for bit is the aim; the script
    says which outputs differ if any), and the batch against each problem
-   alone and unpadded, bit for bit (``check_alloc_kernel``);
+   alone and unpadded, bit for bit (``check_alloc_kernel``); then the
+   solver at K on every edge of its layout (lanes, groups, blocks a
+   problem, cluster), each alone against one plain solve of all of them,
+   bit for bit, with and without the tolerance exits, and batches of 20
+   and 140 problems (smaller clusters, then none) against each problem
+   alone (``check_alloc_layouts``);
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
@@ -43,8 +50,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (``check_host_problems``); the same main path with
    ``allocation_backend='jax'`` for 5 rounds (counters reset, the solver
    launched once a round), both backends' round times, each round's
-   solve again alone with its kernel time, effort and trip counts
-   (``time_device_solves``), that nothing from a round's gradients to
+   solve again alone with its kernel time, effort, trip counts (the
+   sequential function's, and the speculative sections apart) and the
+   solver's layout (``time_device_solves``), that nothing from a round's gradients to
    its (q, p) waits for the card (``check_no_sync``), and one more round
    under ``torch.profiler`` split into gradients, stats, solve,
    transport, update and evaluation (``round_split``);
@@ -2091,12 +2099,17 @@ def alloc_problem(k: int, power_dbm: float, seed: int, dim: int = 60000):
 
 def alloc_units(trips, k: int, n_grid: int = 256) -> dict:
     """Units of work (``FUNCTION_OPS['alloc_solve']``) of one solve of k
-    clients from the kernel's trip counts (``ops.ALLOC_TRIPS`` order)."""
-    from repro_torch.kernels import ops
+    clients from the kernel's trip counts (``ops.ALLOC_TRIPS`` order):
+    the sequential function's (the speculative golden sections are not
+    the function's work).  A golden pair is a golden step on each of the
+    client's lanes (two where 2k lanes fit a block)."""
+    from repro_torch.kernels import build, ops
     t = dict(zip(ops.ALLOC_TRIPS, (int(x) for x in trips)))
+    lanes = 2 if 2 * k <= build.constants('alloc_solve')['BLOCK'] else 1
     return {'grid_point': t['alpha'] * n_grid * k,
             'newton_step': t['newton'], 'bracket': t['chains'],
             'alpha_client': t['alpha'] * k, 'golden_pair': t['eval'] * k,
+            'golden_step': t['eval'] * k * lanes,
             'golden_call': t['golden'] * k, 'sca_round': t['sca'] * k,
             'objective': t['objective'] * k,
             'barrier_step': t['barrier'] * k,
@@ -2205,6 +2218,89 @@ def check_alloc_kernel(seed: int) -> dict:
     return out
 
 
+# K on every edge of the solver kernel's layout (ops.alloc_layout): the
+# most groups a block (63) up to K = 2, 3 the next; two lanes a client up
+# to 128, one group a block from 65; one block a problem up to 256, then
+# 2, 3 and 4 blocks (parts) a copy of the problem
+ALLOC_EDGES = (1, 2, 3, 20, 64, 65, 128, 129, 256, 257, 512, 513, 768, 769,
+               1024)
+
+
+def check_alloc_layouts(seed: int) -> dict:
+    """The solver kernel on every edge of its layout: (i) each K of
+    ``ALLOC_EDGES`` alone (its own layout: lanes, groups, parts and
+    cluster) against one plain solve of all of them padded to the
+    largest K, bit for bit, alternating at ``max_iters=1`` with and
+    without the tolerance exits (inner_tol 1e-9: the groups' votes);
+    (ii) batches of 20 and 140 K=20 problems (a cluster of 6 blocks a
+    problem, then of 1: B x blocks <= the SMs) each equal to its problem
+    alone (a cluster of 8).  -> {'plain_s'}."""
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    probs = [alloc_problem(k, -14.0, seed + k) for k in ALLOC_EDGES]
+    batch = AJ.stack_problems(probs, device='cuda')
+    out = {'plain_s': 0.0}
+    for inner_tol in (0.0, 1e-9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = AJ.solve_plain(batch, 'alternating', max_iters=1,
+                               inner_tol=inner_tol)
+        torch.cuda.synchronize()
+        out['plain_s'] += time.perf_counter() - t0
+        for i, (p, k) in enumerate(zip(probs, ALLOC_EDGES)):
+            one = ops.alloc_solve(AJ.from_reference(p, device='cuda'),
+                                  'alternating', max_iters=1,
+                                  inner_tol=inner_tol)
+            for f in one._fields:
+                a, b = getattr(one, f), getattr(plain, f)[i]
+                if f in ('alpha', 'beta', 'q', 'p'):
+                    b = b[:k]
+                if not torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)):
+                    raise AssertionError(
+                        f'alloc_solve K={k} (layout '
+                        f'{ops.alloc_layout(1, k)}, inner_tol {inner_tol}): '
+                        f'kernel != plain in {f}')
+        print(f'alloc_solve layouts: K = {list(ALLOC_EDGES)} each alone vs '
+              f'plain (inner_tol {inner_tol}), bit for bit', flush=True)
+    for k in ALLOC_EDGES:
+        print(f'alloc_solve layout K={k}: {json.dumps(ops.alloc_layout(1, k))}',
+              flush=True)
+    base = [alloc_problem(K, p, seed + i) for i, p in enumerate(ALLOC_POWERS)]
+    singles = [ops.alloc_solve(AJ.from_reference(p, device='cuda'),
+                               'alternating', max_iters=2) for p in base]
+    for nb in (20, 140):
+        got = ops.alloc_solve(AJ.stack_problems(
+            [base[i % len(base)] for i in range(nb)], device='cuda'),
+            'alternating', max_iters=2)
+        for i in range(nb):
+            for f in got._fields:
+                if not torch.equal(
+                        getattr(got, f)[i].nan_to_num(7.0),
+                        getattr(singles[i % len(base)], f).nan_to_num(7.0)):
+                    raise AssertionError(f'alloc_solve: a batch of {nb} != '
+                                         f'alone, problem {i} {f}')
+        print(f'alloc_solve: a batch of {nb} K={K} problems (layout '
+              f'{json.dumps(ops.alloc_layout(nb, K))}) == each alone '
+              f'({json.dumps(ops.alloc_layout(1, K))}), bit for bit',
+              flush=True)
+    return out
+
+
+def check_spills() -> None:
+    """What ptxas reported for the solver kernel's build (``-Xptxas
+    -v``): registers, stack and spills of each function; raises if any
+    spills."""
+    from repro_torch.kernels import build
+    report = build.ptxas_report('alloc_solve')
+    for fn, info in sorted(report.items()):
+        print(f'alloc_solve ptxas: {fn}: {json.dumps(info)}', flush=True)
+    spilled = {fn: info for fn, info in report.items()
+               if info.get('spill_stores') or info.get('spill_loads')}
+    if spilled or not report:
+        raise AssertionError(f'alloc_solve spills: {spilled or report}')
+
+
 def keep_host_solves(sim, kept: list) -> None:
     """Keep each round's host problem and solution of a 'numpy'-backend
     simulator (its allocate, wrapped)."""
@@ -2266,6 +2362,9 @@ def time_device_solves(sim, kept: list) -> list:
     import torch
     from repro_torch.kernels import ops
     fl = sim.fl
+    print(f'main-jax solve layout (K={sim.K}): '
+          f'{json.dumps(ops.alloc_layout(1, sim.K, fl.allocator))}',
+          flush=True)
     out = []
     for n, stats in enumerate(kept):
         prob, gate = stats['prob'], torch.amax(stats['gb2'])
@@ -2413,6 +2512,7 @@ def main() -> int:
     build.build()
     print(f'build: {time.perf_counter() - t0:.3f} s -> {build.BUILD_DIR}',
           flush=True)
+    check_spills()
 
     # 3. kernels against their plain versions
     l_main = 62006
@@ -2440,6 +2540,7 @@ def main() -> int:
     check_transport(K, l_main, seed=3)
     check_transport(3, 1007, seed=4)
     alloc = check_alloc_kernel(seed=13)
+    check_alloc_layouts(seed=14)
     print('kernels and transport agree with their plain versions', flush=True)
 
     from repro_torch.configs.base import FLConfig

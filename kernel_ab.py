@@ -31,6 +31,11 @@ order previous, new, new, previous.  Prints the card's name and power
 limit, each turn's times, and as its last line a JSON object with every
 turn and the mean of each version's two.
 
+``--kernels alloc_solve`` times the eq. (28) solver kernel
+(``alloc_calls``: the main path's solve and one batched call, five timed
+calls each; its check is ``chip_smoke.check_alloc_kernel``, ~30 s of
+plain solves a turn).
+
 ``--profile`` then runs each version's cold calls again under
 ``torch.profiler`` and prints, per call, the mean in-kernel device time
 of its kernel's launches (CUPTI's kernel records) and, per call, the device
@@ -80,6 +85,8 @@ def wrapper_calls(chip_smoke, seed: int = 1, device: str = 'cuda',
     'api': ``api_calls``."""
     if path == 'api':
         return api_calls(chip_smoke, seed, device)
+    if path == 'alloc':
+        return alloc_calls(chip_smoke, seed, device)
     import torch
     from repro_torch.core import bitchannel
     from repro_torch.kernels import ops
@@ -223,6 +230,40 @@ def api_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     }
 
 
+def alloc_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
+    """{call: (call, ())} of the eq. (28) solver kernel: 'alloc_solve',
+    the main path's solve (K=20, alternating, the main run's max_iters,
+    tol and gate) of its round 1, the first that solves, made by two
+    rounds of the 'jax'-backend simulator (phase 4's, whose round 1
+    does not depend on the solver: round 0 takes the uniform point);
+    'alloc_solve:batch', that problem over 16 fading draws of its gains
+    (``batch_over_gains``, one block or cluster a draw) in one call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    from repro_torch.training.fl_loop import build_simulator
+    fl = FLConfig(wire='packed', channel='bitlevel', allocation_backend='jax')
+    sim = build_simulator(fl, per_device=500, n_test=2000, device=device)
+    kept = []
+    chip_smoke.keep_device_problems(sim, kept)
+    sim.run(2)
+    prob, gate = kept[1]['prob'], torch.amax(kept[1]['gb2'])
+    rng = np.random.RandomState(seed)
+    fading = rng.exponential(1.0, (16, prob.gains.shape[0]))
+    draws = AJ.batch_over_gains(prob, prob.gains.cpu().numpy() * fading)
+    kw = dict(max_iters=fl.allocation_max_iters or 6,
+              tol=fl.allocation_tol or 1e-5,
+              early_exit=fl.allocation_early_exit, gate=gate)
+    return {
+        'alloc_solve': (lambda: ops.alloc_solve(prob, fl.allocator, **kw),
+                        ()),
+        'alloc_solve:batch': (lambda: ops.alloc_solve(draws, fl.allocator,
+                                                      **kw), ()),
+    }
+
+
 def kernel_of(call: str) -> str:
     """The kernel a call of ``wrapper_calls`` times: 'KERNEL:VARIANT' is
     a call of KERNEL."""
@@ -233,7 +274,7 @@ def calls_for(chip_smoke, names, seed: int = 1) -> dict:
     """The calls of ``wrapper_calls`` whose kernel is named, by path, and
     the per-client calls ('client:...') when a kernel API kernel is."""
     out = {}
-    for path in ('round', 'api'):
+    for path in ('round', 'api', 'alloc'):
         if any(n in chip_smoke.kernels_on(path) for n in names):
             out.update({c: v for c, v in wrapper_calls(
                 chip_smoke, seed, path=path).items()
@@ -249,6 +290,8 @@ def _check(chip_smoke, names) -> None:
     if any(n in chip_smoke.kernels_on('api') for n in names):
         chip_smoke.check_api_kernels(2, 62006, chip_smoke.BITS, timed=False,
                                      seed=5)
+    if 'alloc_solve' in names:
+        chip_smoke.check_alloc_kernel(seed=13)
 
 
 def time_turn(tree: Path, names, check: bool) -> dict:
@@ -262,6 +305,12 @@ def time_turn(tree: Path, names, check: bool) -> dict:
         if call.endswith(':chain'):
             out[call] = {'ms': chip_smoke.chain_ms(fn, inputs[0],
                                                    sleep=CALL_SLEEP),
+                         'warm_ms': None}
+        elif kernel_of(call) == 'alloc_solve':
+            # tens to hundreds of ms a solve: five timed calls, as
+            # chip_smoke.time_device_solves
+            out[call] = {'ms': chip_smoke.device_ms([fn], reps=5, inner=1,
+                                                    sleep=CALL_SLEEP),
                          'warm_ms': None}
         else:
             out[call] = chip_smoke.kernel_ms(fn, inputs, lambda *t: t,
@@ -281,7 +330,7 @@ def profile_turn(tree: Path, names, check: bool) -> dict:
     chip_smoke = _setup(tree, names)
     out = {}
     for name, (call, inputs) in calls_for(chip_smoke, names).items():
-        copies = chip_smoke.cold_copies(inputs)
+        copies = chip_smoke.cold_copies(inputs) if inputs else [()]
         n_calls = 3 * len(copies)
         if name.endswith(':chain'):
             def run(x=inputs[0]):
@@ -345,7 +394,8 @@ def main() -> int:
                         choices=['quantize_pack', 'spfl_accumulate',
                                  'corrupt_fold', 'fold_words', 'quantize',
                                  'dequant', 'roundtrip', 'pack_bits',
-                                 'unpack_bits', 'unpack_dequant'])
+                                 'unpack_bits', 'unpack_dequant',
+                                 'alloc_solve'])
     parser.add_argument('--profile', action='store_true',
                         help='in-kernel time per launch and device time '
                              'per call (torch.profiler)')

@@ -11,7 +11,9 @@ source).
 
 The flags leave ``--use_fast_math`` off: float division must stay IEEE
 (nvcc's default ``-prec-div=true``) or the stochastic quantizer's knob
-indices drift from the reference.
+indices drift from the reference.  ``-Xptxas -v`` has ptxas report each
+function's registers and spills; the compiler's output is kept beside
+the library (``<library>.log``, read by :func:`ptxas_report`).
 
 Nothing here runs at import: the tests import every module on machines
 without ``nvcc``.
@@ -33,7 +35,7 @@ ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / 'build' / 'torch_kernels'
 ARCH = 'arch=compute_90a,code=sm_90a'
 NVCC_FLAGS = ('-gencode', ARCH, '-std=c++17', '-O3', '-shared',
-              '-Xcompiler', '-fPIC')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,6 +164,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             errors.append(f'{name}: nvcc exit {proc.returncode}\n'
                           f'{out.decode(errors="replace")}')
         else:
+            log = todo[name].with_suffix('.log')
+            log.write_bytes(out)
             os.replace(tmp, todo[name])   # atomic: concurrent builders agree
     if errors:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
@@ -177,3 +181,38 @@ def kernel(name: str):
         fn.restype = ctypes.c_int
         _loaded[name] = (lib, fn)       # the CDLL stays referenced
     return _loaded[name][1]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use: for its
+    entry points besides the kernel's own."""
+    kernel(name)
+    return _loaded[name][0]
+
+
+_PTXAS_FUNC = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores, (\d+) "
+                         r"bytes spill loads")
+_PTXAS_REGS = re.compile(r"Compiling entry function '(\S+)'.*?\n"
+                         r"(?:.*\n)*?.*?Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """``-Xptxas -v`` output -> {function: {'registers' (entry functions
+    only), 'stack', 'spill_stores', 'spill_loads'}}."""
+    out: Dict[str, Dict[str, int]] = {}
+    for fn, stack, stores, loads in _PTXAS_FUNC.findall(text):
+        out.setdefault(fn, {}).update(stack=int(stack),
+                                      spill_stores=int(stores),
+                                      spill_loads=int(loads))
+    for fn, regs in _PTXAS_REGS.findall(text):
+        out.setdefault(fn, {})['registers'] = int(regs)
+    return out
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """What ptxas reported for each function of kernel ``name``'s
+    library when it was built (:func:`parse_ptxas`); builds it if it is
+    missing."""
+    path = build([name])[name]
+    return parse_ptxas(path.with_suffix('.log').read_text(errors='replace'))

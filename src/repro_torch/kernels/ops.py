@@ -414,9 +414,13 @@ def fold_words(words: Tensor) -> Tensor:
 # the on-device eq. (28) solver
 # ---------------------------------------------------------------------------
 
+# the sequential function's trips, then the speculative golden sections
+# of the dual search that its walk did not take
 ALLOC_TRIPS = ('outer', 'alpha', 'chains', 'newton', 'sca', 'dual', 'grow',
                'bisect', 'golden', 'eval', 'barrier', 'backtrack',
-               'objective')
+               'objective', 'spec_golden')
+ALLOC_LAYOUT = ('threads', 'lanes', 'groups', 'parts', 'cluster', 'nodes',
+                'depth')
 
 
 @functools.lru_cache(maxsize=1)
@@ -424,6 +428,25 @@ def alloc_limits() -> dict:
     """The solver kernel's limits, read from its source: MAX_K clients a
     problem, MAX_ITERS outer iterations."""
     return build.constants('alloc_solve')
+
+
+def alloc_layout(nb: int, k: int, method: str = 'alternating') -> dict:
+    """How the card lays out a launch of ``nb`` problems of ``k``
+    clients (``ALLOC_LAYOUT``): threads a block, lanes a client in a
+    golden section, groups of lanes a block, blocks that hold the
+    clients once (parts), blocks a problem (a cluster of replicas x
+    parts), groups that take a dual price, bisection levels a round.
+    Needs the card."""
+    from repro_torch.core import allocation_jax as AJ
+    AJ._check_method(method)
+    out = (ctypes.c_int * len(ALLOC_LAYOUT))()
+    err = build.library('alloc_solve').alloc_solve_layout(
+        ctypes.c_int(nb), ctypes.c_int(k),
+        ctypes.c_int(AJ.METHODS.index(method)), out)
+    if err:
+        raise ValueError(f'alloc_solve_layout({nb}, {k}, {method!r}): '
+                         f'CUDA error {err}')
+    return dict(zip(ALLOC_LAYOUT, out))
 
 
 def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
@@ -434,8 +457,9 @@ def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
     """Solve eq. (28) for one problem or a batch
     (``core.allocation_jax.JaxAllocationProblem``) -> ``JaxAllocation``.
 
-    On the card: one launch of the ``alloc_solve`` kernel (one thread
-    block a problem), float64 only; no value is read back to the host.
+    On the card: one launch of the ``alloc_solve`` kernel (a thread
+    block or a cluster of blocks a problem, ``alloc_layout``), float64
+    only; no value is read back to the host.
     ``gate`` (one value per problem, or one for all, on the card) solves
     a problem whose gate is not > 0 at the uniform point instead; with
     ``trips`` (int32 (B, len(ALLOC_TRIPS)) on the card) the kernel counts

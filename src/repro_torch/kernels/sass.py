@@ -433,23 +433,29 @@ MAIN_PATHS = {
         'coordinate': (),
         'plane': (),
     }),
-    'alloc_solve': ('6a048124e690b9d0', {
-        # alloc_solve_kernel (float64): one trip of each loop by one
-        # client's thread, read from the loop structure (sass.regions):
-        # the grid loop's G' evaluation; a Newton step of a bracket's
-        # thread; a golden-section step of the bisection's golden section
-        # (its bracket update and the pair of surrogate evaluations, both
-        # branches of each term's sign test in the span, one of which
-        # runs); a barrier step without its backtracking loop (the
-        # ordered sums' add loops of thread 0 inside); one backtracking
+    'alloc_solve': ('19171ec8d61a8167', {
+        # alloc_solve_kernel (float64, blocks of 256 threads): one trip of
+        # each loop by one client's thread, read from the loop structure
+        # (sass.regions) and the branches of the build's SASS: the grid
+        # loop's G' evaluation; a Newton step of a bracket's thread; a
+        # golden step of one lane of the bisection's speculative round
+        # (the bisection's copy of the inlined golden loop: its head, the
+        # branch past the tolerance vote, the bracket update and the
+        # two-lane path's surrogate evaluation and shuffle, both branches
+        # of each term's sign test in the span, one of which runs; a
+        # golden pair is two such steps, one a lane); a barrier step
+        # without its backtracking loop (the ordered sums' add loops of
+        # thread 0 and the votes across blocks inside); one backtracking
         # trip.  The float64 divisions' slow path, pow's and exp's
         # subroutines are CALLs outside the spans (a division on its fast
         # path is inline).  The other units have no span of their own.
-        'grid_point': ((0x04950, 0x06750),),
-        'newton_step': ((0x07a40, 0x0b1a0),),
-        'golden_pair': ((0x394e0, 0x40660),),
-        'barrier_step': ((0x53730, 0x58c10), (0x596c0, 0x59820)),
-        'backtrack': ((0x58c20, 0x596b0),),
+        'grid_point': ((0x06b30, 0x08480),),
+        'newton_step': ((0x095d0, 0x0c0e0),),
+        'golden_step': ((0x34fa0, 0x34fd0), (0x37970, 0x37ae0),
+                        (0x3d170, 0x3fe70)),
+        'golden_pair': (),
+        'barrier_step': ((0x5c730, 0x62490), (0x64e00, 0x662b0)),
+        'backtrack': ((0x624a0, 0x64df0),),
         'bracket': (),
         'alpha_client': (),
         'golden_call': (),
