@@ -61,7 +61,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 6. the per-client kernel API (``kernels.ops.*_flat``) on the main path's
    data — the K=20 gradients of phase 4's simulator — held bit for bit
    against the fused kernels of the main round, with the launch counters
-   reset just before and read just after.
+   reset just before and read just after;
+7. per-round fading cadence and the paper's baselines
+   (``run_fading_and_baselines``), each run with the counters reset just
+   before and read just after: ``build_simulator(FLConfig(wire='packed',
+   channel='bitlevel', allocation_backend='jax',
+   allocation_cadence='per_round'))`` for 5 rounds (``alloc_solve`` once
+   a round on that round's row of the fading trajectory, the four round
+   kernels 5, 5, 10 and 10 times, rows that differ, ``check_no_sync`` on
+   a trajectory row, each solve timed alone with its trips and whether
+   its dual searches kept to the spine, and rounds 1 and 4's problems
+   solved by the host solver and the kernel within the contract,
+   ``check_host_problems``); the same with the 'numpy' backend for 2
+   rounds (2 host solves); dds, onebit and scheduling for 3 rounds each
+   on the bit channel's calibration and on Bernoulli draws (analytic
+   wire: no kernel); error_free on the packed wire for 3 rounds
+   (quantize_pack and spfl_accumulate 3 times each, nothing else), and
+   one error_free round held against its plain versions on the CPU
+   (``check_error_free_round``: words bit for bit, the aggregate within
+   the FMA-wobble bound).
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -1943,16 +1961,23 @@ def check_transport(k: int, n: int, seed: int) -> None:
         raise AssertionError('transport check drew no flips')
 
 
-def run_sim(fl, rounds: int, label: str, hook=None):
+def run_sim(fl, rounds: int, label: str, hook=None, data=None,
+            expect=None):
     """``rounds`` rounds of ``build_simulator(fl)`` at full width, with
     every launch counter reset just before and read just after; ``hook``
-    (if any) is called with the simulator before the rounds."""
+    (if any) is called with the simulator before the rounds.  ``data``
+    (``data_of`` another simulator) skips making the data set again.
+    Raises if a kernel of ``expect`` (default: the four round kernels)
+    was never launched."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.training.fl_loop import build_simulator
+    from repro_torch.training.fl_loop import FLSimulator, build_simulator
 
     t0 = time.perf_counter()
-    sim = build_simulator(fl, per_device=500, n_test=2000)
+    if data is None:
+        sim = build_simulator(fl, per_device=500, n_test=2000)
+    else:
+        sim = FLSimulator(fl, *data)
     print(f'{label}: set-up {time.perf_counter() - t0:.3f} s '
           f'(K={sim.K}, l={sim.dim})', flush=True)
     if hook is not None:
@@ -1970,10 +1995,20 @@ def run_sim(fl, rounds: int, label: str, hook=None):
     print(f'{label} launches: {json.dumps(counts)}', flush=True)
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f'{label}: non-finite loss {hist.loss}')
-    missing = [name for name in kernels_on('round') if counts[name] <= 0]
+    expect = kernels_on('round') if expect is None else expect
+    missing = [name for name in expect if counts[name] <= 0]
     if missing:
         raise AssertionError(f'{label}: kernels never launched: {missing}')
     return sim, hist, counts
+
+
+def data_of(sim) -> tuple:
+    """A simulator's client and test images and labels, as the host
+    arrays ``FLSimulator`` takes."""
+    def nhwc(x):
+        return x.movedim(-3, -1).cpu().numpy()
+    return (nhwc(sim.client_x), sim.client_y.cpu().numpy(),
+            nhwc(sim.test_x), sim.test_y.cpu().numpy())
 
 
 def api_client(g, r, gbar, args, sw, qw, check: bool = True):
@@ -2306,8 +2341,8 @@ def keep_host_solves(sim, kept: list) -> None:
     simulator (its allocate, wrapped)."""
     allocate = sim.allocate
 
-    def wrapped(grads, gbar):
-        sol, stats = allocate(grads, gbar)
+    def wrapped(grads, gbar, gains=None):
+        sol, stats = allocate(grads, gbar, gains)
         kept.append((stats['prob'], sol))
         return sol, stats
 
@@ -2319,18 +2354,19 @@ def keep_device_problems(sim, kept: list) -> None:
     simulator (its allocate_on_device, wrapped)."""
     allocate = sim.allocate_on_device
 
-    def wrapped(grads, gbar):
-        sol, stats = allocate(grads, gbar)
+    def wrapped(grads, gbar, gains=None):
+        sol, stats = allocate(grads, gbar, gains)
         kept.append(stats)
         return sol, stats
 
     sim.allocate_on_device = wrapped
 
 
-def check_host_problems(kept: list, max_iters: int) -> float:
-    """The kernel on the main run's own host problems (the rounds that
-    solved), at that run's max_iters, within the alternating contract of
-    the host solutions.  -> the largest difference."""
+def check_host_problems(kept: list, max_iters: int,
+                        label: str = "the main run's") -> float:
+    """The kernel on a run's own host problems (the rounds that solved),
+    at that run's max_iters, within the alternating contract of the host
+    solutions.  -> the largest difference."""
     import numpy as np
     import torch
     from repro_torch.core import allocation_jax as AJ
@@ -2352,18 +2388,33 @@ def check_host_problems(kept: list, max_iters: int) -> float:
         torch.tensor([sol.info['exit_reason'] for _, sol in solved],
                      dtype=torch.int32))
     return alloc_compare(got, want, [prob.n for prob, _ in solved],
-                         'alternating', 'alloc_solve on the main run\'s host '
+                         'alternating', f'alloc_solve on {label} host '
                          f'problems (max_iters={max_iters}) vs the host solve')
 
 
-def time_device_solves(sim, kept: list) -> list:
+def spine_only(trips: dict, nodes: int) -> bool:
+    """Whether every dual search of a solve walked the spine (the
+    bisection's rounds down the infeasible side, which the kernel takes
+    while the bracket's top is infeasible; ``csrc/alloc_solve.cu``), read
+    from its trip counts: a spine round of L =
+    (nodes + 1) / 2 levels leaves L - 1 speculative sections, so a dual
+    on the spine throughout leaves BISECT_STEPS minus its rounds, and one
+    full round of the tree of 6 levels alone leaves 57."""
+    from repro_torch.core.allocation_jax import BISECT_STEPS
+    levels = (nodes + 1) // 2
+    rounds = -(-BISECT_STEPS // levels)
+    return trips['spec_golden'] <= trips['dual'] * (BISECT_STEPS - rounds)
+
+
+def time_device_solves(sim, kept: list, label: str = 'main-jax') -> list:
     """Each kept round's solve again, alone: its kernel time (CUDA events,
-    median of 5), trip counts and effort.  -> one dict per round."""
+    median of 5), trip counts, effort and whether its dual searches kept
+    to the spine.  -> one dict per round."""
     import torch
     from repro_torch.kernels import ops
     fl = sim.fl
-    print(f'main-jax solve layout (K={sim.K}): '
-          f'{json.dumps(ops.alloc_layout(1, sim.K, fl.allocator))}',
+    layout = ops.alloc_layout(1, sim.K, fl.allocator)
+    print(f'{label} solve layout (K={sim.K}): {json.dumps(layout)}',
           flush=True)
     out = []
     for n, stats in enumerate(kept):
@@ -2380,33 +2431,35 @@ def time_device_solves(sim, kept: list) -> list:
         ms = device_ms([solve], reps=5, inner=1)
         sol = solve()
         torch.cuda.synchronize()
+        named = dict(zip(ops.ALLOC_TRIPS, trips[0].tolist()))
+        spine = spine_only(named, layout['nodes'])
         out.append(dict(round=n, ms=ms, iters=int(sol.iters),
                         exit_reason=int(sol.exit_reason),
                         trips=trips[0].tolist(), prob=prob, gate=gate,
-                        sol=sol))
-        print(f'main-jax round {n}: alloc_solve kernel {ms:.4f} ms, '
+                        sol=sol, spine=spine))
+        print(f'{label} round {n}: alloc_solve kernel {ms:.4f} ms, '
               f'iters_used {int(sol.iters)}, exit_reason '
-              f'{int(sol.exit_reason)}, trips '
-              f'{json.dumps(dict(zip(ops.ALLOC_TRIPS, trips[0].tolist())))}',
-              flush=True)
+              f'{int(sol.exit_reason)}, spine only {spine}, trips '
+              f'{json.dumps(named)}', flush=True)
     return out
 
 
-def check_no_sync(sim) -> None:
+def check_no_sync(sim, label: str = 'main-jax', gains=None) -> None:
     """A 'jax'-backend round from its gradients to (q, p) queues its work
-    without a host synchronization: the stats, the problem, the solve and
-    the casts run under ``torch.cuda.set_sync_debug_mode('error')``, which
+    without a host synchronization: the stats, the problem (on ``gains``,
+    a device row of the fading trajectory, if given), the solve and the
+    casts run under ``torch.cuda.set_sync_debug_mode('error')``, which
     raises at any operation that waits for the card."""
     import torch
     _, grads = sim.client_grads(sim.params)
     torch.cuda.set_sync_debug_mode('error')
     try:
-        sol, _ = sim.allocate_on_device(grads, sim.gbar)
+        sol, _ = sim.allocate_on_device(grads, sim.gbar, gains)
         sol.q.to(torch.float32), sol.p.to(torch.float32)
     finally:
         torch.cuda.set_sync_debug_mode('default')
     torch.cuda.synchronize()
-    print('main-jax: from the gradients to (q, p) nothing waits for the '
+    print(f'{label}: from the gradients to (q, p) nothing waits for the '
           "card (sync debug mode 'error')", flush=True)
 
 
@@ -2460,6 +2513,153 @@ def round_split(sim, tries: int = 3) -> dict:
         raise AssertionError('the profiler recorded no device time')
     return {'wall_ms': wall, 'host': dict(host), 'device': dict(device),
             'busy_ms': busy}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: per-round fading cadence and the paper's baselines
+# ---------------------------------------------------------------------------
+
+def check_counts(label: str, counts: dict, want: dict) -> None:
+    """Raise unless each kernel of ``want`` launched exactly that often."""
+    wrong = {name: counts[name] for name, n in want.items()
+             if counts[name] != n}
+    if wrong:
+        raise AssertionError(f'{label}: launches {wrong}, want {want}')
+
+
+def host_problems(sim, kept: list, rounds, max_iters: int) -> list:
+    """The kept 'jax' rounds ``rounds`` as host problems (their device
+    stats, gains and float32-rounded budgets, brought to the host) with
+    their host solutions (alternating, ``max_iters``)."""
+    from repro_torch.core import allocation as alloc
+    out = []
+    for n in rounds:
+        st = kept[n]
+        host = {f: st[f].cpu().numpy() for f in ('g2', 'gb2', 'v', 'd2')}
+        prob = alloc.problem_from_stats(
+            host['g2'], host['gb2'], host['v'], host['d2'],
+            st['prob'].gains.cpu().numpy(), st['prob'].p_w.cpu().numpy(),
+            sim.dim, sim.fl)
+        t0 = time.perf_counter()
+        sol = alloc.solve(prob, 'alternating', max_iters=max_iters)
+        print(f'fading-jax round {n}: host solve of its problem '
+              f'{time.perf_counter() - t0:.3f} s', flush=True)
+        out.append((prob, sol))
+    return out
+
+
+def check_error_free_round(sim) -> None:
+    """One error_free round's packed transport on the card against the
+    same round through the plain versions on the CPU, same gradients and
+    uniforms: the framed words and every integer bit for bit, the
+    aggregate within the FMA-wobble bound."""
+    import torch
+    from repro_torch.core import transport
+    _, grads = sim.client_grads(sim.params)
+    grads = grads.detach()
+    draws = sim.draw()
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        g, d = grads.to(dev), draws._replace(rand=draws.rand.to(dev))
+        words = transport.encode_wire(g, d.rand, BITS, 0)[:2]
+        ghat, rec = transport.error_free_aggregate(g, sim.fl, d, round_idx=0)
+        out[dev] = ([w.cpu() for w in words], ghat.cpu(), rec.to_host())
+    (w_gpu, g_gpu, r_gpu), (w_cpu, g_cpu, r_cpu) = out['cuda'], out['cpu']
+    if not all(torch.equal(a, b) for a, b in zip(w_gpu, w_cpu)):
+        raise AssertionError('error_free words: card != CPU')
+    for name in ('sign_ok', 'mod_ok', 'payload_bits', 'sign_votes'):
+        if not (getattr(r_gpu, name) == getattr(r_cpu, name)).all():
+            raise AssertionError(f'error_free {name}: card != CPU')
+    k = grads.shape[0]
+    tol = ulp_atol(torch.ones(k), grads.abs().amax(1).cpu(),
+                   torch.zeros(1)) / k
+    err = float((g_gpu - g_cpu).abs().max())
+    if err > tol:
+        raise AssertionError(f'error_free ghat: card - CPU {err} > {tol}')
+    print(f'error_free round: card vs CPU plain versions: '
+          f'{sum(w.numel() for w in w_gpu)} words bit for bit, ghat max '
+          f'|diff| {err:.3e} (bound {tol:.3e})', flush=True)
+
+
+def run_fading_and_baselines(main_sim) -> dict:
+    """Phase 7, each run with the launch counters reset just before and
+    read just after (``run_sim``):
+
+    * per-round cadence, 'jax' backend (``build_simulator``, 5 rounds):
+      one ``alloc_solve`` a round on that round's gains and the four round
+      kernels; the trajectory's rows differ; nothing from the gradients
+      to (q, p) waits for the card; each solve timed alone, with its
+      trips and whether it kept to the spine; rounds 1 and 4's problems
+      solved by the host solver and by the kernel, within the contract;
+    * per-round cadence, 'numpy' backend (2 rounds): two host solves;
+    * dds, onebit and scheduling (3 rounds each) on the bit channel's
+      calibration and on Bernoulli draws, analytic wire: no kernel;
+    * error_free on the packed wire (3 rounds): quantize_pack and
+      spfl_accumulate once a round, and one round held against its plain
+      versions on the CPU.
+
+    The other runs take ``main_sim``'s data set.  -> the fading-jax
+    solves (``time_device_solves``)."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.wire import format as fmt
+    data = data_of(main_sim)
+    fl = FLConfig(wire='packed', channel='bitlevel',
+                  allocation_backend='jax', allocation_cadence='per_round')
+    kept = []
+    sim, hist, counts = run_sim(
+        fl, 5, 'fading-jax', hook=lambda s: keep_device_problems(s, kept))
+    check_counts('fading-jax', counts, {
+        'alloc_solve': 5, 'quantize_pack': 5, 'spfl_accumulate': 5,
+        'corrupt_fold': 10, 'fold_words': 10})
+    traj = sim.trajectory
+    if sim.host_solver_calls or torch.unique(traj, dim=0).shape[0] != 5:
+        raise AssertionError('fading-jax: a host solve, or rounds with the '
+                             'same gains')
+    for n, st in enumerate(kept):
+        if not torch.equal(st['prob'].gains, traj[n]):
+            raise AssertionError(f'fading-jax round {n}: not its own gains')
+    print(f'fading-jax gains (rounds x K, dB over the static gains): '
+          f'{json.dumps((10 * torch.log10(traj / sim.gains_dev)).cpu().tolist())}',
+          flush=True)
+    print(f'fading-jax rounds 1-4: '
+          f'{json.dumps([t * 1e3 for t in hist.round_time_s[1:]])} ms',
+          flush=True)
+    solves = time_device_solves(sim, kept, 'fading-jax')
+    check_no_sync(sim, 'fading-jax', gains=traj[-1])
+    check_host_problems(host_problems(sim, kept, (1, 4), 2), 2,
+                        'fading-jax rounds 1 and 4\'s')
+
+    fl_n = FLConfig(wire='packed', channel='bitlevel',
+                    allocation_cadence='per_round')
+    sim_n, hist_n, _ = run_sim(fl_n, 2, 'fading-numpy', data=data)
+    if sim_n.host_solver_calls != 2:
+        raise AssertionError(f'fading-numpy: {sim_n.host_solver_calls} '
+                             'host solves in 2 rounds')
+
+    for kind in ('dds', 'onebit', 'scheduling'):
+        for channel in ('bitlevel', 'bernoulli'):
+            label = f'{kind}-{channel}'
+            s, h, c = run_sim(FLConfig(transport=kind, channel=channel), 3,
+                              label, data=data, expect=())
+            check_counts(label, c, {name: 0 for name in c})
+            print(f'{label}: accepted fraction {json.dumps(h.sign_ok_frac)}'
+                  f', rounds 1-2 '
+                  f'{json.dumps([t * 1e3 for t in h.round_time_s[1:]])} ms',
+                  flush=True)
+
+    fl_e = FLConfig(transport='error_free', wire='packed')
+    sim_e, hist_e, counts_e = run_sim(
+        fl_e, 3, 'error_free', data=data,
+        expect=('quantize_pack', 'spfl_accumulate'))
+    check_counts('error_free', counts_e, {
+        'quantize_pack': 3, 'spfl_accumulate': 3, 'corrupt_fold': 0,
+        'fold_words': 0, 'alloc_solve': 0})
+    want = fmt.measured_uplink_bits(sim_e.dim, fl_e.quant_bits, sim_e.K)
+    if any(b != want for b in hist_e.payload_bits):
+        raise AssertionError('error_free: payload_bits != measured frames')
+    check_error_free_round(sim_e)
+    return {'solves': solves}
 
 
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
@@ -2593,6 +2793,10 @@ def main() -> int:
                              'CRC failures')
     # 6. the per-client kernel API on the main path's data
     api_counts = run_kernel_api(sim)
+    # 7. per-round fading cadence and the paper's baselines
+    t0 = time.perf_counter()
+    run_fading_and_baselines(sim)
+    print(f'phase 7: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))

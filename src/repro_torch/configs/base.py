@@ -3,11 +3,14 @@ system constants of the paper's §V.
 
 Same field names, defaults and derived properties as the reference
 dataclass, so a reference config converts with
-``FLConfig(**dataclasses.asdict(ref_fl))``.  The port's slice 1 runs
-``transport`` in {spfl, spfl_retx}, ``wire`` in {analytic, packed},
-``channel`` in {bernoulli, bitlevel}, ``allocation_backend='numpy'`` and
-``round_fusion='none'``; ``training.fl_loop.FLSimulator`` raises
-``NotImplementedError`` on the other knobs (see ``ROADMAP.md``).
+``FLConfig(**dataclasses.asdict(ref_fl))``.  The port runs ``transport``
+in {spfl, spfl_retx, dds, onebit, scheduling, error_free}, ``wire`` in
+{analytic, packed}, ``channel`` in {bernoulli, bitlevel} (bitlevel with
+spfl/spfl_retx needs the packed wire), every ``compensation``,
+``allocation_backend`` in {numpy, jax}, ``allocation_cadence`` in
+{static, per_round}, ``round_fusion='none'`` and ``collective='gather'``;
+``training.fl_loop.FLSimulator`` raises ``NotImplementedError`` on the
+other knobs, naming the ``ROADMAP.md`` item that brings each.
 """
 from __future__ import annotations
 

@@ -60,6 +60,19 @@ def ber_for_success(prob, n_words: int) -> Tensor:
     return -0.5 * torch.expm1(true_div(log_r, float(n_words)))
 
 
+def calibrated_success_prob(prob, n_bits: int) -> Tensor:
+    """The success probability the bit-channel calibration realizes for a
+    virtual packet of ``ceil(n_bits / 32)`` payload words plus the CRC
+    word: ``prob`` through :func:`ber_for_success` and back through
+    :func:`fold_pass_prob`.  The identity to f32 rounding at operating
+    points, with a real 32-bit fold's floor (probabilities at or below
+    2^-32 saturate).  The single-packet baselines (dds, onebit,
+    scheduling) route their success probabilities through it under
+    ``channel='bitlevel'`` without materializing their buffers."""
+    n_words = -(-int(n_bits) // wire_fmt.WORD_BITS) + wire_fmt.CRC_WORDS
+    return fold_pass_prob(ber_for_success(prob, n_words), n_words)
+
+
 class UplinkReport(NamedTuple):
     """What the PS saw of one round's uplink through the bit channel."""
     sign_words: Tensor    # (K, Ws) received sign buffers (accepted attempt)

@@ -1,25 +1,35 @@
-"""The flat SP-FL transport — the uplink of one FL round (the port of
-``repro.core.transport.spfl_aggregate`` for ``collective='gather'``).
+"""Gradient transports — the uplink of one FL round (the port of the flat
+transports of ``repro.core.transport`` for ``collective='gather'``).
 
-``spfl_aggregate`` consumes per-client gradients (K, l) and produces the
-aggregate the PS decodes, eq. (15)-(17): per-client stochastic
-quantization into a sign packet and a modulus packet, packet outcomes,
-ḡ compensation of lost moduli, 1/q weighting, and the sum over clients in
-the order k = 0..K-1 (``_seq_client_sum``).
+* ``spfl`` / ``spfl_retx`` (:func:`spfl_aggregate`) consume per-client
+  gradients (K, l) and produce the aggregate the PS decodes, eq.
+  (15)-(17): per-client stochastic quantization into a sign packet and a
+  modulus packet, packet outcomes, ḡ compensation of lost moduli, 1/q
+  weighting, and the sum over clients in the order k = 0..K-1
+  (``_seq_client_sum``); ``spfl_retx`` resends a failed sign packet once.
+* The paper's §V baselines: ``dds`` [29] (one packet of l(b+1)+b0 bits,
+  failures discarded), ``onebit`` [28] (sign-only), ``scheduling`` [46]
+  (the top ceil(ratio K) instantaneous gains share the band) and
+  ``error_free`` (quantized, lossless: the upper bound).  The first three
+  send one analytic packet per client; under ``channel='bitlevel'`` its
+  success probability goes through the bit channel's calibration
+  (``bitchannel.calibrated_success_prob``) with nothing materialized.
 
-``wire='packed'`` materializes the packets as framed uint32 word buffers:
-the ``quantize_pack`` kernel quantizes and packs every client in one
-read of the gradients, and the ``spfl_accumulate`` kernel decodes,
-compensates, weights and sums all clients straight from the payload
-words.  ``channel='bitlevel'`` sends the buffers through the bit channel
-(``core.bitchannel``: the ``corrupt_fold`` and ``fold_words`` kernels).
-``wire='analytic'`` and ``channel='bernoulli'`` are the plain PyTorch
-branches of the same function.
+``wire='packed'`` materializes the packets of ``spfl`` and ``error_free``
+as framed uint32 word buffers: the ``quantize_pack`` kernel quantizes and
+packs every client in one read of the gradients (:func:`encode_wire`),
+and the ``spfl_accumulate`` kernel decodes, compensates, weights and sums
+all clients straight from the payload words.  ``channel='bitlevel'``
+sends spfl's buffers through the bit channel (``core.bitchannel``: the
+``corrupt_fold`` and ``fold_words`` kernels).  ``wire='analytic'`` and
+``channel='bernoulli'`` are the plain PyTorch branches of the same
+functions.
 
 Randomness is explicit (:class:`Draws`): the (K, l) quantizer uniforms,
-the seed words of every bit-channel stream, and the Bernoulli outcome
-uniforms.  The simulator fills them from its generators; the parity
-tests fill them from the reference's own keys.
+the seed words of every bit-channel stream, the Bernoulli outcome and
+packet-fate uniforms, and scheduling's Rayleigh draws.  The simulator
+fills them from its generators; the parity tests fill them from the
+reference's own keys.
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ import torch
 
 from repro_torch.core import bitchannel
 from repro_torch.core import channel as chan
+from repro_torch.configs.base import FLConfig
 from repro_torch.core.quantize import (
-    dequantize_modulus, packet_bits, stochastic_quantize, true_div,
+    QuantizedGradient, dequantize_modulus, packet_bits, stochastic_quantize,
+    true_div,
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.record import RoundTelemetry
@@ -40,26 +52,43 @@ from repro_torch.wire import packets as wire_packets
 
 Tensor = torch.Tensor
 
+KINDS = ('spfl', 'spfl_retx', 'dds', 'onebit', 'scheduling', 'error_free')
 WIRE_KINDS = ('analytic', 'packed')
 _Q_FLOOR = 1e-8        # below this, 1/q unbiasing is switched off (q ~ 0)
 
 
 class Draws(NamedTuple):
     """The random inputs of one round's transport."""
-    rand: Tensor                          # (K, l) f32 quantizer uniforms
+    rand: Optional[Tensor]                # (K, l) f32 quantizer uniforms
+    #   (None for onebit, which does not quantize)
     sign_seeds: Tuple[Tuple[int, int], ...] = ()  # bitlevel: one uint32
     #   seed pair per sign transmission attempt (1 + n_retx)
     mod_seeds: Optional[Tuple[int, int]] = None   # bitlevel: modulus stream
     sign_u: Optional[Tensor] = None       # bernoulli: (1 + n_retx, K) f32
     mod_u: Optional[Tensor] = None        # bernoulli: (K,) f32
+    fate_u: Optional[Tensor] = None       # dds/onebit/scheduling: (1, K)
+    #   f32 packet-fate uniforms
+    h2: Optional[Tensor] = None           # scheduling: (K,) f32 Rayleigh
+    #   |h|^2 ~ Exp(1)
 
 
 def make_draws(k: int, l: int, n_retx: int, channel: str,
                device: torch.device, generator: torch.Generator,
-               host_generator: torch.Generator) -> Draws:
-    """One round's draws: the (K, l) uniforms from ``generator`` on
-    ``device``; seeds and outcome uniforms from ``host_generator``."""
-    rand = torch.rand((k, l), generator=generator, device=device)
+               host_generator: torch.Generator,
+               kind: str = 'spfl') -> Draws:
+    """One round's draws for transport ``kind``: the (K, l) uniforms from
+    ``generator`` on ``device``; seeds, outcome uniforms and Rayleigh
+    draws from ``host_generator``."""
+    rand = (None if kind == 'onebit'
+            else torch.rand((k, l), generator=generator, device=device))
+    if kind == 'error_free':
+        return Draws(rand)
+    if kind not in ('spfl', 'spfl_retx'):
+        h2 = (torch.empty((k,)).exponential_(generator=host_generator)
+              if kind == 'scheduling' else None)
+        fate_u = torch.rand((1, k), generator=host_generator)
+        return Draws(rand, fate_u=fate_u.to(device),
+                     h2=None if h2 is None else h2.to(device))
     if channel == 'bitlevel':
         words = torch.randint(0, 2 ** 32, (n_retx + 2, 2),
                               generator=host_generator).tolist()
@@ -83,6 +112,42 @@ def _seq_client_sum(vals: Tensor) -> Tensor:
     return acc
 
 
+def _seq_client_mean(vals: Tensor) -> Tensor:
+    """Mean over the leading client axis, summed in the kernel's order."""
+    return true_div(_seq_client_sum(vals), float(vals.shape[0]))
+
+
+def _per_client_quantize(grads: Tensor, bits: int, rand: Tensor
+                         ) -> QuantizedGradient:
+    """grads: (K, l) -> per-client-range quantization."""
+    a = torch.abs(grads)
+    return stochastic_quantize(grads, bits, rand, a.amin(1, keepdim=True),
+                               a.amax(1, keepdim=True))
+
+
+def _scalar(x: float, device) -> Tensor:
+    """An f32 scalar on ``device`` (a fill, not a copy from the host)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0
+                ) -> Tuple[Tensor, Tensor, int]:
+    """Client side of the packed wire: quantize and pack (K, l) gradients
+    with per-client ranges (the ``quantize_pack`` kernel) and frame them
+    -> (sign_words (K, Ws), mod_words (K, Wm), measured bits)."""
+    K, l = grads.shape
+    a = torch.abs(grads)
+    g_min, g_max = a.amin(dim=1), a.amax(dim=1)
+    sign_pay, knob_pay = kops.quantize_pack_flat(grads, rand, g_min, g_max,
+                                                 bits)
+    sign_words, mod_words = wire_packets.frame_uplink_batch(
+        sign_pay, knob_pay, g_min, g_max, n=l, bits=bits,
+        round_idx=round_idx)
+    measured = wire_fmt.WORD_BITS * K * (sign_words.shape[1]
+                                         + mod_words.shape[1])
+    return sign_words, mod_words, measured
+
+
 def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                    bits: int, b0: int, draws: Draws, n_retx: int = 0,
                    wire: str = 'analytic', round_idx=0,
@@ -104,22 +169,14 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
     if channel == 'bitlevel' and wire != 'packed':
         raise ValueError("channel='bitlevel' requires wire='packed'")
     K, l = grads.shape
-    a = torch.abs(grads)
-    g_min, g_max = a.amin(dim=1), a.amax(dim=1)
     q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)      # sign retransmission(s)
 
     extras = {}
     if wire == 'packed':
-        sign_pay, knob_pay = kops.quantize_pack_flat(grads, draws.rand,
-                                                     g_min, g_max, bits)
-        sign_words, mod_words = wire_packets.frame_uplink_batch(
-            sign_pay, knob_pay, g_min, g_max, n=l, bits=bits,
-            round_idx=round_idx)
-        measured = wire_fmt.WORD_BITS * K * (sign_words.shape[1]
-                                             + mod_words.shape[1])
+        sign_words, mod_words, measured = encode_wire(grads, draws.rand,
+                                                      bits, round_idx)
     else:
-        qg = stochastic_quantize(grads, bits, draws.rand, g_min[:, None],
-                                 g_max[:, None])
+        qg = _per_client_quantize(grads, bits, draws.rand)
     if channel == 'bitlevel':
         rep = bitchannel.transmit_uplink(
             sign_words, mod_words, q, p, n=l, bits=bits,
@@ -177,3 +234,131 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                               device=grads.device)
     return ghat, RoundTelemetry(sign_ok, mod_ok, sign_ok, payload, retx,
                                 **extras)
+
+
+# ---------------------------------------------------------------------------
+# the baselines
+# ---------------------------------------------------------------------------
+
+def single_packet_success_prob(beta, p_w, gain, n_bits, fl: FLConfig):
+    """Success probability of ONE packet of ``n_bits`` over the client's
+    whole band at full power: the paper's H convention
+    (``channel.h_term``) with the band-split factor removed."""
+    return torch.exp(chan.h_term(beta, p_w, gain, n_bits / 2.0, fl))
+
+
+def _baseline_packet_fate(fate_u: Tensor, q: Tensor, n_bits: int,
+                          channel: str) -> Tensor:
+    """One success draw per client from the (1, K) uniforms ``fate_u``:
+    straight from q ('bernoulli'), or ('bitlevel') from q through the bit
+    channel's calibration for a virtual packet of ``n_bits``, one attempt
+    of ``simulate_attempts``."""
+    if channel == 'bitlevel':
+        q = bitchannel.calibrated_success_prob(q, n_bits)
+        ok, _ = chan.simulate_attempts(fate_u, q, 0)
+        return ok
+    return fate_u[0] < q
+
+
+def _received_mean(vals: Tensor, ok: Tensor) -> Tensor:
+    """Mean of the rows of ``vals`` whose packet arrived."""
+    denom = torch.clamp(torch.sum(ok.to(torch.float32)), min=1.0)
+    kept = torch.where(ok[:, None], vals, torch.zeros_like(vals))
+    return _seq_client_sum(kept) / denom
+
+
+def _baseline_telemetry(ok: Tensor, mod_ok: Tensor, payload_bits: float
+                        ) -> RoundTelemetry:
+    dev = ok.device
+    return RoundTelemetry(ok, mod_ok, ok, _scalar(payload_bits, dev),
+                          _scalar(0.0, dev))
+
+
+def dds_aggregate(grads: Tensor, beta: Tensor, gains: Tensor, p_w: Tensor,
+                  fl: FLConfig, draws: Draws
+                  ) -> Tuple[Tensor, RoundTelemetry]:
+    """[29]: one packet of l(b+1)+b0 bits; failures discarded; mean over
+    the received set."""
+    K, l = grads.shape
+    qg = _per_client_quantize(grads, fl.quant_bits, draws.rand)
+    n_bits = l * (fl.quant_bits + 1) + fl.b0_bits
+    q = single_packet_success_prob(beta, p_w, gains, n_bits, fl)
+    ok = _baseline_packet_fate(draws.fate_u, q, n_bits, fl.channel)
+    vals = qg.sign.to(torch.float32) * dequantize_modulus(qg)
+    return _received_mean(vals, ok), _baseline_telemetry(ok, ok, K * n_bits)
+
+
+def onebit_aggregate(grads: Tensor, beta: Tensor, gains: Tensor,
+                     p_w: Tensor, fl: FLConfig, draws: Draws
+                     ) -> Tuple[Tensor, RoundTelemetry]:
+    """[28]: sign-only uplink.  The aggregate is the mean received sign
+    (sign(0) = 0) scaled by each client's mean modulus (one extra scalar
+    per client), so the step is comparable with modulus-carrying
+    schemes."""
+    K, l = grads.shape
+    q = single_packet_success_prob(beta, p_w, gains, float(l), fl)
+    ok = _baseline_packet_fate(draws.fate_u, q, l, fl.channel)
+    scale = torch.mean(torch.abs(grads), dim=1, keepdim=True)    # (K, 1)
+    vals = torch.sign(grads) * scale
+    return _received_mean(vals, ok), _baseline_telemetry(
+        ok, torch.zeros_like(ok), K * l)
+
+
+def scheduling_aggregate(grads: Tensor, gains: Tensor, p_w: Tensor,
+                         fl: FLConfig, draws: Draws,
+                         ratio: Optional[float] = None
+                         ) -> Tuple[Tensor, RoundTelemetry]:
+    """[46]: the PS schedules the ceil(ratio K) devices with the largest
+    instantaneous gain |h|^2 d^-zeta; each gets an equal share of the
+    band, the others 1e-9 of it (their q is exactly 0)."""
+    K, l = grads.shape
+    ratio = fl.scheduling_ratio if ratio is None else ratio
+    m = max(1, math.ceil(ratio * K))
+    inst = draws.h2 * gains
+    thresh = torch.sort(inst).values[K - m]
+    sched = inst >= thresh
+    beta = torch.where(sched, torch.full_like(inst, 1.0 / m),
+                       torch.full_like(inst, 1e-9))
+    qg = _per_client_quantize(grads, fl.quant_bits, draws.rand)
+    n_bits = l * (fl.quant_bits + 1) + fl.b0_bits
+    q = single_packet_success_prob(beta, p_w, gains, n_bits, fl)
+    ok = _baseline_packet_fate(draws.fate_u, q, n_bits, fl.channel) & sched
+    vals = qg.sign.to(torch.float32) * dequantize_modulus(qg)
+    return _received_mean(vals, ok), _baseline_telemetry(ok, ok, m * n_bits)
+
+
+def error_free_aggregate(grads: Tensor, fl: FLConfig, draws: Draws,
+                         wire: Optional[str] = None, round_idx=0
+                         ) -> Tuple[Tensor, RoundTelemetry]:
+    """Quantized, lossless uplink (the upper bound).  On the packed wire
+    the words go through ``quantize_pack`` and the decode-once
+    ``spfl_accumulate`` with ḡ = 0, unit weights and every packet
+    received; ``payload_bits`` is then the measured size of the frames."""
+    wire = fl.wire if wire is None else wire
+    if wire not in WIRE_KINDS:
+        raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
+    K, l = grads.shape
+    dev = grads.device
+    ok = torch.ones((K,), dtype=torch.bool, device=dev)
+    extras = {}
+    if wire == 'packed':
+        sign_words, mod_words, measured = encode_wire(
+            grads, draws.rand, fl.quant_bits, round_idx)
+        ones = torch.ones((K,), dtype=torch.float32, device=dev)
+        g_min, g_max = wire_packets.mod_header_ranges(mod_words)
+        acc, votes = kops.spfl_aggregate_packed(
+            wire_packets.sign_payload(sign_words),
+            wire_packets.mod_payload(mod_words),
+            torch.zeros((l,), dtype=torch.float32, device=dev), g_min, g_max,
+            ones, ones, ok, l, fl.quant_bits)
+        ghat = true_div(acc, float(K))
+        if votes is not None:
+            extras['sign_votes'] = votes
+        payload = float(measured)
+    else:
+        qg = _per_client_quantize(grads, fl.quant_bits, draws.rand)
+        payload = float(K * (l * (fl.quant_bits + 1) + fl.b0_bits))
+        ghat = _seq_client_mean(qg.sign.to(torch.float32)
+                                * dequantize_modulus(qg))
+    return ghat, RoundTelemetry(ok, ok, ok, _scalar(payload, dev),
+                                _scalar(0.0, dev), **extras)

@@ -5,30 +5,43 @@ Per round n:
   1. each device computes g_{k,n} = ∇F_k(w_n): one batched
      ``torch.func.vmap`` of the gradient over the K clients, taken with
      respect to the flat reference-order parameter vector;
-  2. the PS solves eq. (28) -> (q, p): on the host in float64 NumPy
-     (``core.allocation``, ``allocation_backend='numpy'``), or on the
-     device (``core.allocation_jax``, ``allocation_backend='jax'``: the
-     per-client scalars are reduced on the card and one ``alloc_solve``
-     launch solves, with no device-to-host copy before the transport);
-  3. the uplink runs through ``core.transport.spfl_aggregate`` (on the
-     packed, bit-level wire: the four CUDA kernels);
-  4. SGD update w <- w - eta ghat, and the compensation vector rolls.
+  2. for spfl/spfl_retx the PS solves eq. (28) -> (q, p): on the host in
+     float64 NumPy (``core.allocation``, ``allocation_backend='numpy'``),
+     or on the device (``core.allocation_jax``,
+     ``allocation_backend='jax'``: the per-client scalars are reduced on
+     the card and one ``alloc_solve`` launch solves, with no
+     device-to-host copy before the transport).  The gains are the static
+     geometry's, or under ``allocation_cadence='per_round'`` that round's
+     row of a block-fading trajectory (``channel.block_fading_trajectory``,
+     built on the host once a run, one float64 copy on the device).  The
+     baselines solve nothing: q = p = 1;
+  3. the uplink runs through the transport (``core.transport``: spfl on
+     the packed, bit-level wire runs the four round kernels, error_free on
+     the packed wire quantize_pack and spfl_accumulate; dds, onebit and
+     scheduling see the static gains and, but scheduling, beta = 1/K);
+  4. SGD update w <- w - eta ghat, and the compensation state rolls
+     (``core.compensation``).
 
 The CNN runs in full float32: constructing a simulator sets
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), since
 TF32 convolutions keep about three decimal digits.
 
-Randomness comes from two ``torch.Generator``s seeded from the run seed:
+Randomness comes from ``torch.Generator``s seeded from the run seed:
 one on the device for the (K, l) quantizer uniforms, one on the host for
-the geometry, the initial weights, the bit-channel seed words and the
-Bernoulli outcomes.  The draws differ from the reference's ``jax.random``
+the geometry, the initial weights, the bit-channel seed words, the
+Bernoulli and packet-fate uniforms and scheduling's Rayleigh draws, and
+one on the host, seeded anew by every ``run`` from the seed plus
+``FADING_SEED_OFFSET``, for the standard normals of the fading
+trajectory.  The draws differ from the reference's ``jax.random``
 streams, so whole-run agreement with the reference is statistical; one
-round given the same draws agrees exactly (``tests/test_torch_slice.py``).
+round given the same draws (and gains) agrees exactly
+(``tests/test_torch_slice.py``, ``tests/test_torch_slice_fading.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional
@@ -41,7 +54,7 @@ from torch.profiler import record_function
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import allocation as alloc
 from repro_torch.core import allocation_jax as alloc_jax
-from repro_torch.core import channel, convergence, transport
+from repro_torch.core import channel, compensation, convergence, transport
 from repro_torch.core.quantize import expected_quant_mse
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops
@@ -50,12 +63,6 @@ from repro_torch.obs.record import RoundTelemetry, sign_agreement
 
 # knobs the port does not run yet -> the ROADMAP.md item that brings them
 _NOT_YET = (
-    (lambda fl: fl.transport not in ('spfl', 'spfl_retx'),
-     'transport {fl.transport!r}: the baselines dds/onebit/scheduling/'
-     'error_free are ROADMAP Queue 1 item 5'),
-    (lambda fl: fl.allocation_cadence != 'static',
-     "allocation_cadence='per_round' needs the AR(1) shadowing of "
-     'ROADMAP Queue 1 item 3'),
     (lambda fl: fl.attack != 'none' or fl.screen,
      'attack/screen are ROADMAP Queue 1 item 8'),
     (lambda fl: fl.dropout_rate > 0.0,
@@ -72,6 +79,11 @@ _NOT_YET = (
 
 
 ALLOCATION_BACKENDS = ('numpy', 'jax')
+CADENCES = ('static', 'per_round')
+ALLOCATING = ('spfl', 'spfl_retx')       # the transports that solve eq. (28)
+# the fading trajectory's normals come from a host generator seeded with
+# the run seed plus this offset (the reference folds 0x0FAD into its key)
+FADING_SEED_OFFSET = 0x0FAD
 
 
 def check_supported(fl: FLConfig) -> None:
@@ -79,14 +91,23 @@ def check_supported(fl: FLConfig) -> None:
     for unsupported, message in _NOT_YET:
         if unsupported(fl):
             raise NotImplementedError(message.format(fl=fl))
+    if fl.transport not in transport.KINDS:
+        raise ValueError(f'transport must be one of {transport.KINDS}')
     if fl.allocation_backend not in ALLOCATION_BACKENDS:
         raise ValueError(f'allocation_backend must be one of '
                          f'{ALLOCATION_BACKENDS}')
+    if fl.allocation_cadence not in CADENCES:
+        raise ValueError(f'allocation_cadence must be one of {CADENCES}')
+    if fl.compensation not in compensation.KINDS:
+        raise ValueError(f'compensation must be one of {compensation.KINDS}')
     if fl.wire not in transport.WIRE_KINDS:
         raise ValueError(f'wire must be one of {transport.WIRE_KINDS}')
     if fl.channel not in channel.CHANNEL_KINDS:
         raise ValueError(f'channel must be one of {channel.CHANNEL_KINDS}')
-    if fl.channel == 'bitlevel' and fl.wire != 'packed':
+    if (fl.channel == 'bitlevel' and fl.wire != 'packed'
+            and fl.transport in ALLOCATING):
+        # the single-packet baselines keep their buffers analytic and
+        # take the bit channel's calibration only
         raise ValueError("channel='bitlevel' requires wire='packed'")
 
 
@@ -122,8 +143,9 @@ class RoundResult(NamedTuple):
     ghat: torch.Tensor            # (l,) aggregate
     telemetry: RoundTelemetry
     allocation: object            # alloc.Allocation (host, 'numpy') or
-    #                               alloc_jax.JaxAllocation (card, 'jax')
-    stats: dict                   # g2, gb2, v, d2, prob of the solve (and
+    #                               alloc_jax.JaxAllocation (card, 'jax');
+    #                               None for the baselines
+    stats: Optional[dict]         # g2, gb2, v, d2, prob of the solve (and
     #                               on 'numpy' the host grads/gbar)
     alloc_time_s: float
 
@@ -161,19 +183,37 @@ class FLSimulator:
         self.test_x = to_nchw(test_x)
         self.test_y = torch.as_tensor(np.asarray(test_y, np.int64),
                                       device=self.device)
+        self.seed = seed
+        # host-side eq. (28) solves performed (0 on the 'jax' backend)
+        self.host_solver_calls = 0
         # static wireless geometry (paper: uniform in a 500 m annulus)
         dist = channel.sample_distances(self.host_gen, self.K,
                                         fl.cell_radius_m)
         self.gains = channel.path_gain(dist, fl.path_loss_exp)
         self.p_w = np.full(self.K, fl.tx_power_w)
         # the same gains and budgets in float64 on the device, for the
-        # on-device solver
+        # on-device solver; its budgets rounded to float32 first, as the
+        # reference's on-device path builds them
         self.gains_dev = torch.as_tensor(np.asarray(self.gains, np.float64),
                                          device=self.device)
-        self.p_w_dev = torch.as_tensor(self.p_w, device=self.device)
-        shape = (self.K, self.dim) if fl.compensation == 'last_local' \
-            else (self.dim,)
-        self.gbar = torch.zeros(shape, device=self.device)
+        self.p_w_dev = torch.as_tensor(
+            self.p_w.astype(np.float32).astype(np.float64),
+            device=self.device)
+        # the baselines' channel, float32 as the reference's closures hold
+        # it: static gains, budgets and the uniform band share
+        self.gains_f32 = torch.as_tensor(self.gains, dtype=torch.float32,
+                                         device=self.device)
+        self.p_w_f32 = torch.as_tensor(self.p_w, dtype=torch.float32,
+                                       device=self.device)
+        self.beta_uniform = torch.full((self.K,), 1.0 / self.K,
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self.comp = compensation.init_state(
+            fl.compensation, torch.zeros(self.dim, device=self.device),
+            self.K)
+        # the current run's fading gains (n_rounds, K), float64 on the
+        # device (allocation_cadence='per_round'; None before a run)
+        self.trajectory: Optional[torch.Tensor] = None
         self._round = 0
         # host copies of every round's telemetry (votes dropped: the
         # agreement scalar lands in FLHistory)
@@ -187,6 +227,15 @@ class FLSimulator:
                                   in_dims=(None, 0, 0))
 
     # ------------------------------------------------------------------
+    @property
+    def gbar(self) -> torch.Tensor:
+        """The compensation vector(s) the next round uses."""
+        return self.comp.gbar
+
+    @gbar.setter
+    def gbar(self, value: torch.Tensor) -> None:
+        self.comp = self.comp._replace(gbar=value)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return functional_call(self.model, module_params(self.params), (x,))
 
@@ -208,10 +257,15 @@ class FLSimulator:
         acc = (pred == self.test_y).to(torch.float32).mean()
         return float(loss), float(acc)
 
-    def allocate(self, grads: torch.Tensor, gbar: torch.Tensor):
+    def allocate(self, grads: torch.Tensor, gbar: torch.Tensor,
+                 gains: Optional[np.ndarray] = None):
         """Steps 3-4: the per-client scalars go to the host and the PS
-        solves eq. (28) in float64 NumPy -> (Allocation, stats)."""
+        solves eq. (28) in float64 NumPy -> (Allocation, stats).
+        ``gains`` (K,) default to the static geometry's."""
         fl = self.fl
+        self.host_solver_calls += 1
+        gains = self.gains if gains is None else np.asarray(gains,
+                                                           np.float64)
         grads_np = grads.detach().to('cpu', torch.float64).numpy()
         gbar_np = gbar.detach().cpu().numpy()
         g2 = np.sum(grads_np ** 2, axis=1)
@@ -222,8 +276,8 @@ class FLSimulator:
         # exact expected quantization MSE, f32 on the device
         d2 = expected_quant_mse(grads.detach(), fl.quant_bits,
                                 dim=1).cpu().numpy()
-        prob = alloc.problem_from_stats(g2, gb2, v, d2, self.gains,
-                                        self.p_w, self.dim, fl)
+        prob = alloc.problem_from_stats(g2, gb2, v, d2, gains, self.p_w,
+                                        self.dim, fl)
         method = fl.allocator
         if float(gb2.max()) == 0.0:
             # no compensation history yet (round 0): optimizing against
@@ -240,13 +294,16 @@ class FLSimulator:
         return sol, dict(g2=g2, gb2=gb2, v=v, d2=d2, prob=prob,
                          grads=grads_np, gbar=gbar_np)
 
-    def allocate_on_device(self, grads: torch.Tensor, gbar: torch.Tensor):
+    def allocate_on_device(self, grads: torch.Tensor, gbar: torch.Tensor,
+                           gains: Optional[torch.Tensor] = None):
         """Steps 3-4 on the device: the per-client scalars reduced in
         float64 where the gradients lie, and one solver call (one kernel
         launch on the card) -> (JaxAllocation, stats).  Nothing is read
         back to the host; the round-0 guard (no compensation history) is
-        the solver's gate, max(gb2) > 0."""
+        the solver's gate, max(gb2) > 0.  ``gains`` (K,) float64 on the
+        device default to the static geometry's."""
         fl = self.fl
+        gains = self.gains_dev if gains is None else gains
         with record_function('round/stats'):
             g64 = grads.detach().to(torch.float64)
             gb = gbar if gbar.dim() == 2 else gbar.expand(grads.shape)
@@ -256,8 +313,7 @@ class FLSimulator:
             v = torch.sum(torch.abs(g64) * gb64, dim=1)
             d2 = expected_quant_mse(grads.detach(), fl.quant_bits,
                                     dim=1).to(torch.float64)
-            prob = alloc_jax.problem_from_stats(g2, gb2, v, d2,
-                                                self.gains_dev,
+            prob = alloc_jax.problem_from_stats(g2, gb2, v, d2, gains,
                                                 self.p_w_dev, self.dim, fl)
         method = fl.allocator
         with record_function('round/solve'):
@@ -271,55 +327,107 @@ class FLSimulator:
 
     def draw(self) -> transport.Draws:
         """One round's transport draws from the simulator's generators."""
-        n_retx = 1 if self.fl.transport == 'spfl_retx' else 0
-        return transport.make_draws(self.K, self.dim, n_retx,
-                                    self.fl.channel, self.device, self.gen,
-                                    self.host_gen)
+        fl = self.fl
+        n_retx = 1 if fl.transport == 'spfl_retx' else 0
+        return transport.make_draws(self.K, self.dim, n_retx, fl.channel,
+                                    self.device, self.gen, self.host_gen,
+                                    kind=fl.transport)
+
+    def fading_trajectory(self, n_rounds: int) -> torch.Tensor:
+        """The run's block-fading gains (n_rounds, K), float32 on the host:
+        standard normals from a host generator seeded with the run seed
+        plus ``FADING_SEED_OFFSET`` (the same trajectory for every run of
+        this simulator), over the float32 static gains."""
+        gen = torch.Generator().manual_seed(self.seed + FADING_SEED_OFFSET)
+        eps = torch.randn((n_rounds, self.K), generator=gen)
+        return channel.block_fading_trajectory(
+            eps, torch.as_tensor(self.gains, dtype=torch.float32))
+
+    def _solve(self, grads: torch.Tensor, gains):
+        """Step 2 of an allocating transport -> (sol, stats, q, p,
+        objective, iters, exit_reason, host seconds)."""
+        fl = self.fl
+        ta = time.perf_counter()
+        if fl.allocation_backend == 'jax':
+            if gains is not None:
+                gains = torch.as_tensor(gains, dtype=torch.float64,
+                                        device=self.device)
+            sol, stats = self.allocate_on_device(grads, self.gbar, gains)
+            alloc_t = time.perf_counter() - ta
+            return (sol, stats, sol.q.to(torch.float32),
+                    sol.p.to(torch.float32), sol.objective, sol.iters,
+                    sol.exit_reason, alloc_t)
+        if isinstance(gains, torch.Tensor):
+            gains = gains.cpu().numpy()
+        sol, stats = self.allocate(grads, self.gbar, gains)
+        alloc_t = time.perf_counter() - ta
+        q = torch.as_tensor(sol.q, dtype=torch.float32, device=self.device)
+        p = torch.as_tensor(sol.p, dtype=torch.float32, device=self.device)
+        return (sol, stats, q, p, sol.objective,
+                int(sol.info.get('iters_used', 0)),
+                int(sol.info.get('exit_reason', 0)), alloc_t)
+
+    def _transport(self, grads, q, p, draws):
+        """Step 3: the configured transport -> (ghat, telemetry)."""
+        fl, kind = self.fl, self.fl.transport
+        if kind in ALLOCATING:
+            return transport.spfl_aggregate(
+                grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
+                n_retx=1 if kind == 'spfl_retx' else 0, wire=fl.wire,
+                round_idx=self._round, channel=fl.channel,
+                min_participation=fl.min_participation)
+        if kind == 'dds':
+            return transport.dds_aggregate(grads, self.beta_uniform,
+                                           self.gains_f32, self.p_w_f32, fl,
+                                           draws)
+        if kind == 'onebit':
+            return transport.onebit_aggregate(grads, self.beta_uniform,
+                                              self.gains_f32, self.p_w_f32,
+                                              fl, draws)
+        if kind == 'scheduling':
+            return transport.scheduling_aggregate(grads, self.gains_f32,
+                                                  self.p_w_f32, fl, draws)
+        return transport.error_free_aggregate(grads, fl, draws,
+                                              round_idx=self._round)
+
+    def _roll_compensation(self, ghat: torch.Tensor, grads: torch.Tensor,
+                           n: int) -> None:
+        """Step 4's ḡ roll.  seeded_random draws round n's vector for the
+        next round from a generator seeded off the seed and n."""
+        kind = self.fl.compensation
+        self.comp = compensation.update_state(kind, self.comp, ghat, grads)
+        if kind == 'seeded_random':
+            gen = torch.Generator().manual_seed(
+                (self.fl.seed + 99) * 1_000_003 + n)
+            self.gbar = compensation.current_gbar(kind, self.comp,
+                                                  generator=gen)
 
     def round_step(self, draws: Optional[transport.Draws] = None,
-                   n: Optional[int] = None) -> RoundResult:
+                   n: Optional[int] = None, gains=None) -> RoundResult:
         """One round of Algorithm 2; ``draws`` default to fresh ones from
         the simulator's generators.  ``n`` is the index within the
-        current ``run`` (the seeded-random compensation keys on it)."""
+        current ``run`` (the seeded-random compensation keys on it).
+        ``gains`` (K,) replace the static gains in this round's solve:
+        float64 on the device for the 'jax' backend (a host array is
+        copied there), a host array for 'numpy'."""
         fl = self.fl
         n = self._round if n is None else n
         with record_function('round/gradients'):
             losses, grads = self.client_grads(self.params)
-        ta = time.perf_counter()
-        if fl.allocation_backend == 'jax':
-            sol, stats = self.allocate_on_device(grads, self.gbar)
-            alloc_t = time.perf_counter() - ta
-            q, p = sol.q.to(torch.float32), sol.p.to(torch.float32)
-            objective, iters, reason = (sol.objective, sol.iters,
-                                        sol.exit_reason)
+        if fl.transport in ALLOCATING:
+            (sol, stats, q, p, objective, iters, reason,
+             alloc_t) = self._solve(grads, gains)
         else:
-            sol, stats = self.allocate(grads, self.gbar)
-            alloc_t = time.perf_counter() - ta
-            q = torch.as_tensor(sol.q, dtype=torch.float32,
-                                device=self.device)
-            p = torch.as_tensor(sol.p, dtype=torch.float32,
-                                device=self.device)
-            objective = sol.objective
-            iters = int(sol.info.get('iters_used', 0))
-            reason = int(sol.info.get('exit_reason', 0))
+            # no eq. (28) solve: q = p = 1, as the reference's loop
+            sol = stats = objective = iters = reason = None
+            q = p = torch.ones(self.K, device=self.device)
+            alloc_t = 0.0
         with record_function('round/transport'):
             draws = self.draw() if draws is None else draws
-            ghat, rec = transport.spfl_aggregate(
-                grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
-                n_retx=1 if fl.transport == 'spfl_retx' else 0,
-                wire=fl.wire, round_idx=self._round, channel=fl.channel,
-                min_participation=fl.min_participation)
+            ghat, rec = self._transport(grads, q, p, draws)
         with record_function('round/update'):
             self.params = self.params - fl.learning_rate * ghat
-            if fl.compensation == 'last_global':
-                self.gbar = torch.abs(ghat)
-            elif fl.compensation == 'last_local':
-                self.gbar = torch.abs(grads)
-            elif fl.compensation == 'seeded_random':
-                gen = torch.Generator().manual_seed(
-                    (fl.seed + 99) * 1_000_003 + n)
-                self.gbar = (torch.abs(torch.randn(self.dim, generator=gen))
-                             * 0.01).to(self.device)
+            self._roll_compensation(ghat, grads, n)
         rec = rec.with_allocation(q, p, objective=objective,
                                   round_idx=self._round, iters=iters,
                                   exit_reason=reason)
@@ -336,10 +444,23 @@ class FLSimulator:
             # the on-device path never brings to the host
             raise ValueError("compute_bound=True requires "
                              "allocation_backend='numpy'")
+        traj_host = None
+        if fl.allocation_cadence == 'per_round' and fl.transport in ALLOCATING:
+            traj = self.fading_trajectory(n_rounds).to(torch.float64)
+            self.trajectory = traj.to(self.device)
+            traj_host = traj.numpy()
+        packed_agreement = (fl.wire == 'packed' and fl.transport in
+                            ('spfl', 'spfl_retx', 'error_free'))
         for n in range(n_rounds):
             t0 = time.perf_counter()
-            res = self.round_step(n=n)
-            if compute_bound:
+            if traj_host is None:
+                gains = None
+            elif fl.allocation_backend == 'jax':
+                gains = self.trajectory[n]       # a view: no host copy
+            else:
+                gains = traj_host[n]
+            res = self.round_step(n=n, gains=gains)
+            if compute_bound and res.allocation is not None:
                 sol, stats = res.allocation, res.stats
                 gsum = np.asarray(convergence.g_value_from_probs(
                     stats['prob'].coef, sol.p, sol.q))
@@ -349,7 +470,7 @@ class FLSimulator:
                     fl.learning_rate, self.K, inp['g_global2'], inp['gb2'],
                     inp['g2'], inp['e2'], inp['v'], gsum)))
             rec = res.telemetry.to_host()
-            if fl.wire == 'packed':
+            if packed_agreement:
                 hist.sign_agreement.append(
                     sign_agreement(rec.sign_votes, rec.sign_ok))
             rec = rec._replace(sign_votes=None)
@@ -360,8 +481,8 @@ class FLSimulator:
             hist.mod_ok_frac.append(float(np.mean(rec.mod_ok)))
             hist.q_mean.append(float(np.mean(rec.q)))
             hist.p_mean.append(float(np.mean(rec.p)))
-            hist.alloc_iters.append(float(rec.alloc_iters))
-            hist.alloc_exit_reason.append(float(rec.alloc_exit_reason))
+            hist.alloc_iters.append(_nan_if_none(rec.alloc_iters))
+            hist.alloc_exit_reason.append(_nan_if_none(rec.alloc_exit_reason))
             if n % eval_every == 0 or n == n_rounds - 1:
                 prev_loss = float(res.losses.mean())
                 with record_function('round/evaluation'):
@@ -374,6 +495,12 @@ class FLSimulator:
             hist.alloc_time_s.append(res.alloc_time_s)
             hist.round_time_s.append(time.perf_counter() - t0)
         return hist
+
+
+def _nan_if_none(x) -> float:
+    """A telemetry scalar as a float (NaN where the round had none, as
+    the reference's rows)."""
+    return math.nan if x is None else float(x)
 
 
 # ---------------------------------------------------------------------------

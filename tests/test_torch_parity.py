@@ -54,6 +54,38 @@ def draws_from_key(key, k, l, n_retx, channel):
                  mod_u=torch.as_tensor(np.array(mod_u)))
 
 
+def baseline_draws_from_key(kind, key, k, l, channel):
+    """The draws ``repro.core.transport``'s baseline ``kind`` makes from
+    ``key``: dds splits (quantizer, fate), onebit draws its fate from the
+    key itself, scheduling splits (Rayleigh, fate, quantizer) and
+    error_free quantizes with the key.  The packet fate is one uniform a
+    client, drawn as ``uniform(ko, (K,))`` ('bernoulli') or
+    ``simulate_attempts(ko, q, 0)``'s ``uniform(ko, (1, K))``
+    ('bitlevel'); both give the same numbers, kept as (1, K)."""
+    def t(a):
+        return torch.as_tensor(np.array(a))
+
+    if kind == 'error_free':
+        return Draws(t(jax.random.uniform(key, (k, l))))
+    h2 = rand = None
+    if kind == 'dds':
+        kq, ko = jax.random.split(key)
+        rand = t(jax.random.uniform(kq, (k, l)))
+    elif kind == 'onebit':
+        ko = key
+    elif kind == 'scheduling':
+        kh, ko, kq = jax.random.split(key, 3)
+        h2 = t(jax.random.exponential(kh, (k,)))
+        rand = t(jax.random.uniform(kq, (k, l)))
+    else:
+        raise ValueError(kind)
+    if channel == 'bitlevel':
+        fate_u = jax.random.uniform(ko, (1, k))
+    else:
+        fate_u = jax.random.uniform(ko, (k,))[None]
+    return Draws(rand, fate_u=t(fate_u), h2=h2)
+
+
 def test_words_np_keeps_the_bit_pattern():
     words = torch.tensor([0, 1, -1, -(2 ** 31), 2 ** 31 - 1],
                          dtype=torch.int32)
@@ -85,3 +117,23 @@ def test_draws_from_key_layout(channel, n_retx):
         assert draws.sign_seeds == () and draws.mod_seeds is None
         assert tuple(draws.sign_u.shape) == (n_retx + 1, k)
         assert tuple(draws.mod_u.shape) == (k,)
+
+
+@pytest.mark.parametrize('kind', ['dds', 'onebit', 'scheduling', 'error_free'])
+@pytest.mark.parametrize('channel', ['bernoulli', 'bitlevel'])
+def test_baseline_draws_from_key_layout(kind, channel):
+    k, l = 5, 70
+    key = jax.random.PRNGKey(9)
+    draws = baseline_draws_from_key(kind, key, k, l, channel)
+    assert (draws.rand is None) == (kind == 'onebit')
+    if draws.rand is not None:
+        assert tuple(draws.rand.shape) == (k, l)
+    assert (draws.h2 is None) == (kind != 'scheduling')
+    if kind == 'error_free':
+        assert draws.fate_u is None
+        return
+    assert tuple(draws.fate_u.shape) == (1, k)
+    # the other channel's fate draws the same numbers
+    other = 'bitlevel' if channel == 'bernoulli' else 'bernoulli'
+    again = baseline_draws_from_key(kind, key, k, l, other)
+    assert torch.equal(again.fate_u, draws.fate_u)

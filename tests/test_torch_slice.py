@@ -115,9 +115,7 @@ def test_simulator_runs_on_cpu_with_measured_payload():
 
 
 @pytest.mark.parametrize('kw', [
-    dict(transport='dds'), dict(transport='error_free'),
     dict(allocation_backend='jax', population_n=1000),
-    dict(allocation_cadence='per_round'),
     dict(attack='signflip'), dict(screen=True), dict(dropout_rate=0.1),
     dict(population_n=1000), dict(round_fusion='scan'),
     dict(collective='sharded'), dict(telemetry_path='t.jsonl')])
