@@ -38,9 +38,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    alone and unpadded, bit for bit (``check_alloc_kernel``); then the
    solver at K on every edge of its layout (lanes, groups, blocks a
    problem, cluster), each alone against one plain solve of all of them,
-   bit for bit, with and without the tolerance exits, and batches of 20
-   and 140 problems (smaller clusters, then none) against each problem
-   alone (``check_alloc_layouts``);
+   bit for bit, with and without the tolerance exits, batches of 20 and
+   140 problems (smaller clusters, then none) against each problem
+   alone, and the barrier method at K=257 (two blocks a problem) against
+   its plain solve (``check_alloc_layouts``);
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
    2000 test images) for 5 rounds, with every kernel launch counter reset
@@ -75,11 +76,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``check_host_problems``); the same with the 'numpy' backend for 2
    rounds (2 host solves); dds, onebit and scheduling for 3 rounds each
    on the bit channel's calibration and on Bernoulli draws (analytic
-   wire: no kernel); error_free on the packed wire for 3 rounds
+   wire: no kernel); dds and scheduling again at -45 dBm on both
+   channels, where packets are lost, one such round held against the CPU
+   (``check_baseline_round``); error_free on the packed wire for 3 rounds
    (quantize_pack and spfl_accumulate 3 times each, nothing else), and
    one error_free round held against its plain versions on the CPU
    (``check_error_free_round``: words bit for bit, the aggregate within
-   the FMA-wobble bound).
+   the FMA-wobble bound);
+8. byzantine clients, stragglers and packed-domain screening
+   (``run_adversary``), each run ``FLConfig(wire='packed',
+   channel='bitlevel', allocation_backend='jax', ...)`` with the counters
+   reset just before and read just after: signflip and scaled with
+   ``screen=True`` (3 rounds each, an honest run's launches, the
+   suspects per round, one round on the card against the CPU bit for
+   bit: ``check_adversary_round``), dropout 0.25 (5 rounds; a dropped
+   row is a no-op on the card), a benign screen (3 rounds; bit for bit
+   the unscreened round), labelflip (2 rounds; the flipped rows are the
+   mask's), and the cost of screening under ``torch.profiler``
+   (``screen_cost``: the ``round/screen`` span and the device operations
+   it adds).
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -2259,6 +2274,7 @@ def check_alloc_kernel(seed: int) -> dict:
 # 2, 3 and 4 blocks (parts) a copy of the problem
 ALLOC_EDGES = (1, 2, 3, 20, 64, 65, 128, 129, 256, 257, 512, 513, 768, 769,
                1024)
+BARRIER_EDGE_ITERS = 1
 
 
 def check_alloc_layouts(seed: int) -> dict:
@@ -2269,7 +2285,9 @@ def check_alloc_layouts(seed: int) -> dict:
     without the tolerance exits (inner_tol 1e-9: the groups' votes);
     (ii) batches of 20 and 140 K=20 problems (a cluster of 6 blocks a
     problem, then of 1: B x blocks <= the SMs) each equal to its problem
-    alone (a cluster of 8).  -> {'plain_s'}."""
+    alone (a cluster of 8); (iii) the barrier method at K = 257 (two
+    blocks a problem) against its plain solve, bit for bit, at
+    ``BARRIER_EDGE_ITERS`` outer iterations.  -> {'plain_s'}."""
     import torch
     from repro_torch.core import allocation_jax as AJ
     from repro_torch.kernels import ops
@@ -2301,6 +2319,29 @@ def check_alloc_layouts(seed: int) -> dict:
     for k in ALLOC_EDGES:
         print(f'alloc_solve layout K={k}: {json.dumps(ops.alloc_layout(1, k))}',
               flush=True)
+    # the barrier method where a problem spans two blocks (K = 257), at
+    # one outer iteration: its plain solve takes ~25 s on the card (53 s
+    # at two)
+    prob = AJ.from_reference(alloc_problem(257, -14.0, seed + 257),
+                             device='cuda')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = AJ.solve_plain(prob, 'barrier', max_iters=BARRIER_EDGE_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out['plain_s'] += dt
+    one = ops.alloc_solve(prob, 'barrier', max_iters=BARRIER_EDGE_ITERS)
+    for f in one._fields:
+        if not torch.equal(getattr(one, f).nan_to_num(7.0),
+                           getattr(plain, f).nan_to_num(7.0)):
+            raise AssertionError(f'alloc_solve barrier K=257 (layout '
+                                 f'{ops.alloc_layout(1, 257, "barrier")}):'
+                                 f' kernel != plain in {f}')
+    print(f'alloc_solve barrier K=257 (layout '
+          f'{json.dumps(ops.alloc_layout(1, 257, "barrier"))}, max_iters '
+          f'{BARRIER_EDGE_ITERS}, iters_used {int(one.iters)}, exit_reason '
+          f'{int(one.exit_reason)}): kernel vs plain bit for bit (plain '
+          f'{dt:.3f} s)', flush=True)
     base = [alloc_problem(K, p, seed + i) for i, p in enumerate(ALLOC_POWERS)]
     singles = [ops.alloc_solve(AJ.from_reference(p, device='cuda'),
                                'alternating', max_iters=2) for p in base]
@@ -2581,6 +2622,58 @@ def check_error_free_round(sim) -> None:
           f'|diff| {err:.3e} (bound {tol:.3e})', flush=True)
 
 
+# dds and scheduling lose packets here at K=20 on the main path's
+# geometry: mean q ~0.51 (dds, beta 1/K) and ~0.54 (the scheduled, beta
+# 1/15), from single_packet_success_prob on the seed-0 distances
+LOW_POWER_DBM = -45.0
+
+
+def draws_to(draws, dev):
+    """A transport's draws with every tensor on ``dev``."""
+    import torch
+    return draws._replace(**{f: v.to(dev) for f, v in draws._asdict().items()
+                             if isinstance(v, torch.Tensor)})
+
+
+def check_baseline_round(label: str, sim) -> None:
+    """One round of a single-packet baseline (dds or scheduling) on the
+    card against the same round on the CPU, same gradients and draws:
+    the packet verdicts bit for bit, with an erasure among them, and the
+    aggregate within the FMA-wobble bound of the received mean."""
+    import torch
+    from repro_torch.core import transport
+    _, grads = sim.client_grads(sim.params)
+    grads = grads.detach()
+    draws = sim.draw()
+    fl = sim.fl
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        g, d = grads.to(dev), draws_to(draws, dev)
+        gains, p_w = sim.gains_f32.to(dev), sim.p_w_f32.to(dev)
+        if fl.transport == 'dds':
+            ghat, rec = transport.dds_aggregate(
+                g, sim.beta_uniform.to(dev), gains, p_w, fl, d)
+        else:
+            ghat, rec = transport.scheduling_aggregate(g, gains, p_w, fl, d)
+        out[dev] = (ghat.cpu(), rec.to_host())
+    (g_gpu, r_gpu), (g_cpu, r_cpu) = out['cuda'], out['cpu']
+    for name in ('sign_ok', 'mod_ok', 'accepted', 'payload_bits'):
+        if not (getattr(r_gpu, name) == getattr(r_cpu, name)).all():
+            raise AssertionError(f'{label} {name}: card != CPU')
+    ok = torch.as_tensor(r_gpu.sign_ok)
+    if bool(ok.all()) or not bool(ok.any()):
+        raise AssertionError(f'{label}: the checked round has no erasure '
+                             'or no packet')
+    tol = ulp_atol(ok.to(torch.float32), grads.abs().amax(1).cpu(),
+                   torch.zeros(1)) / int(ok.sum())
+    err = float((g_gpu - g_cpu).abs().max())
+    if err > tol:
+        raise AssertionError(f'{label} ghat: card - CPU {err} > {tol}')
+    print(f'{label} round: card vs CPU: verdicts bit for bit, '
+          f'{int(ok.sum())} of {ok.numel()} packets received, ghat max '
+          f'|diff| {err:.3e} (bound {tol:.3e})', flush=True)
+
+
 def run_fading_and_baselines(main_sim) -> dict:
     """Phase 7, each run with the launch counters reset just before and
     read just after (``run_sim``):
@@ -2594,6 +2687,10 @@ def run_fading_and_baselines(main_sim) -> dict:
     * per-round cadence, 'numpy' backend (2 rounds): two host solves;
     * dds, onebit and scheduling (3 rounds each) on the bit channel's
       calibration and on Bernoulli draws, analytic wire: no kernel;
+    * dds and scheduling at ``LOW_POWER_DBM`` on both channels (3 rounds
+      each): an accepted fraction strictly between 0 and 1, and one
+      round with an erasure on the card against the CPU
+      (``check_baseline_round``);
     * error_free on the packed wire (3 rounds): quantize_pack and
       spfl_accumulate once a round, and one round held against its plain
       versions on the CPU.
@@ -2648,6 +2745,21 @@ def run_fading_and_baselines(main_sim) -> dict:
                   f'{json.dumps([t * 1e3 for t in h.round_time_s[1:]])} ms',
                   flush=True)
 
+    for kind in ('dds', 'scheduling'):
+        for channel in ('bitlevel', 'bernoulli'):
+            label = f'{kind}-{channel}-{LOW_POWER_DBM:g}dBm'
+            s, h, c = run_sim(FLConfig(transport=kind, channel=channel,
+                                       tx_power_dbm=LOW_POWER_DBM), 3,
+                              label, data=data, expect=())
+            check_counts(label, c, {name: 0 for name in c})
+            frac = statistics.mean(h.sign_ok_frac)
+            print(f'{label}: accepted fraction {json.dumps(h.sign_ok_frac)}',
+                  flush=True)
+            if not 0.0 < frac < 1.0:
+                raise AssertionError(f'{label}: accepted fraction {frac}: '
+                                     'no erasure, or nothing arrived')
+            check_baseline_round(label, s)
+
     fl_e = FLConfig(transport='error_free', wire='packed')
     sim_e, hist_e, counts_e = run_sim(
         fl_e, 3, 'error_free', data=data,
@@ -2660,6 +2772,353 @@ def run_fading_and_baselines(main_sim) -> dict:
         raise AssertionError('error_free: payload_bits != measured frames')
     check_error_free_round(sim_e)
     return {'solves': solves}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: byzantine clients, stragglers and packed-domain screening
+# ---------------------------------------------------------------------------
+
+ADV_BASE = dict(wire='packed', channel='bitlevel', allocation_backend='jax')
+
+
+def honest_counts(rounds: int) -> dict:
+    """The launches of ``rounds`` honest packed, bit-level 'jax' rounds."""
+    return {'alloc_solve': rounds, 'quantize_pack': rounds,
+            'spfl_accumulate': rounds, 'corrupt_fold': 2 * rounds,
+            'fold_words': 2 * rounds}
+
+
+def round_inputs(sim):
+    """The gradients at ``sim``'s parameters, that round's (q, p) from
+    its 'jax' solve, and fresh draws from its generators."""
+    import torch
+    _, grads = sim.client_grads(sim.params)
+    grads = grads.detach()
+    sol, _ = sim.allocate_on_device(grads, sim.gbar)
+    return grads, sol.q.to(torch.float32), sol.p.to(torch.float32), sim.draw()
+
+
+def screening_report(label: str, sim) -> None:
+    """Per round of ``sim``'s run: the byzantine clients, the suspects
+    with true and false positives, and the suspicions (findings, not
+    assertions)."""
+    import torch
+    mask = sim.byz_mask.cpu()
+    for n, rec in enumerate(sim.records):
+        sus = torch.as_tensor(rec.suspect)
+        print(f'{label} round {n}: byzantine '
+              f'{torch.nonzero(mask).flatten().tolist()}, suspect '
+              f'{torch.nonzero(sus).flatten().tolist()} (true positives '
+              f'{int((sus & mask).sum())} of {int(mask.sum())}, false '
+              f'positives {int((sus & ~mask).sum())}), suspicion '
+              f'{json.dumps([round(float(z), 4) for z in rec.suspicion])}',
+              flush=True)
+
+
+def adversary_round(sim, dev, grads, q, p, draws, active=None) -> dict:
+    """One packed, bit-level round of ``sim``'s adversarial knobs on
+    ``dev``: step by step through the port's public functions (the forged
+    frames, the received words and CRC verdicts, the majority words and
+    disagreement counts, the screen), and whole (``spfl_aggregate``)."""
+    from repro_torch.adversary import clients, screen
+    from repro_torch.core import bitchannel, transport
+    from repro_torch.wire import packets, vote
+    fl = sim.fl
+    g, q, p, d = grads.to(dev), q.to(dev), p.to(dev), draws_to(draws, dev)
+    mask = None if sim.byz_mask is None else sim.byz_mask.to(dev)
+    active = None if active is None else active.to(dev)
+    n = g.shape[1]
+    sw, mw, _ = transport.encode_wire(
+        g, d.rand, BITS, 0,
+        scaled=(mask, fl.attack_scale) if fl.attack == 'scaled' else None)
+    if fl.attack == 'signflip':
+        sw = clients.signflip_frames(sw, mask, n)
+    rep = bitchannel.transmit_uplink(sw, mw, q, p, n=n, bits=BITS,
+                                     sign_seeds=d.sign_seeds,
+                                     mod_seeds=d.mod_seeds)
+    sign_ok, mod_ok = rep.sign_ok, rep.mod_ok
+    if active is not None:
+        sign_ok, mod_ok = sign_ok & active, mod_ok & active
+    rows = packets.sign_payload(rep.sign_words)
+    maj = vote.majority_words(rows, sign_ok, n)
+    dis = vote.disagreement(rows, maj, n)
+    _, hdr = packets.mod_header_ranges(rep.mod_words)
+    gate, suspect, suspicion = screen.screen_gate(hdr, mod_ok, dis, n,
+                                                  sign_ok, fl.screen_z)
+    ghat, rec = transport.spfl_aggregate(
+        g, sim.gbar.to(dev), q, p, BITS, fl.b0_bits, d, wire=fl.wire,
+        channel=fl.channel, attack=fl.attack, byz_mask=mask,
+        attack_scale=fl.attack_scale, active=active, screen=fl.screen,
+        screen_z=fl.screen_z)
+    out = {'forged sign words': sw, 'mod words': mw,
+           'received sign words': rep.sign_words,
+           'received mod words': rep.mod_words,
+           'sign CRC': rep.sign_crc_ok, 'mod CRC': rep.mod_crc_ok,
+           'sign flips': rep.sign_flips, 'mod flips': rep.mod_flips,
+           'majority words': maj, 'disagreement': dis, 'gate': gate,
+           'suspect': suspect, 'transport suspect': rec.suspect,
+           'sign_ok': rec.sign_ok, 'mod_ok': rec.mod_ok}
+    if rec.sign_votes is not None:
+        out['sign votes'] = rec.sign_votes
+    out = {name: t.cpu() for name, t in out.items()}
+    out.update(suspicion=suspicion.cpu(), transport_suspicion=
+               rec.suspicion.cpu(), ghat=ghat.cpu(), header=hdr.cpu(),
+               weight=(rec.sign_ok.to(q.dtype) / q).cpu())
+    return out
+
+
+def suspicion_atol(g_max) -> float:
+    """4 ulp of the largest |log g_max| over the norm MAD floor: the
+    suspicion near the median is a difference of two f32 logs, whose
+    last bit the card's and the CPU's log may round apart."""
+    import torch
+    from repro_torch.adversary import screen
+    logr = torch.log(torch.clamp(g_max.double(), min=1e-30)).abs().max()
+    return (4 * float(torch.finfo(torch.float32).eps) * float(logr)
+            / screen.NORM_MAD_FLOOR)
+
+
+def check_adversary_round(label: str, sim, active=None) -> None:
+    """One round of ``sim``'s knobs on the card against the same round
+    through the plain versions on the CPU, with the same gradients,
+    draws, (q, p), byzantine mask and ``active``: every word, CRC
+    verdict, majority word, disagreement count, gate and suspect bit for
+    bit; the transport's own suspects equal the step-by-step ones on each
+    side; suspicion within 4 ulp of the log range over the MAD floor
+    (plus 4 ulp of itself); ĝ within the FMA-wobble bound."""
+    import torch
+    grads, q, p, draws = round_inputs(sim)
+    gpu = adversary_round(sim, 'cuda', grads, q, p, draws, active)
+    cpu = adversary_round(sim, 'cpu', grads, q, p, draws, active)
+    n_words = 0
+    for name, a in gpu.items():
+        if name in ('suspicion', 'transport_suspicion', 'ghat', 'header',
+                    'weight'):
+            continue
+        if not torch.equal(a, cpu[name]):
+            raise AssertionError(f'{label} {name}: card != CPU')
+        if 'words' in name:
+            n_words += a.numel()
+    for side in (gpu, cpu):
+        if not torch.equal(side['suspect'], side['transport suspect']):
+            raise AssertionError(f'{label}: the transport\'s suspects != '
+                                 'the step-by-step ones')
+        if not torch.equal(side['suspicion'], side['transport_suspicion']):
+            raise AssertionError(f'{label}: the transport\'s suspicion != '
+                                 'the step-by-step one')
+    s_err = float((gpu['suspicion'] - cpu['suspicion']).abs().max())
+    s_tol = (suspicion_atol(gpu['header'])
+             + 4 * float(torch.finfo(torch.float32).eps)
+             * float(gpu['suspicion'].abs().max()))
+    if s_err > s_tol:
+        raise AssertionError(f'{label} suspicion: card - CPU {s_err} > '
+                             f'{s_tol}')
+    present = gpu['sign_ok'].new_ones(gpu['sign_ok'].shape)
+    if active is not None:
+        present &= active.cpu()
+    present &= ~gpu['suspect']
+    weight = gpu['weight'] * gpu['gate']
+    tol = ulp_atol(weight, gpu['header'], sim.gbar.cpu()) / max(
+        int(present.sum()), 1)
+    err = float((gpu['ghat'] - cpu['ghat']).abs().max())
+    if err > tol:
+        raise AssertionError(f'{label} ghat: card - CPU {err} > {tol}')
+    print(f'{label} round: card vs CPU plain versions: {n_words} words, '
+          'CRC verdicts, majority words, disagreement counts '
+          f'{gpu["disagreement"].tolist()}, gate and suspect '
+          f'{torch.nonzero(gpu["suspect"]).flatten().tolist()} bit for bit; '
+          f'suspicion max |diff| {s_err:.3e} (bound {s_tol:.3e}), ghat max '
+          f'|diff| {err:.3e} (bound {tol:.3e})', flush=True)
+
+
+def check_dropped_rows(sim) -> None:
+    """A dropped client is a no-op on the card: with every fourth client
+    (from the second) inactive, replacing their gradients by ±1e6 leaves
+    ĝ bit for bit."""
+    import torch
+    from repro_torch.core import transport
+    grads, q, p, draws = round_inputs(sim)
+    k = grads.shape[0]
+    active = torch.arange(k, device=grads.device) % 4 != 1
+    dropped = torch.nonzero(~active).flatten()
+    bad = grads.clone()
+    bad[dropped] = 1e6
+    bad[dropped[::2]] = -1e6
+    out = []
+    for g in (grads, bad):
+        ghat, rec = transport.spfl_aggregate(
+            g, sim.gbar, q, p, BITS, sim.fl.b0_bits, draws, wire='packed',
+            channel='bitlevel', active=active)
+        out.append((ghat, rec))
+    if not torch.equal(out[0][0], out[1][0]):
+        raise AssertionError('dropout: a dropped row changed ghat')
+    if bool((out[0][1].sign_ok | out[0][1].mod_ok)[~active].any()):
+        raise AssertionError('dropout: a dropped row was accepted')
+    print(f'dropout: {int((~active).sum())} dropped rows set to ±1e6: ghat '
+          'bit for bit on the card', flush=True)
+
+
+def check_benign_screen(sim, tries: int = 3) -> None:
+    """With the same gradients and draws, a screened round of ``sim``
+    (no attacker) equals the unscreened one bit for bit on the card:
+    ĝ and every telemetry integer.  That holds where the screen flags no
+    honest client; a round where it does (a false positive, printed) is
+    followed by another round of ``sim``, up to ``tries`` rounds."""
+    import torch
+    from repro_torch.core import transport
+    for _ in range(tries):
+        grads, q, p, draws = round_inputs(sim)
+        out = [transport.spfl_aggregate(grads, sim.gbar, q, p, BITS,
+                                        sim.fl.b0_bits, draws, wire='packed',
+                                        channel='bitlevel', screen=screen)
+               for screen in (False, True)]
+        (g0, r0), (g1, r1) = out
+        if not bool(r1.suspect.any()):
+            break
+        print(f'benign screen: honest clients '
+              f'{torch.nonzero(r1.suspect).flatten().tolist()} flagged '
+              f'(suspicion {json.dumps(r1.suspicion.tolist())}); next round',
+              flush=True)
+        sim.round_step()
+    else:
+        raise AssertionError(f'benign screen: an honest client flagged in '
+                             f'each of {tries} rounds')
+    if not torch.equal(g0, g1):
+        raise AssertionError('benign screen: ghat changed')
+    for name, val in r0._asdict().items():
+        if val is not None and not torch.equal(val, getattr(r1, name)):
+            raise AssertionError(f'benign screen: {name} changed')
+    print('benign screen: screened == unscreened round bit for bit on the '
+          f'card (ghat and {sum(v is not None for v in r0)} telemetry '
+          f'fields; suspicion max {float(r1.suspicion.max()):.4f})',
+          flush=True)
+
+
+def screen_cost(screened, plain, tries: int = 3) -> dict:
+    """One more round of each of ``screened`` and ``plain`` (the same
+    configuration with and without ``screen``) under ``torch.profiler``:
+    the ``round/screen`` span's host and device ms, the device operations
+    inside its device span, and each round's device operations (their
+    difference is what screening adds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cpu = torch.autograd.DeviceType.CPU
+    out = {}
+    for label, sim in (('screened', screened), ('plain', plain)):
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sim.run(1)
+                torch.cuda.synchronize()
+            host = dev_span = None
+            ops = []
+            for e in prof.events():
+                if e.name == 'round/screen':
+                    if e.device_type == cpu:
+                        host = e.time_range
+                    else:
+                        dev_span = e.time_range
+                elif e.device_type != cpu and not e.name.startswith('round/'):
+                    ops.append(e.time_range)
+            if ops:
+                break
+        r = {'device_ops': len(ops)}
+        if host is not None:
+            r['host_ms'] = (host.end - host.start) / 1e3
+        if dev_span is not None:
+            r['device_ms'] = (dev_span.end - dev_span.start) / 1e3
+            r['span_ops'] = sum(1 for t in ops if t.start >= dev_span.start
+                                and t.end <= dev_span.end)
+        out[label] = r
+    if not out['plain']['device_ops'] or 'host_ms' not in out['screened']:
+        raise AssertionError(f'screen cost: the profiler recorded {out}')
+    out['added_ops'] = (out['screened']['device_ops']
+                        - out['plain']['device_ops'])
+    print(f'screen cost (torch.profiler, one round each): round/screen host '
+          f'{out["screened"]["host_ms"]:.3f} ms, device '
+          f'{out["screened"].get("device_ms", float("nan")):.3f} ms, '
+          f'{out["screened"].get("span_ops", "no device span")} device '
+          f'operations in its span; device operations a round '
+          f'{out["screened"]["device_ops"]} screened vs '
+          f'{out["plain"]["device_ops"]} plain: screening adds '
+          f'{out["added_ops"]}', flush=True)
+    return out
+
+
+def run_adversary(main_sim, main_jax, jax_times) -> dict:
+    """Phase 8 at full width on ``main_sim``'s data, every run
+    ``FLConfig(wire='packed', channel='bitlevel',
+    allocation_backend='jax', ...)`` with the launch counters reset just
+    before and read just after (``run_sim``):
+
+    * signflip and scaled (``attack_scale`` 10) with ``screen=True``, 3
+      rounds each: an honest run's launches exactly; per round the
+      byzantine mask, suspects and suspicions; one round on the card
+      against the CPU (``check_adversary_round``);
+    * dropout (``dropout_rate`` 0.25), 5 rounds: the participation per
+      round; a dropped row is a no-op on the card
+      (``check_dropped_rows``);
+    * benign screen (``screen=True``, no attacker), 3 rounds: the same
+      launches; the screened round equals the unscreened one bit for bit
+      (``check_benign_screen``);
+    * labelflip, 2 rounds: the flipped rows are exactly the mask's;
+    * the cost of screening (``screen_cost``: the benign-screen run
+      against ``main_jax``, phase 4's run of the same configuration
+      unscreened), and every run's round times beside main-jax's
+      (``jax_times``)."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    data = data_of(main_sim)
+    times = {'main-jax': jax_times}
+    sims = {}
+    for attack in ('signflip', 'scaled'):
+        fl = FLConfig(**ADV_BASE, attack=attack, screen=True,
+                      attack_scale=10.0)
+        sim, hist, counts = run_sim(fl, 3, attack, data=data)
+        check_counts(attack, counts, honest_counts(3))
+        screening_report(attack, sim)
+        print(f'{attack}: suspect_frac {json.dumps(hist.suspect_frac)}',
+              flush=True)
+        check_adversary_round(attack, sim)
+        times[attack] = hist.round_time_s[1:]
+        sims[attack] = sim
+
+    fl = FLConfig(**ADV_BASE, dropout_rate=0.25)
+    sim, hist, counts = run_sim(fl, 5, 'dropout', data=data)
+    check_counts('dropout', counts, honest_counts(5))
+    print(f'dropout: participation_frac {json.dumps(hist.participation_frac)}',
+          flush=True)
+    if not all(0.0 < f <= 1.0 for f in hist.participation_frac):
+        raise AssertionError('dropout: a round with no client present')
+    check_dropped_rows(sim)
+    times['dropout'] = hist.round_time_s[1:]
+
+    fl = FLConfig(**ADV_BASE, screen=True)
+    benign, hist, counts = run_sim(fl, 3, 'benign-screen', data=data)
+    check_counts('benign-screen', counts, honest_counts(3))
+    print(f'benign-screen: suspect_frac {json.dumps(hist.suspect_frac)} '
+          '(no attacker: any suspect is a false positive)', flush=True)
+    check_benign_screen(benign)
+    times['benign-screen'] = hist.round_time_s[1:]
+
+    fl = FLConfig(**ADV_BASE, attack='labelflip')
+    sim, hist, counts = run_sim(fl, 2, 'labelflip', data=data)
+    check_counts('labelflip', counts, honest_counts(2))
+    changed = (sim.client_y.cpu() != torch.as_tensor(data[1])).any(dim=1)
+    if not torch.equal(changed, sim.byz_mask.cpu()):
+        raise AssertionError(f'labelflip: rows {changed.tolist()} flipped, '
+                             f'mask {sim.byz_mask.tolist()}')
+    print(f'labelflip: rows {torch.nonzero(changed).flatten().tolist()} '
+          'flipped, exactly the byzantine mask', flush=True)
+    times['labelflip'] = hist.round_time_s[1:]
+
+    cost = screen_cost(benign, main_jax)
+    print(card_line(), flush=True)
+    for label, ts in times.items():
+        print(f'{label} rounds after round 0: '
+              f'{json.dumps([t * 1e3 for t in ts])} ms', flush=True)
+    return {'times': times, 'cost': cost}
 
 
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
@@ -2797,6 +3256,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_fading_and_baselines(sim)
     print(f'phase 7: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 8. byzantine clients, stragglers and packed-domain screening
+    t0 = time.perf_counter()
+    run_adversary(sim, sim_j, hist_j.round_time_s[1:])
+    print(f'phase 8: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))

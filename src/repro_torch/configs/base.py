@@ -8,7 +8,10 @@ in {spfl, spfl_retx, dds, onebit, scheduling, error_free}, ``wire`` in
 {analytic, packed}, ``channel`` in {bernoulli, bitlevel} (bitlevel with
 spfl/spfl_retx needs the packed wire), every ``compensation``,
 ``allocation_backend`` in {numpy, jax}, ``allocation_cadence`` in
-{static, per_round}, ``round_fusion='none'`` and ``collective='gather'``;
+{static, per_round}, ``attack`` in {none, signflip, scaled, labelflip},
+``screen``, ``dropout_rate`` with ``straggler_stickiness``,
+``min_participation``, ``round_fusion='none'`` and
+``collective='gather'``;
 ``training.fl_loop.FLSimulator`` raises ``NotImplementedError`` on the
 other knobs, naming the ``ROADMAP.md`` item that brings each.
 """

@@ -25,6 +25,14 @@ sends spfl's buffers through the bit channel (``core.bitchannel``: the
 ``channel='bernoulli'`` are the plain PyTorch branches of the same
 functions.
 
+``spfl`` also takes the adversarial knobs (``repro_torch.adversary``): a
+byzantine mask with its attack (the packed sign frames forged before
+transmit, or the reported ranges scaled), the stragglers' ``active``
+mask (zero-weight rows, the mean over the present clients) and the
+packed-domain screen (``wire.vote`` majority and disagreement, robust
+z-scores of the header ranges, a {0, 1} gate on the weights, under the
+profiler span ``round/screen``).
+
 Randomness is explicit (:class:`Draws`): the (K, l) quantizer uniforms,
 the seed words of every bit-channel stream, the Bernoulli outcome and
 packet-fate uniforms, and scheduling's Rayleigh draws.  The simulator
@@ -37,7 +45,10 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch.adversary import clients as adv_clients
+from repro_torch.adversary import screen as adv_screen
 from repro_torch.core import bitchannel
 from repro_torch.core import channel as chan
 from repro_torch.configs.base import FLConfig
@@ -49,6 +60,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs.record import RoundTelemetry
 from repro_torch.wire import format as wire_fmt
 from repro_torch.wire import packets as wire_packets
+from repro_torch.wire import vote as wire_vote
 
 Tensor = torch.Tensor
 
@@ -117,6 +129,31 @@ def _seq_client_mean(vals: Tensor) -> Tensor:
     return true_div(_seq_client_sum(vals), float(vals.shape[0]))
 
 
+def _present_denom(k: int, active: Optional[Tensor],
+                   suspect: Optional[Tensor]):
+    """The aggregate's denominator under dropout / screening: the Python
+    int K when neither is in play, else the f32 count of present clients
+    (active and not screened; channel erasures stay counted, the 1/q
+    weights compensate them), at least 1.  At full benign participation
+    the count is exactly float(K)."""
+    if active is None and suspect is None:
+        return k
+    present = (torch.ones((k,), dtype=torch.float32, device=suspect.device)
+               if active is None else active.to(torch.float32))
+    if suspect is not None:
+        present = present * (1.0 - suspect.to(torch.float32))
+    return torch.clamp(torch.sum(present), min=1.0)
+
+
+def _client_mean(acc: Tensor, k: int, active: Optional[Tensor],
+                 suspect: Optional[Tensor]) -> Tensor:
+    """``acc`` over :func:`_present_denom`, an IEEE quotient either way."""
+    denom = _present_denom(k, active, suspect)
+    if isinstance(denom, Tensor):
+        return acc / denom
+    return true_div(acc, float(denom))
+
+
 def _per_client_quantize(grads: Tensor, bits: int, rand: Tensor
                          ) -> QuantizedGradient:
     """grads: (K, l) -> per-client-range quantization."""
@@ -130,16 +167,23 @@ def _scalar(x: float, device) -> Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
-def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0
+def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0,
+                scaled: Optional[Tuple[Tensor, float]] = None
                 ) -> Tuple[Tensor, Tensor, int]:
     """Client side of the packed wire: quantize and pack (K, l) gradients
     with per-client ranges (the ``quantize_pack`` kernel) and frame them
-    -> (sign_words (K, Ws), mod_words (K, Wm), measured bits)."""
+    -> (sign_words (K, Ws), mod_words (K, Wm), measured bits).
+    ``scaled`` = (byzantine mask, attack scale) is the scaled-update
+    attack: the payload is quantized with the honest ranges and the
+    masked rows' headers report the scaled ones."""
     K, l = grads.shape
     a = torch.abs(grads)
     g_min, g_max = a.amin(dim=1), a.amax(dim=1)
     sign_pay, knob_pay = kops.quantize_pack_flat(grads, rand, g_min, g_max,
                                                  bits)
+    if scaled is not None:
+        g_min = adv_clients.scale_range(g_min, *scaled)
+        g_max = adv_clients.scale_range(g_max, *scaled)
     sign_words, mod_words = wire_packets.frame_uplink_batch(
         sign_pay, knob_pay, g_min, g_max, n=l, bits=bits,
         round_idx=round_idx)
@@ -152,7 +196,10 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                    bits: int, b0: int, draws: Draws, n_retx: int = 0,
                    wire: str = 'analytic', round_idx=0,
                    channel: str = 'bernoulli',
-                   min_participation: float = 0.0
+                   attack: str = 'none', byz_mask: Optional[Tensor] = None,
+                   attack_scale: float = 10.0,
+                   active: Optional[Tensor] = None, screen: bool = False,
+                   screen_z: float = 4.0, min_participation: float = 0.0
                    ) -> Tuple[Tensor, RoundTelemetry]:
     """Eq. (15)-(17).  grads: (K, l) f32; gbar: (l,) or (K, l); q, p: (K,)
     f32 on the same device.  Returns (ghat (l,), telemetry).
@@ -160,7 +207,17 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
     ``n_retx`` sign retransmissions (``spfl_retx`` uses 1);
     ``round_idx`` stamps the packet headers; ``min_participation`` is the
     graceful-degradation floor (fewer than ceil(m K) surviving modulus
-    packets -> every client falls back to ḡ)."""
+    packets -> every client falls back to ḡ).
+
+    Adversarial cohort (``repro_torch.adversary``): ``attack`` in
+    ``ATTACK_KINDS`` with ``byz_mask`` (K,) bool: 'signflip' forges the
+    framed sign payload before transmit (CRC patched) or negates the
+    analytic signs; 'scaled' reports ``attack_scale`` x the ranges;
+    'labelflip' is a transport no-op.  ``active`` (K,) bool marks
+    stragglers: they transmit nothing (sign_ok, mod_ok False: zero-weight
+    rows) and the mean is over the present clients.  ``screen`` gates
+    each weight by the suspicion verdict (``adversary.screen``, threshold
+    ``screen_z``) and divides by the clients not screened out."""
     if wire not in WIRE_KINDS:
         raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
     if channel not in chan.CHANNEL_KINDS:
@@ -168,15 +225,28 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                          f'got {channel!r}')
     if channel == 'bitlevel' and wire != 'packed':
         raise ValueError("channel='bitlevel' requires wire='packed'")
+    if attack not in adv_clients.ATTACK_KINDS:
+        raise ValueError(f'attack must be one of {adv_clients.ATTACK_KINDS}'
+                         f', got {attack!r}')
     K, l = grads.shape
     q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)      # sign retransmission(s)
+    lie = None if byz_mask is None else attack
 
     extras = {}
     if wire == 'packed':
-        sign_words, mod_words, measured = encode_wire(grads, draws.rand,
-                                                      bits, round_idx)
+        sign_words, mod_words, measured = encode_wire(
+            grads, draws.rand, bits, round_idx,
+            scaled=(byz_mask, attack_scale) if lie == 'scaled' else None)
+        if lie == 'signflip':
+            # the forged frame's CRC covers the lie: the channel and the
+            # PS treat it as any other
+            sign_words = adv_clients.signflip_frames(sign_words, byz_mask, l)
     else:
         qg = _per_client_quantize(grads, bits, draws.rand)
+        if lie == 'scaled':
+            qg = adv_clients.scale_ranges(qg, byz_mask, attack_scale)
+        elif lie == 'signflip':
+            qg = adv_clients.flip_signs(qg, byz_mask)
     if channel == 'bitlevel':
         rep = bitchannel.transmit_uplink(
             sign_words, mod_words, q, p, n=l, bits=bits,
@@ -207,6 +277,10 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
             extras = dict(retx_attempts=retx_k)
         payload = payload_base + retx * sign_bits
 
+    if active is not None:           # stragglers transmit nothing
+        sign_ok = sign_ok & active
+        mod_ok = mod_ok & active
+        extras['active'] = active
     if min_participation > 0.0:
         floor = int(math.ceil(min_participation * K))
         n_mod = torch.sum(mod_ok.to(torch.int32))
@@ -214,14 +288,29 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                              torch.zeros_like(mod_ok))
 
     w = _inverse_prob(sign_ok, q_eff)
-    gbar = gbar.to(torch.float32)
     if wire == 'packed':
         g_min, g_max = wire_packets.mod_header_ranges(mod_words)
+    suspect = None
+    if screen:
+        with record_function('round/screen'):
+            if wire == 'packed':
+                rows = wire_packets.sign_payload(sign_words)
+                maj = wire_vote.majority_words(rows, sign_ok, l)
+                dis = wire_vote.disagreement(rows, maj, l)
+                gate, suspect, suspicion = adv_screen.screen_gate(
+                    g_max, mod_ok, dis, l, sign_ok, screen_z)
+            else:
+                gate, suspect, suspicion = adv_screen.screen_gate(
+                    qg.g_max, mod_ok, z_thresh=screen_z)
+            w = w * gate             # a zero-weight row is a no-op
+        extras['suspect'] = suspect
+        extras['suspicion'] = suspicion
+    gbar = gbar.to(torch.float32)
+    if wire == 'packed':
         acc, votes = kops.spfl_aggregate_packed(
             wire_packets.sign_payload(sign_words),
             wire_packets.mod_payload(mod_words), gbar, g_min, g_max, mod_ok,
             w, sign_ok, l, bits)
-        ghat = true_div(acc, float(K))
         if votes is not None:
             extras['sign_votes'] = votes
     else:
@@ -229,7 +318,8 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
         gbar_k = gbar.expand(grads.shape) if gbar.dim() == 1 else gbar
         modulus = torch.where(mod_ok[:, None], modulus, gbar_k)
         signed = qg.sign.to(torch.float32) * modulus
-        ghat = true_div(_seq_client_sum(w[:, None] * signed), float(K))
+        acc = _seq_client_sum(w[:, None] * signed)
+    ghat = _client_mean(acc, K, active, suspect)
     payload = torch.as_tensor(payload, dtype=torch.float32,
                               device=grads.device)
     return ghat, RoundTelemetry(sign_ok, mod_ok, sign_ok, payload, retx,

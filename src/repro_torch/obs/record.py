@@ -5,7 +5,8 @@ flat ``spfl`` transport and the host loop fill; same field names).
 The first five fields exist on every round; the trailing ones are filled
 by the paths that measure them (``channel='bitlevel'`` for the CRC state,
 the packed wire for votes, the training loop's :meth:`with_allocation`
-for the allocation state) and stay ``None`` elsewhere.
+for the allocation state, ``spfl_aggregate``'s ``active`` and ``screen``
+for the adversarial fields) and stay ``None`` elsewhere.
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ class RoundTelemetry(NamedTuple):
     alloc_iters: Optional[int] = None      # solver outer iterations
     alloc_exit_reason: Optional[int] = None  # 0 converged, 1 cap,
     #   2 non-finite, 3 uniform fallback
+    active: Optional[Tensor] = None        # (K,) bool — not dropped this
+    #   round (the straggler process; None = everyone)
+    suspect: Optional[Tensor] = None       # (K,) bool — screened out (its
+    #   weight gated to 0)
+    suspicion: Optional[Tensor] = None     # (K,) f32 — the robust-z score
+    #   behind the verdict
 
     def with_allocation(self, q, p, objective=None, round_idx=None,
                         iters=None, exit_reason=None) -> 'RoundTelemetry':

@@ -22,6 +22,12 @@ Per round n:
   4. SGD update w <- w - eta ghat, and the compensation state rolls
      (``core.compensation``).
 
+The adversarial knobs (``adversary``): ``attack`` in {signflip, scaled,
+labelflip} with a byzantine fraction ``attack_frac``, ``screen`` (the
+packed-domain defense) and ``dropout_rate > 0`` (the Gilbert straggler
+chain, ``straggler_stickiness``) reach spfl/spfl_retx; labelflip poisons
+the byzantine rows' labels at set-up for every transport.
+
 The CNN runs in full float32: constructing a simulator sets
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), since
@@ -33,7 +39,11 @@ the geometry, the initial weights, the bit-channel seed words, the
 Bernoulli and packet-fate uniforms and scheduling's Rayleigh draws, and
 one on the host, seeded anew by every ``run`` from the seed plus
 ``FADING_SEED_OFFSET``, for the standard normals of the fading
-trajectory.  The draws differ from the reference's ``jax.random``
+trajectory; and, only when their knobs are on, one seeded with the
+seed plus ``adversary.BYZ_FOLD`` for the byzantine permutation (at
+set-up) and one with the seed plus ``adversary.STRAGGLER_FOLD`` for the K
+uniforms of each round's straggler step (taken before the gradients).
+The draws differ from the reference's ``jax.random``
 streams, so whole-run agreement with the reference is statistical; one
 round given the same draws (and gains) agrees exactly
 (``tests/test_torch_slice.py``, ``tests/test_torch_slice_fading.py``).
@@ -51,6 +61,7 @@ import torch
 from torch.func import functional_call, grad_and_value, vmap
 from torch.profiler import record_function
 
+from repro_torch import adversary
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import allocation as alloc
 from repro_torch.core import allocation_jax as alloc_jax
@@ -63,10 +74,6 @@ from repro_torch.obs.record import RoundTelemetry, sign_agreement
 
 # knobs the port does not run yet -> the ROADMAP.md item that brings them
 _NOT_YET = (
-    (lambda fl: fl.attack != 'none' or fl.screen,
-     'attack/screen are ROADMAP Queue 1 item 8'),
-    (lambda fl: fl.dropout_rate > 0.0,
-     'dropout_rate > 0 (stragglers) is ROADMAP Queue 1 item 8'),
     (lambda fl: fl.population_n > 0,
      'population_n > 0 is ROADMAP Queue 1 item 9'),
     (lambda fl: fl.telemetry_path is not None,
@@ -93,6 +100,8 @@ def check_supported(fl: FLConfig) -> None:
             raise NotImplementedError(message.format(fl=fl))
     if fl.transport not in transport.KINDS:
         raise ValueError(f'transport must be one of {transport.KINDS}')
+    if fl.attack not in adversary.ATTACK_KINDS:
+        raise ValueError(f'attack must be one of {adversary.ATTACK_KINDS}')
     if fl.allocation_backend not in ALLOCATION_BACKENDS:
         raise ValueError(f'allocation_backend must be one of '
                          f'{ALLOCATION_BACKENDS}')
@@ -126,6 +135,11 @@ class FLHistory:
     alloc_iters: List[float] = field(default_factory=list)
     alloc_exit_reason: List[float] = field(default_factory=list)
     retransmissions: List[float] = field(default_factory=list)
+    # the adversarial knobs: the fraction of clients active (appended
+    # when dropout_rate > 0) and screened out (when screen); NaN on a
+    # round whose transport reports neither (the baselines)
+    participation_frac: List[float] = field(default_factory=list)
+    suspect_frac: List[float] = field(default_factory=list)
     # host time of step 2: on allocation_backend='numpy' the whole
     # eq. (28) solve; on 'jax' only the cost of queueing it (the solve
     # runs on the card behind the gradients)
@@ -180,6 +194,24 @@ class FLSimulator:
         self.client_x = to_nchw(client_x)                  # (K, B, 3, 32, 32)
         self.client_y = torch.as_tensor(np.asarray(client_y, np.int64),
                                         device=self.device)
+        # adversarial cohort: membership fixed at set-up by a permutation
+        # from its own host generator; labelflip poisons the byzantine
+        # rows' labels here too
+        self.byz_mask = None
+        if fl.attack != 'none':
+            perm = torch.randperm(self.K, generator=torch.Generator()
+                                  .manual_seed(seed + adversary.BYZ_FOLD))
+            self.byz_mask = adversary.byzantine_mask(
+                self.K, fl.attack_frac, perm).to(self.device)
+        if fl.attack == 'labelflip':
+            n_classes = int(np.max(np.asarray(client_y))) + 1
+            self.client_y = adversary.flip_labels(self.client_y,
+                                                  self.byz_mask, n_classes)
+        # the straggler chain (True = active), stepped once a round on K
+        # uniforms from its own host generator (dropout_rate > 0 only)
+        self.straggler = adversary.straggler_init(self.K, self.device)
+        self.straggler_gen = torch.Generator().manual_seed(
+            seed + adversary.STRAGGLER_FOLD)
         self.test_x = to_nchw(test_x)
         self.test_y = torch.as_tensor(np.asarray(test_y, np.int64),
                                       device=self.device)
@@ -367,14 +399,31 @@ class FLSimulator:
                 int(sol.info.get('iters_used', 0)),
                 int(sol.info.get('exit_reason', 0)), alloc_t)
 
-    def _transport(self, grads, q, p, draws):
-        """Step 3: the configured transport -> (ghat, telemetry)."""
+    def step_stragglers(self, u: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """One step of the straggler chain on the (K,) f32 uniforms ``u``
+        (default: K fresh ones from ``straggler_gen``) -> this round's
+        (K,) bool active mask."""
+        fl = self.fl
+        if u is None:
+            u = torch.rand((self.K,), generator=self.straggler_gen)
+        self.straggler, active = adversary.straggler_step(
+            u.to(self.device), self.straggler, fl.dropout_rate,
+            fl.straggler_stickiness)
+        return active
+
+    def _transport(self, grads, q, p, draws, active=None):
+        """Step 3: the configured transport -> (ghat, telemetry).  The
+        adversarial knobs reach spfl/spfl_retx only."""
         fl, kind = self.fl, self.fl.transport
         if kind in ALLOCATING:
             return transport.spfl_aggregate(
                 grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
                 n_retx=1 if kind == 'spfl_retx' else 0, wire=fl.wire,
                 round_idx=self._round, channel=fl.channel,
+                attack=fl.attack, byz_mask=self.byz_mask,
+                attack_scale=fl.attack_scale, active=active,
+                screen=fl.screen, screen_z=fl.screen_z,
                 min_participation=fl.min_participation)
         if kind == 'dds':
             return transport.dds_aggregate(grads, self.beta_uniform,
@@ -403,15 +452,21 @@ class FLSimulator:
                                                   generator=gen)
 
     def round_step(self, draws: Optional[transport.Draws] = None,
-                   n: Optional[int] = None, gains=None) -> RoundResult:
+                   n: Optional[int] = None, gains=None,
+                   straggler_u: Optional[torch.Tensor] = None
+                   ) -> RoundResult:
         """One round of Algorithm 2; ``draws`` default to fresh ones from
         the simulator's generators.  ``n`` is the index within the
         current ``run`` (the seeded-random compensation keys on it).
         ``gains`` (K,) replace the static gains in this round's solve:
         float64 on the device for the 'jax' backend (a host array is
-        copied there), a host array for 'numpy'."""
+        copied there), a host array for 'numpy'.  Under dropout_rate > 0
+        the straggler chain steps first, on ``straggler_u`` (K,) if
+        given."""
         fl = self.fl
         n = self._round if n is None else n
+        active = (self.step_stragglers(straggler_u)
+                  if fl.dropout_rate > 0.0 else None)
         with record_function('round/gradients'):
             losses, grads = self.client_grads(self.params)
         if fl.transport in ALLOCATING:
@@ -424,7 +479,7 @@ class FLSimulator:
             alloc_t = 0.0
         with record_function('round/transport'):
             draws = self.draw() if draws is None else draws
-            ghat, rec = self._transport(grads, q, p, draws)
+            ghat, rec = self._transport(grads, q, p, draws, active)
         with record_function('round/update'):
             self.params = self.params - fl.learning_rate * ghat
             self._roll_compensation(ghat, grads, n)
@@ -483,6 +538,10 @@ class FLSimulator:
             hist.p_mean.append(float(np.mean(rec.p)))
             hist.alloc_iters.append(_nan_if_none(rec.alloc_iters))
             hist.alloc_exit_reason.append(_nan_if_none(rec.alloc_exit_reason))
+            if fl.dropout_rate > 0.0:
+                hist.participation_frac.append(_mean_or_nan(rec.active))
+            if fl.screen:
+                hist.suspect_frac.append(_mean_or_nan(rec.suspect))
             if n % eval_every == 0 or n == n_rounds - 1:
                 prev_loss = float(res.losses.mean())
                 with record_function('round/evaluation'):
@@ -501,6 +560,12 @@ def _nan_if_none(x) -> float:
     """A telemetry scalar as a float (NaN where the round had none, as
     the reference's rows)."""
     return math.nan if x is None else float(x)
+
+
+def _mean_or_nan(x) -> float:
+    """The mean of a host bool vector as a float (NaN where the round's
+    transport did not report it)."""
+    return math.nan if x is None else float(np.mean(x))
 
 
 # ---------------------------------------------------------------------------

@@ -116,7 +116,6 @@ def test_simulator_runs_on_cpu_with_measured_payload():
 
 @pytest.mark.parametrize('kw', [
     dict(allocation_backend='jax', population_n=1000),
-    dict(attack='signflip'), dict(screen=True), dict(dropout_rate=0.1),
     dict(population_n=1000), dict(round_fusion='scan'),
     dict(collective='sharded'), dict(telemetry_path='t.jsonl')])
 def test_unsupported_knobs_raise(kw):
