@@ -94,7 +94,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the unscreened round), labelflip (2 rounds; the flipped rows are the
    mask's), and the cost of screening under ``torch.profiler``
    (``screen_cost``: the ``round/screen`` span and the device operations
-   it adds).
+   it adds);
+9. population cohorts and the telemetry ring (``run_population``), each
+   run ``FLConfig(wire='packed', channel='bitlevel',
+   allocation_backend='jax', population_n=..., cohort_size=20,
+   population_shards=64)`` at full width (``POP_RUNS``) with the
+   counters reset just before and read just after: pop-uniform (N =
+   10^6, uniform sampler, per-round shadowing, ``telemetry_path`` set; 5
+   rounds, rounds 0-2 the pinned ``POP_UNIFORM_IDS``), pop-availability
+   (N = 10^6; 3 rounds) and pop-ragged (N = K = 20, absent rows; 3
+   rounds): main-jax's launches exactly, distinct ids in [0, N),
+   ``participation_frac``, each solve timed alone with its trips and
+   spine status, one round on the card against the CPU bit for bit
+   (``check_population_round``), the ``round/cohort`` span under
+   ``torch.profiler`` (``round_split``); for pop-uniform the JSONL
+   against the history (``check_telemetry``) and the cohort draw through
+   (q, p) and a ring push under sync debug mode 'error'
+   (``check_population_no_sync``).
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -2395,8 +2411,8 @@ def keep_device_problems(sim, kept: list) -> None:
     simulator (its allocate_on_device, wrapped)."""
     allocate = sim.allocate_on_device
 
-    def wrapped(grads, gbar, gains=None):
-        sol, stats = allocate(grads, gbar, gains)
+    def wrapped(grads, gbar, gains=None, *p_w):
+        sol, stats = allocate(grads, gbar, gains, *p_w)
         kept.append(stats)
         return sol, stats
 
@@ -2504,9 +2520,14 @@ def check_no_sync(sim, label: str = 'main-jax', gains=None) -> None:
           "card (sync debug mode 'error')", flush=True)
 
 
-def round_split(sim, tries: int = 3) -> dict:
+ROUND_SPANS = ('round/gradients', 'round/stats', 'round/solve',
+               'round/transport', 'round/update', 'round/evaluation')
+
+
+def round_split(sim, tries: int = 3, label: str = 'main-jax',
+                spans=ROUND_SPANS) -> dict:
     """One more round of ``sim`` (and its evaluation) under
-    ``torch.profiler``: for each of its spans (``round/...`` in
+    ``torch.profiler``: for each of its ``spans`` (``round/...`` in
     ``training.fl_loop``) the host ms and the device ms (the profiler's
     device-side span of the annotation: from the first to the end of the
     last device operation launched in it), the device's busy ms (the sum
@@ -2541,11 +2562,10 @@ def round_split(sim, tries: int = 3) -> dict:
         busy = sum(ops.values())
         if busy > 0.0:
             break
-    print(f'main-jax round split (torch.profiler, one round): wall '
+    print(f'{label} round split (torch.profiler, one round): wall '
           f'{wall:.3f} ms, device busy {busy:.3f} ms (idle share '
           f'{1 - busy / wall:.4f})', flush=True)
-    for name in ('round/gradients', 'round/stats', 'round/solve',
-                 'round/transport', 'round/update', 'round/evaluation'):
+    for name in spans:
         print(f'  {name}: host {host.get(name, 0.0):.3f} ms, device '
               f'{device.get(name, 0.0):.3f} ms', flush=True)
     print(f'  device operations, most time first: '
@@ -3121,6 +3141,221 @@ def run_adversary(main_sim, main_jax, jax_times) -> dict:
     return {'times': times, 'cost': cost}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: population cohorts and the telemetry ring
+# ---------------------------------------------------------------------------
+
+# rounds 0-2's cohort ids of seed 0, N = 10^6, K = 20, uniform sampler:
+# the reference's round-key chain (tests/test_torch_population.py pins
+# them to repro.population.sample_cohort)
+POP_UNIFORM_IDS = (
+    [94950, 387061, 830397, 302548, 109883, 395597, 29134, 509173, 790854,
+     1563, 208606, 655196, 209918, 43836, 126708, 533612, 627030, 648454,
+     192717, 539654],
+    [446703, 741483, 149716, 554167, 64939, 87676, 423135, 621059, 554093,
+     652032, 95198, 198103, 391446, 773209, 605999, 69867, 307927, 728881,
+     582594, 737683],
+    [367924, 847855, 893816, 64298, 992820, 184554, 177273, 902357, 359666,
+     723776, 858771, 613564, 447479, 135749, 647170, 563512, 563283, 261761,
+     277545, 733544],
+)
+
+
+POP_BASE = dict(wire='packed', channel='bitlevel', allocation_backend='jax',
+                population_n=10 ** 6, cohort_size=K, population_shards=64)
+# label, knobs, rounds: N = 10^6 uniform (per-round shadowing, telemetry
+# on), N = 10^6 availability, and N = K availability, whose 20 candidates
+# at a mean availability of 0.65 leave ~7 rows a round absent (ragged)
+POP_RUNS = (
+    ('pop-uniform', dict(cohort_sampler='uniform',
+                         allocation_cadence='per_round'), 5),
+    ('pop-availability', dict(cohort_sampler='availability'), 3),
+    ('pop-ragged', dict(cohort_sampler='availability', population_n=K), 3),
+)
+
+
+def population_round(sim, dev, grads, q, p, draws, active) -> dict:
+    """One packed, bit-level round of ``sim``'s cohort on ``dev``: the
+    framed words, the received words and CRC verdicts, and the whole
+    transport (``spfl_aggregate`` with the cohort's ``active``) -> host
+    tensors."""
+    from repro_torch.core import bitchannel, transport
+    fl = sim.fl
+    g, q, p, d = grads.to(dev), q.to(dev), p.to(dev), draws_to(draws, dev)
+    active = None if active is None else active.to(dev)
+    n = g.shape[1]
+    sw, mw, _ = transport.encode_wire(g, d.rand, BITS, 0)
+    rep = bitchannel.transmit_uplink(sw, mw, q, p, n=n, bits=BITS,
+                                     sign_seeds=d.sign_seeds,
+                                     mod_seeds=d.mod_seeds)
+    ghat, rec = transport.spfl_aggregate(
+        g, sim.gbar.to(dev), q, p, BITS, fl.b0_bits, d, wire=fl.wire,
+        channel=fl.channel, active=active)
+    out = {'sign words': sw, 'mod words': mw,
+           'received sign words': rep.sign_words,
+           'received mod words': rep.mod_words, 'sign CRC': rep.sign_crc_ok,
+           'mod CRC': rep.mod_crc_ok, 'sign_ok': rec.sign_ok,
+           'mod_ok': rec.mod_ok, 'ghat': ghat}
+    if rec.active is not None:
+        out['active'] = rec.active
+    if rec.sign_votes is not None:
+        out['sign votes'] = rec.sign_votes
+    return {name: t.cpu() for name, t in out.items()}
+
+
+def check_population_round(label: str, sim) -> None:
+    """The next cohort of ``sim``'s key chain, one round on the card
+    against the same round through the plain versions on the CPU, with
+    the same cohort, gains, gradients, (q, p) and draws: the one copy
+    carries the host draw exactly; every word, CRC verdict, ``active``
+    and ĝ bit for bit."""
+    import torch
+    draw = sim.draw_cohort()
+    crd = sim.cohort_to_device(draw)
+    carried = (torch.equal(crd.ids.cpu(), draw.cohort.ids)
+               and torch.equal(crd.p_w.cpu(), draw.cohort.p_w.double())
+               and torch.equal(crd.gains.cpu(), draw.gains.double()))
+    if not carried:
+        raise AssertionError(f'{label}: the cohort on the card != the '
+                             'host draw')
+    _, grads = sim.client_grads(sim.params, crd)
+    grads = grads.detach()
+    sol, _ = sim.allocate_on_device(grads, sim.gbar, crd.gains, crd.p_w)
+    q, p = sol.q.to(torch.float32), sol.p.to(torch.float32)
+    draws = sim.draw()
+    gpu = population_round(sim, 'cuda', grads, q, p, draws, crd.present)
+    cpu = population_round(sim, 'cpu', grads, q, p, draws, crd.present)
+    for name, a in gpu.items():
+        if not torch.equal(a, cpu[name]):
+            raise AssertionError(f'{label} {name}: card != CPU')
+    n_words = sum(a.numel() for name, a in gpu.items() if 'words' in name)
+    absent = 0 if crd.present is None else int((~crd.present).sum())
+    print(f'{label} round: card vs CPU plain versions: {n_words} words, '
+          f'CRC verdicts, active ({absent} absent), sign_ok '
+          f'{int(gpu["sign_ok"].sum())} of {K} and ghat bit for bit',
+          flush=True)
+
+
+def check_population_no_sync(sim) -> None:
+    """A population round queues its work without a host synchronization
+    (``torch.cuda.set_sync_debug_mode('error')``): the cohort draw on the
+    host, its one copy to the card, the gather of the cohort's shards,
+    the gradients, the stats, the solve and the casts; then a round's
+    condensed record pushed into a telemetry ring (a non-flush round's
+    only telemetry work)."""
+    import torch
+    from repro_torch.obs import ringbuf
+    res = sim.round_step()
+    ring = ringbuf.ring_init(res.telemetry.condensed(), 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        crd = sim.cohort_to_device(sim.draw_cohort())
+        _, grads = sim.client_grads(sim.params, crd)
+        sol, _ = sim.allocate_on_device(grads, sim.gbar, crd.gains, crd.p_w)
+        sol.q.to(torch.float32), sol.p.to(torch.float32)
+        ringbuf.ring_push(ring, res.telemetry.condensed())
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    print('pop-uniform: from the cohort draw to (q, p), and the ring push, '
+          "nothing waits for the card (sync debug mode 'error')",
+          flush=True)
+
+
+def _same_value(a, b) -> bool:
+    return (a == b) or (a is not None and b is not None
+                        and math.isnan(a) and math.isnan(b))
+
+
+def check_telemetry(path: str, sim, hist, rounds: int) -> None:
+    """The JSONL of a run with ``telemetry_path``: a manifest, one row per
+    round with its cohort ids (the run's records'), then spans and
+    metrics; every row's scalars equal the run's ``FLHistory`` lists."""
+    from repro_torch.obs import record, sink
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    types = [line['type'] for line in lines]
+    want = ['manifest'] + ['round'] * rounds + ['spans', 'metrics']
+    if types != want:
+        raise AssertionError(f'telemetry lines {types}, want {want}')
+    _, rows = sink.read_jsonl(path)
+    for key in record.SCALAR_KEYS:
+        got = [row[key] for row in rows]
+        ref = getattr(hist, key)
+        if not ref:                 # a list the run keeps only when set
+            ref = [math.nan] * rounds
+        if len(got) != len(ref) or not all(
+                _same_value(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f'telemetry {key} {got} != history {ref}')
+    for row, rec in zip(rows, sim.records):
+        if row['cohort_ids'] != rec.cohort_ids.tolist():
+            raise AssertionError('telemetry cohort_ids != the records\'')
+    spans = lines[-2]['spans']
+    print(f'pop-uniform telemetry: {len(lines)} lines (manifest, '
+          f'{rounds} rounds with cohort_ids, spans, metrics), rows = the '
+          f'history; spans {json.dumps(spans)}', flush=True)
+
+
+def run_population(main_jax_times) -> dict:
+    """Phase 9 at full width (``POP_RUNS``, ``build_simulator`` with
+    ``population_shards`` 64 of 500 images, K=20, 3 bits, packed,
+    bit-level, 'jax' backend), each run with the launch counters reset
+    just before and read just after (``run_sim``): exactly main-jax's
+    launches; the cohort ids distinct and in [0, N) (pop-uniform's rounds
+    0-2 the pinned ``POP_UNIFORM_IDS``); ``participation_frac``; each
+    solve timed alone with its trips and whether it kept to the spine;
+    one round on the card against the CPU bit for bit
+    (``check_population_round``); the ``round/cohort`` span under the
+    profiler (``round_split``); pop-uniform with ``telemetry_path`` set
+    (``check_telemetry``, ``check_population_no_sync``).  -> round times
+    and the solves."""
+    import tempfile
+    from repro_torch.configs.base import FLConfig
+    times = {'main-jax': main_jax_times}
+    solves, data = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, knobs, rounds in POP_RUNS:
+            path = f'{tmp}/telemetry.jsonl' if label == 'pop-uniform' else None
+            fl = FLConfig(**{**POP_BASE, **knobs, 'telemetry_path': path})
+            kept = []
+            sim, hist, counts = run_sim(
+                fl, rounds, label, data=data,
+                hook=lambda s: keep_device_problems(s, kept))
+            data = data_of(sim) if data is None else data
+            check_counts(label, counts, honest_counts(rounds))
+            ids = [rec.cohort_ids.tolist() for rec in sim.records]
+            for n, row in enumerate(ids):
+                if len(set(row)) != K or not all(
+                        0 <= i < fl.population_n for i in row):
+                    raise AssertionError(f'{label} round {n}: cohort {row}')
+            print(f'{label}: cohort ids of round 0 {json.dumps(ids[0])}; '
+                  f'participation_frac {json.dumps(hist.participation_frac)}',
+                  flush=True)
+            if label == 'pop-uniform':
+                if ids[:3] != [list(r) for r in POP_UNIFORM_IDS]:
+                    raise AssertionError('pop-uniform: rounds 0-2 are not '
+                                         'the pinned cohorts')
+                print('pop-uniform: rounds 0-2 are the pinned cohorts of the '
+                      "reference's key chain", flush=True)
+                check_telemetry(path, sim, hist, rounds)
+            elif label == 'pop-ragged' and all(
+                    f == 1.0 for f in hist.participation_frac):
+                raise AssertionError('pop-ragged: no absent row in any round')
+            solves[label] = time_device_solves(sim, kept, label)
+            check_population_round(label, sim)
+            round_split(sim, label=label,
+                        spans=('round/cohort',) + ROUND_SPANS)
+            if label == 'pop-uniform':
+                check_population_no_sync(sim)
+            times[label] = hist.round_time_s[1:]
+    print(card_line(), flush=True)
+    for label, ts in times.items():
+        print(f'{label} rounds after round 0: '
+              f'{json.dumps([t * 1e3 for t in ts])} ms', flush=True)
+    return {'times': times, 'solves': solves}
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
     ``r['bytes']`` and does ``r['units']`` units of work of kernel
@@ -3260,6 +3495,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_adversary(sim, sim_j, hist_j.round_time_s[1:])
     print(f'phase 8: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 9. population cohorts and the telemetry ring
+    t0 = time.perf_counter()
+    run_population(hist_j.round_time_s[1:])
+    print(f'phase 9: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))

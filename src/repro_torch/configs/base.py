@@ -10,7 +10,10 @@ spfl/spfl_retx needs the packed wire), every ``compensation``,
 ``allocation_backend`` in {numpy, jax}, ``allocation_cadence`` in
 {static, per_round}, ``attack`` in {none, signflip, scaled, labelflip},
 ``screen``, ``dropout_rate`` with ``straggler_stickiness``,
-``min_participation``, ``round_fusion='none'`` and
+``min_participation``, population cohorts (``population_n > 0``,
+``cohort_size``, ``cohort_sampler``, ``population_shards``,
+``availability_min``), the telemetry sink (``telemetry_path``,
+``telemetry_flush_every``), ``round_fusion='none'`` and
 ``collective='gather'``;
 ``training.fl_loop.FLSimulator`` raises ``NotImplementedError`` on the
 other knobs, naming the ``ROADMAP.md`` item that brings each.

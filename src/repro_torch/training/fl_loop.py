@@ -28,12 +28,35 @@ packed-domain defense) and ``dropout_rate > 0`` (the Gilbert straggler
 chain, ``straggler_stickiness``) reach spfl/spfl_retx; labelflip poisons
 the byzantine rows' labels at set-up for every transport.
 
+Population mode (``population_n > 0``, ``population``): the round's K
+clients are a cohort sampled from N registered devices, and the data
+holds ``population_shards`` shards, device d reading shard d mod S.
+Every round runs ``self.key, kr = threefry.split(self.key)`` from
+``threefry.key(seed)``, as the reference's loop does, and draws the
+cohort (ids, presence, power budgets, byzantine membership, gains) from
+``kr`` and the population key: bit for bit the reference's cohort, round
+for round.  The draw is O(K) bookkeeping with no input from the card:
+it runs on CPU tensors on the host (span ``round/cohort``) and the
+cohort's per-slot arrays reach the card in one copy, as the straggler
+uniforms and the fading trajectory do; the shard images are gathered on
+the card.
+
+Telemetry (``obs``): each round's record, condensed (the vote vector
+reduced to its agreement on the device), is pushed into a device ring
+(``obs.ringbuf``) with device copies only; every
+``telemetry_flush_every`` rounds and after the last the ring comes to
+the host in one copy, and its rows (``obs.record.to_row``) fill the
+``FLHistory`` lists and ``sim.records``, feed ``sim.metrics`` and, with
+``telemetry_path`` set, the JSONL sink (``obs.sink``), which also gets
+the host spans of ``sim.trace`` and the metrics at the end of the run.
+
 The CNN runs in full float32: constructing a simulator sets
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), since
 TF32 convolutions keep about three decimal digits.
 
-Randomness comes from ``torch.Generator``s seeded from the run seed:
+Randomness comes from ``torch.Generator``s seeded from the run seed
+(and, in population mode, from the Threefry keys above):
 one on the device for the (K, l) quantizer uniforms, one on the host for
 the geometry, the initial weights, the bit-channel seed words, the
 Bernoulli and packet-fate uniforms and scheduling's Rayleigh draws, and
@@ -51,7 +74,6 @@ round given the same draws (and gains) agrees exactly
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional
@@ -62,22 +84,24 @@ from torch.func import functional_call, grad_and_value, vmap
 from torch.profiler import record_function
 
 from repro_torch import adversary
+from repro_torch import population as pop
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import allocation as alloc
 from repro_torch.core import allocation_jax as alloc_jax
 from repro_torch.core import channel, compensation, convergence, transport
+from repro_torch.core import threefry
 from repro_torch.core.quantize import expected_quant_mse
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops
 from repro_torch.models.cnn import CNN, cnn_loss, init_params, module_params
-from repro_torch.obs.record import RoundTelemetry, sign_agreement
+from repro_torch.obs import ringbuf as obs_ring
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.record import RoundTelemetry, to_row
+from repro_torch.obs.sink import JsonlSink, run_manifest
+from repro_torch.obs.trace import StageTrace
 
 # knobs the port does not run yet -> the ROADMAP.md item that brings them
 _NOT_YET = (
-    (lambda fl: fl.population_n > 0,
-     'population_n > 0 is ROADMAP Queue 1 item 9'),
-    (lambda fl: fl.telemetry_path is not None,
-     'telemetry_path (the JSONL sink) is ROADMAP Queue 1 item 10'),
     (lambda fl: fl.round_fusion != 'none',
      'round_fusion {fl.round_fusion!r} is ROADMAP Queue 1 item 11'),
     (lambda fl: fl.collective != 'gather',
@@ -94,7 +118,8 @@ FADING_SEED_OFFSET = 0x0FAD
 
 
 def check_supported(fl: FLConfig) -> None:
-    """Raise on configurations the port cannot run (yet)."""
+    """Raise on configurations the port cannot run (yet) or that the
+    reference refuses."""
     for unsupported, message in _NOT_YET:
         if unsupported(fl):
             raise NotImplementedError(message.format(fl=fl))
@@ -118,6 +143,40 @@ def check_supported(fl: FLConfig) -> None:
         # the single-packet baselines keep their buffers analytic and
         # take the bit channel's calibration only
         raise ValueError("channel='bitlevel' requires wire='packed'")
+    if fl.population_n > 0:
+        _check_population(fl)
+
+
+def _check_population(fl: FLConfig) -> None:
+    """The reference's guard rails of population mode, with its
+    messages."""
+    pop.validate(fl)
+    if fl.transport not in ('spfl', 'spfl_retx', 'error_free'):
+        raise ValueError(
+            'population mode is defined for the spfl/spfl_retx/'
+            'error_free transports (the analytic baselines pin '
+            f'static geometry), got {fl.transport!r}')
+    if (fl.cohort_sampler == 'availability'
+            and fl.transport == 'error_free'):
+        raise ValueError(
+            "cohort_sampler='availability' produces ragged "
+            'cohorts, which ride the spfl zero-weight padding — '
+            'the error_free transport has no active mask')
+    if fl.transport in ALLOCATING and fl.allocation_backend != 'jax':
+        raise ValueError(
+            "population mode requires allocation_backend='jax' "
+            'on allocating transports — eq. (28) must re-solve '
+            'per sampled cohort on-device')
+    if fl.compensation == 'last_local':
+        raise ValueError(
+            "compensation='last_local' is undefined under "
+            'partial participation: cohort slots have no stable '
+            'device identity across rounds')
+    if fl.attack == 'labelflip':
+        raise ValueError(
+            "attack='labelflip' is undefined in population mode:"
+            ' data shards are shared across virtual devices, so '
+            'poisoning a shard is not poisoning a device')
 
 
 @dataclass
@@ -164,6 +223,17 @@ class RoundResult(NamedTuple):
     alloc_time_s: float
 
 
+class CohortRound(NamedTuple):
+    """A population round's cohort on the simulator's device."""
+    ids: torch.Tensor             # (K,) int64 global device ids
+    shards: torch.Tensor          # (K,) int64 data shard of each id
+    present: Optional[torch.Tensor]  # (K,) bool arrivals (availability
+    #                               sampler only; None = everyone)
+    p_w: torch.Tensor             # (K,) float64 of the f32 budgets
+    gains: Optional[torch.Tensor]  # (K,) float64 of the f32 gains
+    byzantine: Optional[torch.Tensor]  # (K,) bool (attack != 'none')
+
+
 class FLSimulator:
     """K-device wireless FL over the paper's CNN (host loop)."""
 
@@ -176,11 +246,21 @@ class FLSimulator:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.fl = fl
-        self.K = client_x.shape[0]
-        if self.K != fl.n_devices:
-            raise ValueError(f'{self.K} client datasets for n_devices='
-                             f'{fl.n_devices}')
         seed = fl.seed if seed is None else seed
+        # population mode: client_x holds the S data shards and K is the
+        # cohort width; per-device state comes from the population key
+        self.population = fl.population_n > 0
+        if self.population:
+            self.K = pop.cohort_size(fl)
+            self.pop_key = pop.population_key(seed)
+            self.pop_streams = pop.stream_keys(self.pop_key)
+        else:
+            self.K = client_x.shape[0]
+            if self.K != fl.n_devices:
+                raise ValueError(f'{self.K} client datasets for n_devices='
+                                 f'{fl.n_devices}')
+        # the round-key chain of population rounds (the reference's key)
+        self.key = threefry.key(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.host_gen = torch.Generator().manual_seed(seed)
         self.model = CNN().to(self.device)
@@ -196,9 +276,9 @@ class FLSimulator:
                                         device=self.device)
         # adversarial cohort: membership fixed at set-up by a permutation
         # from its own host generator; labelflip poisons the byzantine
-        # rows' labels here too
+        # rows' labels here too (population mode draws it per id)
         self.byz_mask = None
-        if fl.attack != 'none':
+        if fl.attack != 'none' and not self.population:
             perm = torch.randperm(self.K, generator=torch.Generator()
                                   .manual_seed(seed + adversary.BYZ_FOLD))
             self.byz_mask = adversary.byzantine_mask(
@@ -218,10 +298,15 @@ class FLSimulator:
         self.seed = seed
         # host-side eq. (28) solves performed (0 on the 'jax' backend)
         self.host_solver_calls = 0
-        # static wireless geometry (paper: uniform in a 500 m annulus)
-        dist = channel.sample_distances(self.host_gen, self.K,
-                                        fl.cell_radius_m)
-        self.gains = channel.path_gain(dist, fl.path_loss_exp)
+        if self.population:
+            # per-cohort gains and budgets come from the population key;
+            # these placeholders only size the unused static channel
+            self.gains = np.ones(self.K)
+        else:
+            # static wireless geometry (paper: uniform in a 500 m annulus)
+            dist = channel.sample_distances(self.host_gen, self.K,
+                                            fl.cell_radius_m)
+            self.gains = channel.path_gain(dist, fl.path_loss_exp)
         self.p_w = np.full(self.K, fl.tx_power_w)
         # the same gains and budgets in float64 on the device, for the
         # on-device solver; its budgets rounded to float32 first, as the
@@ -247,9 +332,13 @@ class FLSimulator:
         # device (allocation_cadence='per_round'; None before a run)
         self.trajectory: Optional[torch.Tensor] = None
         self._round = 0
-        # host copies of every round's telemetry (votes dropped: the
-        # agreement scalar lands in FLHistory)
+        # host copies of every round's condensed telemetry, filled at
+        # each flush of the ring
         self.records: List[RoundTelemetry] = []
+        # host spans (alloc_solve, update) and the metrics channels fed
+        # from the flushed rows
+        self.trace = StageTrace()
+        self.metrics = MetricsRegistry()
 
         def client_loss(flat, x, y):
             logits = functional_call(self.model, module_params(flat), (x,))
@@ -271,10 +360,15 @@ class FLSimulator:
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return functional_call(self.model, module_params(self.params), (x,))
 
-    def client_grads(self, params: torch.Tensor):
-        """-> (losses (K,), grads (K, l)) at ``params``."""
-        grads, losses = self._client_grads(params, self.client_x,
-                                           self.client_y)
+    def client_grads(self, params: torch.Tensor,
+                     cohort: Optional[CohortRound] = None):
+        """-> (losses (K,), grads (K, l)) at ``params`` on the clients'
+        data, or on ``cohort``'s shards (population mode)."""
+        xs, ys = self.client_x, self.client_y
+        if cohort is not None:
+            xs = xs.index_select(0, cohort.shards)
+            ys = ys.index_select(0, cohort.shards)
+        grads, losses = self._client_grads(params, xs, ys)
         return losses, grads
 
     @torch.no_grad()
@@ -327,15 +421,18 @@ class FLSimulator:
                          grads=grads_np, gbar=gbar_np)
 
     def allocate_on_device(self, grads: torch.Tensor, gbar: torch.Tensor,
-                           gains: Optional[torch.Tensor] = None):
+                           gains: Optional[torch.Tensor] = None,
+                           p_w: Optional[torch.Tensor] = None):
         """Steps 3-4 on the device: the per-client scalars reduced in
         float64 where the gradients lie, and one solver call (one kernel
         launch on the card) -> (JaxAllocation, stats).  Nothing is read
         back to the host; the round-0 guard (no compensation history) is
-        the solver's gate, max(gb2) > 0.  ``gains`` (K,) float64 on the
-        device default to the static geometry's."""
+        the solver's gate, max(gb2) > 0.  ``gains`` and ``p_w`` (K,)
+        float64 on the device default to the static geometry's and the
+        float32-rounded budgets."""
         fl = self.fl
         gains = self.gains_dev if gains is None else gains
+        p_w = self.p_w_dev if p_w is None else p_w
         with record_function('round/stats'):
             g64 = grads.detach().to(torch.float64)
             gb = gbar if gbar.dim() == 2 else gbar.expand(grads.shape)
@@ -346,7 +443,7 @@ class FLSimulator:
             d2 = expected_quant_mse(grads.detach(), fl.quant_bits,
                                     dim=1).to(torch.float64)
             prob = alloc_jax.problem_from_stats(g2, gb2, v, d2, gains,
-                                                self.p_w_dev, self.dim, fl)
+                                                p_w, self.dim, fl)
         method = fl.allocator
         with record_function('round/solve'):
             gate = None if method == 'uniform' else torch.amax(gb2)
@@ -375,7 +472,7 @@ class FLSimulator:
         return channel.block_fading_trajectory(
             eps, torch.as_tensor(self.gains, dtype=torch.float32))
 
-    def _solve(self, grads: torch.Tensor, gains):
+    def _solve(self, grads: torch.Tensor, gains, p_w=None):
         """Step 2 of an allocating transport -> (sol, stats, q, p,
         objective, iters, exit_reason, host seconds)."""
         fl = self.fl
@@ -384,7 +481,11 @@ class FLSimulator:
             if gains is not None:
                 gains = torch.as_tensor(gains, dtype=torch.float64,
                                         device=self.device)
-            sol, stats = self.allocate_on_device(grads, self.gbar, gains)
+            # a cohort's budgets only where there is one (wrappers of
+            # allocate_on_device take its first three arguments)
+            extra = () if p_w is None else (p_w,)
+            sol, stats = self.allocate_on_device(grads, self.gbar, gains,
+                                                 *extra)
             alloc_t = time.perf_counter() - ta
             return (sol, stats, sol.q.to(torch.float32),
                     sol.p.to(torch.float32), sol.objective, sol.iters,
@@ -393,11 +494,52 @@ class FLSimulator:
             gains = gains.cpu().numpy()
         sol, stats = self.allocate(grads, self.gbar, gains)
         alloc_t = time.perf_counter() - ta
+        objs = sol.info.get('objectives', [])
+        if len(objs) >= 2:
+            self.metrics.observe_alloc(outer_residual=abs(objs[-1]
+                                                          - objs[-2]))
         q = torch.as_tensor(sol.q, dtype=torch.float32, device=self.device)
         p = torch.as_tensor(sol.p, dtype=torch.float32, device=self.device)
         return (sol, stats, q, p, sol.objective,
                 int(sol.info.get('iters_used', 0)),
                 int(sol.info.get('exit_reason', 0)), alloc_t)
+
+    def draw_cohort(self, round_key: Optional[torch.Tensor] = None
+                    ) -> pop.CohortDraw:
+        """Population mode: the cohort of round key ``round_key`` (default:
+        the next key of the chain, ``self.key, kr = split(self.key)``), its
+        gains at this round (shadowed under ``allocation_cadence=
+        'per_round'``) and, under an attack, its byzantine membership —
+        CPU tensors (``population.draw_cohort``)."""
+        fl = self.fl
+        if round_key is None:
+            self.key, round_key = threefry.split(self.key)
+        return pop.draw_cohort(
+            round_key, self.pop_streams, fl, self._round,
+            gains=fl.transport in ALLOCATING,
+            shadowing=fl.allocation_cadence == 'per_round',
+            byzantine=fl.attack != 'none')
+
+    def cohort_to_device(self, draw: pop.CohortDraw) -> CohortRound:
+        """A host cohort draw on the simulator's device, in one copy: its
+        per-slot arrays stacked as float64 columns (ids < 2^32 and the
+        float32 budgets and gains are exact there), then split on the
+        device."""
+        fl, c = self.fl, draw.cohort
+        n_shards = self.client_x.shape[0]
+        cols = [c.ids, pop.shard_ids(c.ids, n_shards), c.present, c.p_w]
+        if draw.gains is not None:
+            cols.append(draw.gains)
+        if draw.byzantine is not None:
+            cols.append(draw.byzantine)
+        packed = torch.stack([col.to(torch.float64) for col in cols], dim=1)
+        dev = packed.to(self.device, non_blocking=True).unbind(1)
+        gains = dev[4] if draw.gains is not None else None
+        byz = dev[-1] > 0.0 if draw.byzantine is not None else None
+        present = (dev[2] > 0.0 if fl.cohort_sampler == 'availability'
+                   else None)
+        return CohortRound(dev[0].to(torch.int64), dev[1].to(torch.int64),
+                           present, dev[3], gains, byz)
 
     def step_stragglers(self, u: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -412,16 +554,18 @@ class FLSimulator:
             fl.straggler_stickiness)
         return active
 
-    def _transport(self, grads, q, p, draws, active=None):
+    def _transport(self, grads, q, p, draws, active=None, byz_mask=None):
         """Step 3: the configured transport -> (ghat, telemetry).  The
-        adversarial knobs reach spfl/spfl_retx only."""
+        adversarial knobs reach spfl/spfl_retx only; ``byz_mask`` (the
+        cohort's, in population mode) replaces the run-static mask."""
         fl, kind = self.fl, self.fl.transport
         if kind in ALLOCATING:
             return transport.spfl_aggregate(
                 grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
                 n_retx=1 if kind == 'spfl_retx' else 0, wire=fl.wire,
                 round_idx=self._round, channel=fl.channel,
-                attack=fl.attack, byz_mask=self.byz_mask,
+                attack=fl.attack,
+                byz_mask=self.byz_mask if byz_mask is None else byz_mask,
                 attack_scale=fl.attack_scale, active=active,
                 screen=fl.screen, screen_z=fl.screen_z,
                 min_participation=fl.min_participation)
@@ -453,7 +597,8 @@ class FLSimulator:
 
     def round_step(self, draws: Optional[transport.Draws] = None,
                    n: Optional[int] = None, gains=None,
-                   straggler_u: Optional[torch.Tensor] = None
+                   straggler_u: Optional[torch.Tensor] = None,
+                   cohort: Optional[pop.CohortDraw] = None
                    ) -> RoundResult:
         """One round of Algorithm 2; ``draws`` default to fresh ones from
         the simulator's generators.  ``n`` is the index within the
@@ -462,30 +607,46 @@ class FLSimulator:
         float64 on the device for the 'jax' backend (a host array is
         copied there), a host array for 'numpy'.  Under dropout_rate > 0
         the straggler chain steps first, on ``straggler_u`` (K,) if
-        given."""
+        given.  In population mode the round's cohort is ``cohort`` (a
+        host ``population.CohortDraw``) or the next of the key chain
+        (``draw_cohort``), drawn before the gradients."""
         fl = self.fl
         n = self._round if n is None else n
+        crd = None
+        if self.population:
+            with record_function('round/cohort'):
+                crd = self.cohort_to_device(
+                    self.draw_cohort() if cohort is None else cohort)
+            gains = crd.gains
         active = (self.step_stragglers(straggler_u)
                   if fl.dropout_rate > 0.0 else None)
+        if crd is not None:
+            active = pop.combine_active(crd.present, active)
         with record_function('round/gradients'):
-            losses, grads = self.client_grads(self.params)
-        if fl.transport in ALLOCATING:
-            (sol, stats, q, p, objective, iters, reason,
-             alloc_t) = self._solve(grads, gains)
-        else:
-            # no eq. (28) solve: q = p = 1, as the reference's loop
-            sol = stats = objective = iters = reason = None
-            q = p = torch.ones(self.K, device=self.device)
-            alloc_t = 0.0
+            losses, grads = self.client_grads(self.params, crd)
+        with self.trace.span('alloc_solve'):
+            if fl.transport in ALLOCATING:
+                (sol, stats, q, p, objective, iters, reason,
+                 alloc_t) = self._solve(grads, gains,
+                                        None if crd is None else crd.p_w)
+            else:
+                # no eq. (28) solve: q = p = 1, as the reference's loop
+                sol = stats = objective = iters = reason = None
+                q = p = torch.ones(self.K, device=self.device)
+                alloc_t = 0.0
         with record_function('round/transport'):
             draws = self.draw() if draws is None else draws
-            ghat, rec = self._transport(grads, q, p, draws, active)
-        with record_function('round/update'):
+            ghat, rec = self._transport(
+                grads, q, p, draws, active,
+                None if crd is None else crd.byzantine)
+        with self.trace.span('update'), record_function('round/update'):
             self.params = self.params - fl.learning_rate * ghat
             self._roll_compensation(ghat, grads, n)
         rec = rec.with_allocation(q, p, objective=objective,
                                   round_idx=self._round, iters=iters,
                                   exit_reason=reason)
+        if crd is not None:
+            rec = rec._replace(cohort_ids=crd.ids)
         self._round += 1
         return RoundResult(losses, grads, ghat, rec, sol, stats, alloc_t)
 
@@ -500,12 +661,49 @@ class FLSimulator:
             raise ValueError("compute_bound=True requires "
                              "allocation_backend='numpy'")
         traj_host = None
-        if fl.allocation_cadence == 'per_round' and fl.transport in ALLOCATING:
+        if (fl.allocation_cadence == 'per_round' and fl.transport in
+                ALLOCATING and not self.population):
+            # population mode keys each device's shadowing by (id, round)
             traj = self.fading_trajectory(n_rounds).to(torch.float64)
             self.trajectory = traj.to(self.device)
             traj_host = traj.numpy()
+        # telemetry: a device ring, flushed every telemetry_flush_every
+        # rounds and after the last
+        flush_every = max(1, fl.telemetry_flush_every)
+        ring = None
+        sink = (JsonlSink(fl.telemetry_path,
+                          run_manifest(fl, extra={'driver': 'fl_loop'},
+                                       device=self.device))
+                if fl.telemetry_path else None)
         packed_agreement = (fl.wire == 'packed' and fl.transport in
                             ('spfl', 'spfl_retx', 'error_free'))
+        participation = fl.dropout_rate > 0.0 or (
+            self.population and fl.cohort_sampler == 'availability')
+
+        def flush_telemetry():
+            recs, _ = obs_ring.flush(ring)          # one device->host copy
+            for rec in recs:
+                self.records.append(rec)
+                row = to_row(rec)
+                hist.payload_bits.append(row['payload_bits'])
+                hist.retransmissions.append(row['retransmissions'])
+                hist.sign_ok_frac.append(row['sign_ok_frac'])
+                hist.mod_ok_frac.append(row['mod_ok_frac'])
+                hist.q_mean.append(row['q_mean'])
+                hist.p_mean.append(row['p_mean'])
+                if packed_agreement:
+                    hist.sign_agreement.append(row['sign_agreement'])
+                hist.alloc_iters.append(row['alloc_iters'])
+                hist.alloc_exit_reason.append(row['alloc_exit_reason'])
+                if participation:
+                    hist.participation_frac.append(
+                        row['participation_frac'])
+                if fl.screen:
+                    hist.suspect_frac.append(row['suspect_frac'])
+                self.metrics.observe_round(row)
+                if sink is not None:
+                    sink.write_round(row)
+
         for n in range(n_rounds):
             t0 = time.perf_counter()
             if traj_host is None:
@@ -524,24 +722,10 @@ class FLSimulator:
                 hist.bound.append(float(convergence.one_step_bound(
                     fl.learning_rate, self.K, inp['g_global2'], inp['gb2'],
                     inp['g2'], inp['e2'], inp['v'], gsum)))
-            rec = res.telemetry.to_host()
-            if packed_agreement:
-                hist.sign_agreement.append(
-                    sign_agreement(rec.sign_votes, rec.sign_ok))
-            rec = rec._replace(sign_votes=None)
-            self.records.append(rec)
-            hist.payload_bits.append(float(rec.payload_bits))
-            hist.retransmissions.append(float(rec.retransmissions))
-            hist.sign_ok_frac.append(float(np.mean(rec.sign_ok)))
-            hist.mod_ok_frac.append(float(np.mean(rec.mod_ok)))
-            hist.q_mean.append(float(np.mean(rec.q)))
-            hist.p_mean.append(float(np.mean(rec.p)))
-            hist.alloc_iters.append(_nan_if_none(rec.alloc_iters))
-            hist.alloc_exit_reason.append(_nan_if_none(rec.alloc_exit_reason))
-            if fl.dropout_rate > 0.0:
-                hist.participation_frac.append(_mean_or_nan(rec.active))
-            if fl.screen:
-                hist.suspect_frac.append(_mean_or_nan(rec.suspect))
+            rec = res.telemetry.condensed()
+            if ring is None:
+                ring = obs_ring.ring_init(rec, flush_every)
+            obs_ring.ring_push(ring, rec)
             if n % eval_every == 0 or n == n_rounds - 1:
                 prev_loss = float(res.losses.mean())
                 with record_function('round/evaluation'):
@@ -549,23 +733,18 @@ class FLSimulator:
                 hist.loss.append(loss)
                 hist.test_acc.append(acc)
                 hist.loss_delta.append(loss - prev_loss)
+            if (n + 1) % flush_every == 0 or n == n_rounds - 1:
+                flush_telemetry()
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             hist.alloc_time_s.append(res.alloc_time_s)
             hist.round_time_s.append(time.perf_counter() - t0)
+        self.metrics.observe_alloc(host_solver_calls=self.host_solver_calls)
+        if sink is not None:
+            sink.write_spans(self.trace.summary())
+            sink.write_metrics(self.metrics.snapshot())
+            sink.close()
         return hist
-
-
-def _nan_if_none(x) -> float:
-    """A telemetry scalar as a float (NaN where the round had none, as
-    the reference's rows)."""
-    return math.nan if x is None else float(x)
-
-
-def _mean_or_nan(x) -> float:
-    """The mean of a host bool vector as a float (NaN where the round's
-    transport did not report it)."""
-    return math.nan if x is None else float(np.mean(x))
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +753,8 @@ def build_simulator(fl: FLConfig, per_device: int = 500,
                     seed: Optional[int] = None,
                     device: DeviceLike = None) -> FLSimulator:
     """Paper §V setup: partitioned (synthetic-)CIFAR + CNN + wireless
-    cell, on the CUDA card unless ``device='cpu'``."""
+    cell (``population_shards`` shards in population mode), on the CUDA
+    card unless ``device='cpu'``."""
     from repro_torch.data import (
         dirichlet_partition, iid_partition, load_image_dataset,
         stack_client_data,
@@ -582,11 +762,14 @@ def build_simulator(fl: FLConfig, per_device: int = 500,
     device = resolve(device)
     seed = fl.seed if seed is None else seed
     (x, y), (tx, ty) = load_image_dataset(seed=seed)
+    # population mode makes S data shards, not N device data sets:
+    # device d reads shard d mod S (population.shard_ids)
+    k = fl.population_shards if fl.population_n > 0 else fl.n_devices
     if iid:
-        parts = iid_partition(y, fl.n_devices, per_device, seed)
+        parts = iid_partition(y, k, per_device, seed)
     else:
-        parts = dirichlet_partition(y, fl.n_devices, per_device,
-                                    fl.dirichlet_alpha, seed)
+        parts = dirichlet_partition(y, k, per_device, fl.dirichlet_alpha,
+                                    seed)
     cx, cy = stack_client_data(x, y, parts)
     return FLSimulator(fl, cx, cy, tx[:n_test], ty[:n_test], seed=seed,
                        device=device)

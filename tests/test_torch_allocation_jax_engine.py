@@ -98,9 +98,11 @@ def test_jax_backend_runs_and_refuses_the_bound():
 def test_check_supported_takes_the_jax_backend():
     fl_loop.check_supported(FLConfig(allocation_backend='jax'))
     assert not any('item 7' in message for _, message in fl_loop._NOT_YET)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        fl_loop.check_supported(FLConfig(allocation_backend='jax',
-                                         population_n=100))
+    # population mode runs on the 'jax' backend only
+    fl_loop.check_supported(FLConfig(allocation_backend='jax',
+                                     population_n=100))
+    with pytest.raises(ValueError, match="allocation_backend='jax'"):
+        fl_loop.check_supported(FLConfig(population_n=100))
     with pytest.raises(NotImplementedError, match='item 11'):
         fl_loop.check_supported(FLConfig(allocation_backend='jax',
                                          round_fusion='scan'))

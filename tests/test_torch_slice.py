@@ -115,9 +115,10 @@ def test_simulator_runs_on_cpu_with_measured_payload():
 
 
 @pytest.mark.parametrize('kw', [
-    dict(allocation_backend='jax', population_n=1000),
-    dict(population_n=1000), dict(round_fusion='scan'),
-    dict(collective='sharded'), dict(telemetry_path='t.jsonl')])
+    dict(allocation_backend='jax', population_n=1000, round_fusion='eager'),
+    dict(round_fusion='eager'), dict(round_fusion='scan'),
+    dict(collective='sharded'),
+    dict(telemetry_path='t.jsonl', collective='sharded')])
 def test_unsupported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         _tiny_simulator(FLConfig(**kw))
