@@ -6,10 +6,11 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. the card: ``nvidia-smi`` name and power limit, CUDA version;
-2. build the eleven hand-written CUDA kernels from ``src/repro_torch/
-   kernels/csrc`` (one ``nvcc`` per source, in parallel), and print what
-   ptxas reports for the solver kernel (registers, stack, spills), which
-   must not spill (``check_spills``);
+2. build the twelve hand-written CUDA kernels from the eleven sources of
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel; the solver's float64 and float32 instantiations share one),
+   and print what ptxas reports for the solver kernel's two functions
+   (registers, stack, spills), which must not spill (``check_spills``);
 3. hold each kernel against its plain PyTorch version on the same card
    tensors, at the main path's shapes (K=20 clients, l=62,006 CNN
    parameters, 3 bits, the framed sign/modulus widths) and at a small
@@ -110,13 +111,47 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``torch.profiler`` (``round_split``); for pop-uniform the JSONL
    against the history (``check_telemetry``) and the cohort draw through
    (q, p) and a ring push under sync debug mode 'error'
-   (``check_population_no_sync``).
+   (``check_population_no_sync``);
+10. fused rounds (``run_fused``): the float32 solver kernel
+   (``alloc_solve_f32``) against its plain version bit for bit and
+   against the float64 kernel within the f32 contract
+   (``check_alloc_f32``); main-jax with ``telemetry_flush_every=4`` for
+   10 rounds (two segments of 4 and a ragged tail of 2) under
+   ``round_fusion`` 'eager' (one captured round, replayed once a round)
+   and 'scan' (a segment's rounds in one CUDA graph) and in the host
+   loop, each with the counters reset just before and read just after;
+   the fused runs go under ``torch.profiler``, whose records give the
+   kernels the card ran, the graphs' replays included (every kernel's
+   exact count: the rounds plus the warm-up round), while the wrappers'
+   counters show what the warm-up and the captures issued; 'scan' =
+   'eager' bit for bit
+   (parameters, ḡ, every record field); the host loop handed the fused
+   round's float32 solve with deterministic cuDNN = 'scan' bit for bit,
+   each of its solves timed alone with its trips; whether repeated
+   gradient passes give the same bits under cuDNN's default and its
+   deterministic algorithms; the host loop with deterministic cuDNN
+   (its round times); the round times of a second run of each
+   dispatch (graphs kept: every segment steady); error_free fused = the
+   host loop's bit for bit; pop-uniform fused for 3 rounds (the pinned
+   cohorts); signflip + screen in the host loop and fused (8 rounds each,
+   the round times); every other knob of the host loop fused for 3
+   rounds (``FUSED_SWEEP``: retx, the Bernoulli channel, the analytic
+   wire, each compensation, per-round fading, the barrier allocator,
+   scaled + screen, dropout with a participation floor and the JSONL
+   sink, labelflip, the baselines); a whole 'scan' segment and an 'eager' replay under sync
+   debug mode 'error' (``Watch``); the device operations of one
+   replayed round beside the host loop's round, and one segment's idle
+   share under ``torch.profiler``; the last round's f32 solve held to
+   its plain version bit for bit (its row in the JSON line, ``launches``
+   the profiler's count of the 'scan' run).
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
 the run of its own path (``path``: 'round' is phase 4's main run, 'alloc'
 its ``allocation_backend='jax'`` run, 'api' phase 6), with every counter
-reset just before that run.  The solver's row times the last main-jax
+reset just before that run; ``alloc_solve_f32``'s is the count of its
+kernel in the card's record of phase 10's 'scan' run (``torch.profiler``:
+the wrappers do not see a graph's replays).  The solver's row times the last main-jax (float32: fused)
 round's solve (``ms`` and ``warm_ms`` are the same measurement: its
 inputs are a few hundred bytes) and its plain version once; its bound
 counts the work of that solve's trip counts.  Its ``bound_ms`` is the
@@ -234,6 +269,12 @@ FUNCTION_OPS = {
         'backtrack': {'fp64': 4, 'alu': 2},
     },
 }
+# its float32 instantiation (the fused rounds' in-round solve): the same
+# operations on the float32 pipe
+FUNCTION_OPS['alloc_solve_f32'] = {
+    unit: {('fp32' if pipe == 'fp64' else pipe): n
+           for pipe, n in mix.items()}
+    for unit, mix in FUNCTION_OPS['alloc_solve'].items()}
 
 
 def kernels_on(path: str) -> list:
@@ -350,16 +391,25 @@ def _copy(t):
 
 def corrupt_fold_args(k: int, w: int, seeds, stream):
     """The C arguments of a corrupt_fold launch over (k, w) words with
-    PRF ``seeds`` and word0 0 on the current stream, as a function of its
-    tensors (words, rx, thresholds, all-flip flags, fold, flips)."""
+    PRF ``seeds`` (the (2,) int32 words on the card) and word0 0 on the
+    current stream, as a function of its tensors (words, rx, thresholds,
+    all-flip flags, fold, flips)."""
     import torch
     from repro_torch.kernels import ops
     acc = ops.corrupt_fold_accumulators(
         k, torch.device('cuda', torch.cuda.current_device()))
     return lambda words, rx, th, af, fold, flips: (
         words.data_ptr(), rx.data_ptr(), th.data_ptr(), af.data_ptr(),
-        acc.data_ptr(), fold.data_ptr(), flips.data_ptr(), k, w, *seeds, 0,
-        stream)
+        acc.data_ptr(), fold.data_ptr(), flips.data_ptr(), k, w,
+        seeds.data_ptr(), 0, stream)
+
+
+def seed_arg(pair, dev):
+    """A PRF seed pair as the imported tree's ``corrupt_fold_words``
+    takes it: the (2,) int32 words on the card, or the two ints where the
+    tree's kernel took them by value (``kernel_ab.py``'s earlier trees)."""
+    from repro_torch.kernels import ops
+    return ops.seed_words(pair, dev) if hasattr(ops, 'seed_words') else pair
 
 
 def launch_mix(per_unit: dict, units: dict) -> dict:
@@ -618,7 +668,7 @@ def check_kernels(k: int, n: int, timed: bool, seed: int):
     sign_words, mod_words = packets.frame_uplink_batch(
         sw, qw, gmin, gmax, n=n, bits=BITS, round_idx=3)
     q = torch.linspace(0.3, 1.0, k, device=dev)
-    seeds = (0x1234ABCD + seed, 0xFEDCBA98)
+    seeds = seed_arg((0x1234ABCD + seed, 0xFEDCBA98), dev)
     received = {}
     fold_err = 0.0
     for name, words, prob in (('sign', sign_words, q),
@@ -887,7 +937,11 @@ def _corrupt_fold_edges(gen) -> int:
     shape = build.constants('corrupt_fold')
     threads = shape['THREADS']
     most = shape['MAX_BLOCKS'] * threads     # past it, a row's blocks loop
-    seeds = (0x0BADF00D, 0x5EED1234)
+    # the seed words at their edges and at random, read from the card
+    pairs = [(0, 0), (0xFFFFFFFF, 0xFFFFFFFF), (0x0BADF00D, 0x5EED1234)]
+    pairs += torch.randint(0, 2 ** 32, (2, 2), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(
+                               int(gen.initial_seed()))).tolist()
     shapes = 0
     for k in (1, K, 33):
         for turn, w in enumerate((1, 7, threads - 1, threads + 1,
@@ -899,7 +953,10 @@ def _corrupt_fold_edges(gen) -> int:
             thresh, allf = wire_corrupt.flip_threshold(ber)
             thresh = fmt.to_words(thresh)
             for word0 in (0, 2 ** 32 - 5):
-                _exact(f'corrupt_fold k={k} w={w} word0={word0}',
+                pair = pairs[(turn + word0) % len(pairs)]
+                seeds = ops.seed_words(pair, words.device)
+                _exact(f'corrupt_fold k={k} w={w} word0={word0} seeds='
+                       f'{pair}',
                        *zip(ops.corrupt_fold_words(seeds, words, ber, word0),
                             ref.corrupt_fold(seeds, words, thresh, allf,
                                              word0)))
@@ -1325,7 +1382,7 @@ def check_stale_outputs(seed: int) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed)
     words = torch.randint(-2 ** 31, 2 ** 31, (K, 5822), generator=gen,
                           device=dev, dtype=torch.int32)
-    seeds = (0x600DCAFE, 0x12345678)
+    seeds = ops.seed_words((0x600DCAFE, 0x12345678), dev)
     ber = torch.rand(K, generator=gen, device=dev) * 0.01
     first = [t.clone() for t in ops.corrupt_fold_words(seeds, words, ber)]
     torch.cuda.synchronize()
@@ -1728,7 +1785,7 @@ def check_corrupt_fold_launches() -> dict:
     dev = torch.device('cuda')
     words = torch.zeros((K, 5822), dtype=torch.int32, device=dev)
     ber = torch.full((K,), 0.01, device=dev)
-    seeds = (1, 2)
+    seeds = ops.seed_words((1, 2), dev)
     ops.corrupt_fold_words(seeds, words, ber)   # warm: accumulators made
     names = device_launches(lambda: ops.corrupt_fold_words(seeds, words,
                                                            ber))
@@ -1974,7 +2031,7 @@ def check_transport(k: int, n: int, seed: int) -> None:
                                  gen, gen)
     out = {}
     for dev in ('cuda', 'cpu'):
-        d = draws._replace(rand=draws.rand.to(dev))
+        d = draws_to(draws, dev)
         ghat, rec = transport.spfl_aggregate(
             grads.to(dev), gbar.to(dev), q.to(dev), p.to(dev), BITS, 64, d,
             n_retx=1, wire='packed', round_idx=7, channel='bitlevel')
@@ -1993,13 +2050,16 @@ def check_transport(k: int, n: int, seed: int) -> None:
 
 
 def run_sim(fl, rounds: int, label: str, hook=None, data=None,
-            expect=None):
+            expect=None, ran=None):
     """``rounds`` rounds of ``build_simulator(fl)`` at full width, with
     every launch counter reset just before and read just after; ``hook``
     (if any) is called with the simulator before the rounds.  ``data``
     (``data_of`` another simulator) skips making the data set again.
     Raises if a kernel of ``expect`` (default: the four round kernels)
-    was never launched."""
+    was never launched.  ``ran`` (a dict): the run goes under
+    ``torch.profiler`` and ``ran`` gets the count of each of the port's
+    kernels in the card's record of it, a CUDA graph's replays included
+    (the wrappers count a captured launch once, where it is issued)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.training.fl_loop import FLSimulator, build_simulator
@@ -2014,16 +2074,34 @@ def run_sim(fl, rounds: int, label: str, hook=None, data=None,
     if hook is not None:
         hook(sim)
     ops.reset_launch_counts()
-    hist = sim.run(rounds)
+    if ran is None:
+        hist = sim.run(rounds)
+    else:
+        out = []
+        names = device_launches(lambda: out.append(sim.run(rounds)),
+                                tries=1)
+        hist = out[0]
+        kinds = op_kinds(names)
+        ran.update({name: kinds.get(name, 0) for name in ops.launch_counts})
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
+    per_round = len(hist.loss) == rounds
     for n in range(rounds):
+        evals = (f'loss {hist.loss[n]:.6f} acc {hist.test_acc[n]:.4f} '
+                 if per_round else '')
         print(f'{label} round {n}: {hist.round_time_s[n] * 1e3:.3f} ms '
               f'(eq. (28) host {hist.alloc_time_s[n] * 1e3:.3f} ms, '
-              f'{fl.allocation_backend} backend) '
-              f'loss {hist.loss[n]:.6f} acc {hist.test_acc[n]:.4f} '
+              f'{fl.allocation_backend} backend) {evals}'
               f'payload_bits {hist.payload_bits[n]:.0f}', flush=True)
     print(f'{label} launches: {json.dumps(counts)}', flush=True)
+    if ran is not None:
+        print(f'{label} kernels the card ran (torch.profiler): '
+              f'{json.dumps(ran)}', flush=True)
+    if len(hist.loss) != rounds:
+        # fused rounds evaluate at segment boundaries
+        print(f'{label} evaluations (one a segment): loss '
+              f'{json.dumps(hist.loss)} acc {json.dumps(hist.test_acc)}',
+              flush=True)
     if not all(math.isfinite(x) for x in hist.loss):
         raise AssertionError(f'{label}: non-finite loss {hist.loss}')
     expect = kernels_on('round') if expect is None else expect
@@ -2182,13 +2260,14 @@ def alloc_units(trips, k: int, n_grid: int = 256) -> dict:
             'backtrack': t['backtrack'] * k}
 
 
-def alloc_bytes(nb: int, k: int, max_iters: int) -> int:
-    """Bytes a solve of nb problems of k clients must move: each input
-    read once (four coefficients, gains, budgets and mask per client,
-    six scalars per problem), each output written once (alpha, beta, q,
-    p per client; objective, iterations, objectives and exit reason per
-    problem)."""
-    return nb * (k * 7 * 8 + 6 * 8 + k * 4 * 8 + 8 + 4 + max_iters * 8 + 4)
+def alloc_bytes(nb: int, k: int, max_iters: int, real: int = 8) -> int:
+    """Bytes a solve of nb problems of k clients must move, in reals of
+    ``real`` bytes (8: float64, 4: float32): each input read once (four
+    coefficients, gains, budgets and mask per client, six scalars per
+    problem), each output written once (alpha, beta, q, p per client;
+    objective, iterations, objectives and exit reason per problem)."""
+    return nb * (k * 7 * real + 6 * real + k * 4 * real + real + 4
+                 + max_iters * real + 4)
 
 
 def alloc_rows(sol, ks) -> list:
@@ -2854,8 +2933,7 @@ def adversary_round(sim, dev, grads, q, p, draws, active=None) -> dict:
     if fl.attack == 'signflip':
         sw = clients.signflip_frames(sw, mask, n)
     rep = bitchannel.transmit_uplink(sw, mw, q, p, n=n, bits=BITS,
-                                     sign_seeds=d.sign_seeds,
-                                     mod_seeds=d.mod_seeds)
+                                     seeds=d.seeds)
     sign_ok, mod_ok = rep.sign_ok, rep.mod_ok
     if active is not None:
         sign_ok, mod_ok = sign_ok & active, mod_ok & active
@@ -3186,8 +3264,7 @@ def population_round(sim, dev, grads, q, p, draws, active) -> dict:
     n = g.shape[1]
     sw, mw, _ = transport.encode_wire(g, d.rand, BITS, 0)
     rep = bitchannel.transmit_uplink(sw, mw, q, p, n=n, bits=BITS,
-                                     sign_seeds=d.sign_seeds,
-                                     mod_seeds=d.mod_seeds)
+                                     seeds=d.seeds)
     ghat, rec = transport.spfl_aggregate(
         g, sim.gbar.to(dev), q, p, BITS, fl.b0_bits, d, wire=fl.wire,
         channel=fl.channel, active=active)
@@ -3356,6 +3433,462 @@ def run_population(main_jax_times) -> dict:
     return {'times': times, 'solves': solves}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: fused rounds (round_fusion 'eager' and 'scan') as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# main-jax in segments of 4 rounds: two whole segments and a ragged tail
+FUSED_BASE = dict(wire='packed', channel='bitlevel', allocation_backend='jax',
+                  telemetry_flush_every=4)
+FUSED_ROUNDS = 10
+# every other knob of the host loop, fused ('scan', 3 rounds in segments
+# of 2 and 1: two captures; retx also 'eager'): label, FLConfig knobs over
+# FUSED_BASE, the kernels the run must launch (None: the round kernels)
+FUSED_SWEEP = (
+    ('retx', dict(transport='spfl_retx', allocator='uniform',
+                  tx_power_dbm=-40.0), None),
+    ('bernoulli', dict(channel='bernoulli'), ['quantize_pack',
+                                              'spfl_accumulate']),
+    ('analytic', dict(wire='analytic', channel='bernoulli'), []),
+    ('last_local', dict(compensation='last_local'), None),
+    ('seeded_random', dict(compensation='seeded_random'), None),
+    ('zeros', dict(compensation='zeros'), None),
+    ('per_round', dict(allocation_cadence='per_round'), None),
+    ('barrier', dict(allocator='barrier', allocation_max_iters=1), None),
+    ('scaled-screen', dict(attack='scaled', screen=True), None),
+    ('dropout', dict(dropout_rate=0.25, min_participation=0.5), None),
+    ('labelflip', dict(attack='labelflip'), None),
+    ('dds', dict(transport='dds'), []),
+    ('onebit', dict(transport='onebit', channel='bernoulli',
+                    wire='analytic'), []),
+    ('scheduling', dict(transport='scheduling'), []),
+    ('error_free-analytic', dict(transport='error_free', wire='analytic'),
+     []),
+)
+# the f32 contract against the float64 solve (tests/test_torch_allocation_
+# jax_f32.py, the reference's "f32 solve_traceable contract")
+F32_CONTRACT = dict(obj_rtol=1e-4, qp_atol=5e-3)
+
+
+def same_solution(got, want, label: str) -> None:
+    """Two JaxAllocations equal bit for bit (NaN where NaN), or raise
+    naming the outputs that differ and by how much."""
+    import torch
+    differ = {}
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if not torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)):
+            differ[f] = float((a.double() - b.double()).abs()
+                              .nan_to_num(0.0).max())
+    if differ:
+        raise AssertionError(f'{label}: not bit for bit: {differ}')
+
+
+def check_alloc_f32(seed: int) -> dict:
+    """The float32 solver kernel (``alloc_solve_f32``) on the card: (i)
+    against its plain version on the same card tensors, bit for bit: the
+    CPU tests' parity grid (K in {4, 8} x 4 powers) and a K=20 problem as
+    one float32 batch, alternating at max_iters=2 with a gate of 0 on
+    every third problem (the round-0 guard: the uniform point) and
+    barrier at max_iters=1; (ii) the alternating solves within the f32
+    contract of the float64 kernel on the same problems (objective rtol
+    1e-4, q/p atol 5e-3).  -> {'plain_s'}."""
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    probs = [alloc_problem(k, p, 10 * k + int(-p)) for k in (4, 8)
+             for p in ALLOC_POWERS] + [alloc_problem(20, -14.0, seed)]
+    ks = [p.n for p in probs]
+    batch = AJ.stack_problems(probs, dtype=torch.float32, device='cuda')
+    gate = torch.ones(len(probs), dtype=torch.float32, device='cuda')
+    gate[::3] = 0.0
+    out = {'plain_s': {}}
+    for method, iters, g in (('alternating', 2, gate),
+                             ('barrier', 1, None)):
+        ops.reset_launch_counts()
+        kern = ops.alloc_solve(batch, method, max_iters=iters, gate=g)
+        torch.cuda.synchronize()
+        if ops.launch_counts['alloc_solve_f32'] != 1:
+            raise AssertionError('a float32 problem did not launch '
+                                 'alloc_solve_f32')
+        t0 = time.perf_counter()
+        plain = AJ.solve_plain(batch, method, max_iters=iters, gate=g)
+        torch.cuda.synchronize()
+        out['plain_s'][method] = time.perf_counter() - t0
+        same_solution(kern, plain, f'alloc_solve_f32 {method}')
+        print(f'alloc_solve_f32 {method}: kernel vs plain (plain '
+              f'{out["plain_s"][method]:.1f} s): {len(ks)} problems bit '
+              'for bit', flush=True)
+    wide = ops.alloc_solve(AJ.stack_problems(probs, device='cuda'),
+                           'alternating', max_iters=2,
+                           gate=gate.double())
+    narrow = ops.alloc_solve(batch, 'alternating', max_iters=2, gate=gate)
+    worst = {}
+    for i, (a, b) in enumerate(zip(alloc_rows(narrow, ks),
+                                   alloc_rows(wide, ks))):
+        obj = float(b['objective'])
+        rel = abs(float(a['objective']) - obj) / max(abs(obj), 1e-30)
+        qp = max(float((a[f].double() - b[f]).abs().max())
+                 for f in ('q', 'p'))
+        worst['obj_rel'] = max(worst.get('obj_rel', 0.0), rel)
+        worst['qp_abs'] = max(worst.get('qp_abs', 0.0), qp)
+        if rel > F32_CONTRACT['obj_rtol'] or qp > F32_CONTRACT['qp_atol']:
+            raise AssertionError(f'alloc_solve_f32 problem {i}: outside the '
+                                 f'f32 contract of the f64 kernel: {rel} '
+                                 f'{qp}')
+    print(f'alloc_solve_f32 vs alloc_solve (float64), alternating: within '
+          f'the f32 contract {json.dumps(F32_CONTRACT)}, worst '
+          f'{json.dumps(worst)}; layout (K=20) '
+          f'{json.dumps(ops.alloc_layout(1, K, "alternating", torch.float32))}'
+          f' (float64 {json.dumps(ops.alloc_layout(1, K))})', flush=True)
+    return out
+
+
+def keep_f32_problems(sim, kept: list) -> None:
+    """Run ``sim``'s host loop with the fused round's float32 solve as its
+    step 2 (``_solve_f32``: the same (q, p) as a fused run's, so its
+    records are the fused run's) and keep each round's float32 problem
+    and stats as ``keep_device_problems`` keeps the float64 ones."""
+    def solve(grads, gains, p_w=None):
+        out = sim._solve_f32(grads, gains, p_w)
+        kept.append({'prob': out[1]['prob'], 'gb2': out[1]['gb2']})
+        return out
+    sim._solve = solve
+
+
+def check_gradient_repeats(sim, passes: int = 6) -> dict:
+    """Whether ``passes`` gradient passes of ``sim`` at the same
+    parameters give the same bits, under cuDNN's default algorithms and
+    under deterministic ones (``sim.deterministic``, which fused rounds
+    need: raises if those differ).  -> {False: bool, True: bool}."""
+    import torch
+    was, out = sim.deterministic, {}
+    try:
+        for det in (False, True):
+            sim.deterministic = det
+            first = sim.client_grads(sim.params)[1].clone()
+            out[det] = all(torch.equal(first,
+                                       sim.client_grads(sim.params)[1])
+                           for _ in range(passes - 1))
+    finally:
+        sim.deterministic = was
+    print(f'{passes} gradient passes at the same parameters bit for bit: '
+          f'default cuDNN {out[False]}, deterministic cuDNN {out[True]}',
+          flush=True)
+    if not out[True]:
+        raise AssertionError('deterministic cuDNN gradients differ')
+    return out
+
+
+def same_runs(a, b, label: str, skip=()) -> None:
+    """Two simulators' parameters, ḡ and every record field bit for bit."""
+    import numpy as np
+    import torch
+    if not (torch.equal(a.params, b.params) and torch.equal(a.gbar, b.gbar)):
+        raise AssertionError(f'{label}: parameters or ḡ differ')
+    if len(a.records) != len(b.records):
+        raise AssertionError(f'{label}: {len(a.records)} != '
+                             f'{len(b.records)} records')
+    for n, (ra, rb) in enumerate(zip(a.records, b.records)):
+        for f in ra._fields:
+            x, y = getattr(ra, f), getattr(rb, f)
+            if f in skip or (x is None and y is None):
+                continue
+            if (x is None) != (y is None) or not np.array_equal(
+                    np.asarray(x), np.asarray(y), equal_nan=True):
+                raise AssertionError(f'{label}: round {n} {f} differs')
+    print(f'{label}: parameters, ḡ and every record field of '
+          f'{len(a.records)} rounds bit for bit', flush=True)
+
+
+def busy_ms(spans) -> float:
+    """The union of (start, end) device intervals (µs) in ms: time the
+    card was busy with at least one operation."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+class Watch:
+    """A simulator's ``segment_guard``: each segment launch under
+    ``torch.cuda.set_sync_debug_mode('error')`` ('sync'), or under
+    ``torch.profiler`` until the card is done ('profile': device
+    operations by name, the ms of each kind, the card's busy ms (the
+    union of their intervals) and the launch's wall ms)."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.launches = []
+
+    def __call__(self):
+        import contextlib
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        @contextlib.contextmanager
+        def guard():
+            if self.mode == 'sync':
+                torch.cuda.set_sync_debug_mode('error')
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+                self.launches.append({})
+                return
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            names, spans, ms = {}, [], {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    names[e.name] = names.get(e.name, 0) + 1
+                    spans.append((e.time_range.start, e.time_range.end))
+                    key = e.name.split('(')[0].split('<')[0][-48:]
+                    ms[key] = ms.get(key, 0.0) + (
+                        e.time_range.end - e.time_range.start) / 1e3
+            top = dict(sorted(ms.items(), key=lambda kv: -kv[1])[:8])
+            self.launches.append({'names': names, 'busy_ms': busy_ms(spans),
+                                  'sum_ms': sum(ms.values()),
+                                  'top_ms': top, 'wall_ms': wall})
+        return guard()
+
+
+def op_kinds(names: dict) -> dict:
+    """Device operations by kind: the port's kernels by name, copies by
+    direction, the rest counted together."""
+    out = {}
+    for name, n in names.items():
+        if 'Memcpy' in name or 'Memset' in name:
+            key = name.split(' (')[0]
+        elif 'alloc_solve_kernel' in name:
+            key = ('alloc_solve_f32' if 'alloc_solve_kernel<float>' in name
+                   else 'alloc_solve')
+        else:
+            key = next((k for k in kernels_on('round')
+                        if f'{k}_kernel' in name), 'other')
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def run_fused(data) -> dict:
+    """Phase 10: fused rounds at full width (K=20, 500 images a client,
+    the paper's CNN, packed, bit-level, 'jax'): the float32 solver kernel
+    (``check_alloc_f32``); main-jax for 2 segments of 4 rounds and a
+    ragged tail of 2 under 'eager', 'scan' and the host loop, each with
+    the counters reset just before and read just after ('scan' = 'eager'
+    bit for bit; the fused runs under ``torch.profiler``: each kernel's
+    count in the card's record is exact, and the wrappers issued what the
+    warm-up and the captures hold); the host loop handed the float32 solve
+    (``keep_f32_problems``, deterministic cuDNN) = 'scan' bit for bit,
+    each of its solves timed alone (``time_device_solves``); gradient
+    passes' bits under both cuDNN modes (``check_gradient_repeats``);
+    the round times of a second run of each dispatch and of the host loop
+    under deterministic cuDNN (the graphs kept: every segment steady); fused
+    error_free = the host loop's (deterministic cuDNN) bit for bit; one
+    population cell (pop-uniform, 3 rounds) fused; a whole 'scan' segment
+    and an 'eager' replay under ``set_sync_debug_mode('error')``; the
+    device operations of one replayed round and one segment's idle share
+    (``torch.profiler``); the last round's f32 solve held to its plain
+    version bit for bit.  -> the row of the f32 solver, the round times
+    and the solves."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import allocation_jax as AJ
+    from repro_torch.kernels import ops
+    alloc = check_alloc_f32(seed=15)
+    fl = FLConfig(**FUSED_BASE)
+    rounds = FUSED_ROUNDS
+    seg = fl.telemetry_flush_every
+
+    def per_round(n):
+        """Each main-path kernel's launches in n rounds."""
+        return {'alloc_solve_f32': n, 'quantize_pack': n,
+                'spfl_accumulate': n, 'corrupt_fold': 2 * n,
+                'fold_words': 2 * n, 'alloc_solve': 0}
+    # the card runs the warm-up round and every round; the wrappers issue
+    # the warm-up round and each capture ('scan': one graph a segment
+    # length, 'eager': one round)
+    issued = {'scan': 1 + seg + rounds % seg, 'eager': 2}
+    runs, ran = {}, {}
+    for mode in ('none', 'eager', 'scan'):
+        fused = mode != 'none'
+        ran[mode] = {} if fused else None
+        runs[mode] = run_sim(
+            dataclasses.replace(fl, round_fusion=mode), rounds,
+            f'fused-{mode}', data=data, ran=ran[mode],
+            expect=kernels_on('round') + ['alloc_solve_f32' if fused
+                                          else 'alloc_solve'])
+        if fused:
+            check_counts(f'fused-{mode} on the card', ran[mode],
+                         per_round(rounds + 1))
+            check_counts(f'fused-{mode} issued', runs[mode][2],
+                         per_round(issued[mode]))
+    same_runs(runs['eager'][0], runs['scan'][0], "fused 'scan' vs 'eager'")
+    check_gradient_repeats(runs['none'][0])
+    # the host loop with the fused round's float32 solve and deterministic
+    # cuDNN: the fused run's rounds exactly, and its problems to time
+    kept = []
+
+    def twin(sim):
+        sim.deterministic = True
+        keep_f32_problems(sim, kept)
+    host_f32 = run_sim(fl, rounds, 'host-f32', data=data, hook=twin,
+                       expect=kernels_on('round') + ['alloc_solve_f32'])[0]
+    same_runs(host_f32, runs['scan'][0],
+              "fused 'scan' vs the host loop given its float32 (q, p)",
+              skip=('round_idx',))
+    solves = time_device_solves(host_f32, kept, 'fused-f32')
+    # round 1's float32 problem, exactly, and what the kernel made of it:
+    # the CPU tests hold the port's dual search on it to the reference's
+    one = solves[1]
+    record = {f: getattr(one['prob'], f).tolist()
+              for f in one['prob']._fields
+              if getattr(one['prob'], f) is not None}
+    record.update(method=fl.allocator, max_iters=fl.allocation_max_iters
+                  or 6, iters=one['iters'], exit_reason=one['exit_reason'],
+                  trips=dict(zip(ops.ALLOC_TRIPS, one['trips'])))
+    print(f'fused-f32 round 1 problem: {json.dumps(record)}', flush=True)
+    # what deterministic cuDNN costs the host loop (the fused rounds' one)
+    det = run_sim(fl, rounds, 'host-deterministic', data=data,
+                  hook=lambda sim: setattr(sim, 'deterministic', True))[0]
+    for mode in ('none', 'scan'):
+        h = runs[mode][1]
+        print(f'fused-{mode}: alloc_exit_reason {json.dumps(h.alloc_exit_reason)}'
+              f', alloc_iters {json.dumps(h.alloc_iters)}, q_mean '
+              f'{json.dumps(h.q_mean)}, p_mean {json.dumps(h.p_mean)}',
+              flush=True)
+    # round times: a second run of each, unprofiled, whose fused segments
+    # replay the graphs the first run captured
+    times = {}
+    for label, sim in (('host', runs['none'][0]), ('host-deterministic', det),
+                       ('fused-eager', runs['eager'][0]),
+                       ('fused-scan', runs['scan'][0])):
+        ts = sim.run(rounds).round_time_s
+        times[label] = ts
+        print(f'{label} second run round times '
+              f'{json.dumps([t * 1e3 for t in ts])} ms; mean '
+              f'{sum(ts) / len(ts) * 1e3:.3f} ms', flush=True)
+    # error_free: nothing solved, so the fused run is the host loop's
+    ef = {}
+    for mode in ('none', 'scan'):
+        ef[mode] = run_sim(FLConfig(transport='error_free', wire='packed',
+                                    telemetry_flush_every=4,
+                                    round_fusion=mode), 5,
+                           f'error_free-{mode}', data=data,
+                           hook=lambda sim: setattr(sim, 'deterministic',
+                                                    True),
+                           expect=['quantize_pack', 'spfl_accumulate'])[0]
+    same_runs(ef['none'], ef['scan'], 'fused error_free vs the host loop',
+              skip=('round_idx',))
+    # one population cell fused
+    pop_fl = FLConfig(**{**POP_BASE, **dict(POP_RUNS[0][1]),
+                         'round_fusion': 'scan',
+                         'telemetry_flush_every': 4})
+    pop, _, _ = run_sim(pop_fl, 3, 'pop-uniform-scan',
+                        expect=kernels_on('round') + ['alloc_solve_f32'])
+    ids = [list(map(int, r.cohort_ids)) for r in pop.records]
+    if ids != [list(r) for r in POP_UNIFORM_IDS]:
+        raise AssertionError('pop-uniform-scan: rounds 0-2 are not the '
+                             'pinned cohorts')
+    print('pop-uniform-scan: rounds 0-2 are the pinned cohorts of the '
+          "reference's key chain", flush=True)
+    # a screened, attacked cell: the screen's operations inside the graph
+    adv = {}
+    for mode in ('none', 'scan'):
+        adv[mode] = run_sim(dataclasses.replace(
+            fl, attack='signflip', screen=True, round_fusion=mode), 8,
+            f'signflip-screen-{mode}', data=data)[1].round_time_s
+    print(f'signflip + screen round times: host loop '
+          f'{json.dumps([t * 1e3 for t in adv["none"]])} ms, scan '
+          f'{json.dumps([t * 1e3 for t in adv["scan"]])} ms', flush=True)
+    # every other knob fused, on the card
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, knobs, expect in FUSED_SWEEP:
+            modes = ('scan', 'eager') if label == 'retx' else ('scan',)
+            for mode in modes:
+                path = f'{tmp}/{label}.jsonl' if label == 'dropout' else None
+                _, h, _ = run_sim(FLConfig(**{
+                    **FUSED_BASE, **knobs, 'telemetry_flush_every': 2,
+                    'round_fusion': mode, 'telemetry_path': path}), 3,
+                    f'{label}-{mode}', data=data, expect=expect)
+                if len(h.payload_bits) != 3 or len(h.loss) != 2:
+                    raise AssertionError(f'{label}-{mode}: {len(h.loss)} '
+                                         'evaluations, '
+                                         f'{len(h.payload_bits)} records')
+    print(f'fused sweep: {len(FUSED_SWEEP)} more knobs ran under '
+          "'scan' (retx also 'eager') on the card", flush=True)
+    # no sync inside a segment: a whole 'scan' segment and 'eager' replays
+    for mode, n in (('scan', 4), ('eager', 1)):
+        sim = runs[mode][0]
+        watch = Watch('sync')
+        sim.segment_guard = watch
+        sim.run(n)
+        torch.cuda.synchronize()
+        print(f"fused-{mode}: {len(watch.launches)} segment launch of {n} "
+              f"round(s) under set_sync_debug_mode('error'): nothing "
+              'waits for the card', flush=True)
+    # the device operations of one replayed round, beside the host loop's
+    sim = runs['eager'][0]
+    watch = Watch('profile')
+    sim.segment_guard = watch
+    sim.run(1)
+    replay = watch.launches[0]
+    host = device_launches(lambda: runs['none'][0].run(1))
+    print(f"fused-eager: one replayed round (upload, slot copies, graph, "
+          f"record copies): {sum(replay['names'].values())} device "
+          f"operations {json.dumps(op_kinds(replay['names']))}, busy "
+          f"{replay['busy_ms']:.3f} ms of {replay['wall_ms']:.3f} ms, most "
+          f"time first {json.dumps(replay['top_ms'])} ms; the host loop's "
+          f'round with its evaluation: {sum(host.values())} '
+          f'{json.dumps(op_kinds(host))}', flush=True)
+    sim = runs['scan'][0]
+    watch = Watch('profile')
+    sim.segment_guard = watch
+    sim.run(4)
+    seg = watch.launches[0]
+    print(f"fused-scan: one segment of 4 rounds: launch to the card's end "
+          f"{seg['wall_ms']:.3f} ms, device busy {seg['busy_ms']:.3f} ms "
+          f"(idle share {1 - seg['busy_ms'] / seg['wall_ms']:.4f}; the "
+          f"operations' times add to {seg['sum_ms']:.3f} ms), "
+          f"{sum(seg['names'].values())} device operations "
+          f"{json.dumps(op_kinds(seg['names']))}, most time first "
+          f"{json.dumps(seg['top_ms'])} ms", flush=True)
+    # the last fused round's float32 solve: timed alone above, held to its
+    # plain version on the same card tensors
+    last = solves[-1]
+    max_iters = fl.allocation_max_iters or 6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = AJ.solve_plain(last['prob'], fl.allocator, max_iters=max_iters,
+                           gate=last['gate'])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_solution(last['sol'], plain, 'alloc_solve_f32 on the last fused '
+                  'round')
+    print(f'alloc_solve_f32 on the last fused round (K={K}): kernel '
+          f'{last["ms"]:.4f} ms, plain {plain_ms:.1f} ms on the card, bit '
+          'for bit', flush=True)
+    row = {'ms': last['ms'], 'warm_ms': last['ms'], 'plain_ms': plain_ms,
+           'max_abs_err': 0.0,
+           'bytes': alloc_bytes(1, K, max_iters, real=4),
+           'units': alloc_units(last['trips'], K)}
+    print(card_line(), flush=True)
+    times.update({f'signflip-screen-{m}': t for m, t in adv.items()})
+    return {'row': row, 'counts': ran['scan'], 'times': times,
+            'alloc': alloc, 'solves': solves}
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
     ``r['bytes']`` and does ``r['units']`` units of work of kernel
@@ -3499,6 +4032,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_population(hist_j.round_time_s[1:])
     print(f'phase 9: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 10. fused rounds as CUDA graphs, with the float32 in-round solve
+    t0 = time.perf_counter()
+    fused = run_fused(data_of(sim_j))
+    print(f'phase 10: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -3528,8 +4065,13 @@ def main() -> int:
         'bytes': alloc_bytes(1, sim_j.K, fl_j.allocation_max_iters or 6),
         'units': alloc_units(last['trips'], sim_j.K)}
 
+    results['alloc_solve_f32'] = fused['row']
     sass_mixes = sass_unit_mixes(build.KERNELS)
-    launches = {'round': counts, 'api': api_counts, 'alloc': counts_j}
+    # the float64 solver's launches are main-jax's, the float32 one's the
+    # fused main path's ('scan')
+    launches = {'round': counts, 'api': api_counts,
+                'alloc': {**counts_j, 'alloc_solve_f32':
+                          fused['counts']['alloc_solve_f32']}}
     rows = []
     for name, kern in build.TABLE.items():
         r = results[name]

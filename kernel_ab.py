@@ -108,6 +108,9 @@ def wrapper_calls(chip_smoke, seed: int = 1, device: str = 'cuda',
     ok = torch.ones((k,), dtype=torch.bool, device=dev)
     weight = torch.full((k,), 1.0 / k, device=dev)
     seeds = (0x1234ABCD + seed, 0xFEDCBA98)
+    if hasattr(ops, 'seed_words'):
+        # a tree whose kernel reads its seed words from the card
+        seeds = ops.seed_words(seeds, dev)
     return {
         'quantize_pack': (lambda *t: ops.quantize_pack_flat(*t, bits),
                           (g, rand, gmin, gmax)),

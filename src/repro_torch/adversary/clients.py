@@ -74,9 +74,22 @@ def signflip_frames(sign_words: Tensor, mask: Tensor, n: int) -> Tensor:
     """Packed-domain sign flip of FRAMED sign buffers (K, Ws) int32: the
     byzantine rows' payload complemented (pad bits stay 0) and their CRC
     patched so the forged frame verifies; headers untouched."""
-    pat = signflip_pattern(sign_words.shape[1], n).view(np.int32)
-    pat = torch.as_tensor(pat, device=sign_words.device)
+    pat = _signflip_pattern_on(sign_words.shape[1], n, sign_words.device)
     return torch.where(mask[:, None], sign_words ^ pat[None, :], sign_words)
+
+
+_PATTERNS = {}
+
+
+def _signflip_pattern_on(n_words: int, n: int, device) -> Tensor:
+    """:func:`signflip_pattern` as int32 patterns on ``device``, copied
+    there once per shape and device: the rounds after the first (and a
+    round captured in a CUDA graph) make no copy from the host."""
+    key = (n_words, n, torch.device(device))
+    if key not in _PATTERNS:
+        _PATTERNS[key] = torch.as_tensor(
+            signflip_pattern(n_words, n).view(np.int32), device=device)
+    return _PATTERNS[key]
 
 
 def flip_signs(qg: QuantizedGradient, mask: Tensor) -> QuantizedGradient:

@@ -56,7 +56,10 @@ def _nanmedian(x: Tensor) -> Tensor:
     top = c - 1.0
     low = torch.clamp(torch.minimum(torch.floor(q), top), min=0.0)
     high = torch.clamp(torch.minimum(torch.ceil(q), top), min=0.0)
-    mid = (a[low.to(torch.int64)] + a[high.to(torch.int64)]) * 0.5
+    # gathered with a device index (indexing with a 0-d tensor reads it
+    # back to the host, which a captured round cannot)
+    ends = a.index_select(0, torch.stack([low, high]).to(torch.int64))
+    mid = (ends[0] + ends[1]) * 0.5
     return torch.where(c > 0.0, mid, torch.nan)
 
 

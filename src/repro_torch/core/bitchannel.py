@@ -10,12 +10,15 @@ buffers.  Failed sign packets are resent ``n_retx`` times (same payload,
 fresh header stamp, fresh draw).
 
 Randomness is explicit: each transmission takes the two uint32 seed
-words of its counter-PRF stream (``sign_seeds[a]`` for sign attempt
-``a``, ``mod_seeds`` for the modulus packet).
+words of its counter-PRF stream from the round's ``seeds``, a
+(2 + n_retx, 2) int32 tensor of their patterns on the device: row 0 for
+the modulus packet, row 1 + a for sign attempt ``a``.  The kernel reads
+them from device memory, so a round captured in a CUDA graph replays
+with the words its input slot holds.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -88,23 +91,20 @@ class UplinkReport(NamedTuple):
 
 
 def transmit_uplink(sign_words: Tensor, mod_words: Tensor, q: Tensor,
-                    p: Tensor, *, n: int, bits: int,
-                    sign_seeds: Sequence[Tuple[int, int]],
-                    mod_seeds: Tuple[int, int],
+                    p: Tensor, *, n: int, bits: int, seeds: Tensor,
                     n_retx: int = 0) -> UplinkReport:
     """Send every client's framed packet pair through the bit channel.
-    ``sign_seeds`` holds ``1 + n_retx`` seed pairs, one per sign
-    transmission attempt."""
-    if len(sign_seeds) != n_retx + 1:
-        raise ValueError(f'need {n_retx + 1} sign seed pairs, got '
-                         f'{len(sign_seeds)}')
+    ``seeds`` (2 + n_retx, 2) int32 on the words' device: the modulus
+    packet's seed pair, then one per sign transmission attempt."""
+    if tuple(seeds.shape) != (n_retx + 2, 2):
+        raise ValueError(f'need {n_retx + 2} seed pairs, got seeds of shape '
+                         f'{tuple(seeds.shape)}')
     ws = sign_words.shape[-1]
     ber_s = ber_for_success(q, ws)
     ber_v = ber_for_success(p, mod_words.shape[-1])
 
-    sw, _, sign_flips = kops.corrupt_fold_words(sign_seeds[0], sign_words,
-                                                ber_s)
-    mw, _, mod_flips = kops.corrupt_fold_words(mod_seeds, mod_words, ber_v)
+    sw, _, sign_flips = kops.corrupt_fold_words(seeds[1], sign_words, ber_s)
+    mw, _, mod_flips = kops.corrupt_fold_words(seeds[0], mod_words, ber_v)
     sign_ok = verify_sign_fold(sw, n=n)
     mod_ok = verify_mod_fold(mw, n=n, bits=bits)
     sign_crc_ok = sign_ok
@@ -113,7 +113,7 @@ def transmit_uplink(sign_words: Tensor, mod_words: Tensor, q: Tensor,
     for attempt in range(1, n_retx + 1):
         failed = ~sign_ok
         resent = wire_packets.restamp_sign_retx(sign_words, attempt)
-        rx, _, flips = kops.corrupt_fold_words(sign_seeds[attempt], resent,
+        rx, _, flips = kops.corrupt_fold_words(seeds[1 + attempt], resent,
                                                ber_s)
         ok = verify_sign_fold(rx, n=n)
         sw = torch.where((failed & ok)[:, None], rx, sw)

@@ -37,12 +37,15 @@ Randomness is explicit (:class:`Draws`): the (K, l) quantizer uniforms,
 the seed words of every bit-channel stream, the Bernoulli outcome and
 packet-fate uniforms, and scheduling's Rayleigh draws.  The simulator
 fills them from its generators; the parity tests fill them from the
-reference's own keys.
+reference's own keys.  Every draw is a tensor on the device and the
+round index that stamps the packet headers may be one too, so a round
+makes no copy from the host and can be captured in a CUDA graph
+(``training.fl_loop``'s fused rounds).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -73,9 +76,9 @@ class Draws(NamedTuple):
     """The random inputs of one round's transport."""
     rand: Optional[Tensor]                # (K, l) f32 quantizer uniforms
     #   (None for onebit, which does not quantize)
-    sign_seeds: Tuple[Tuple[int, int], ...] = ()  # bitlevel: one uint32
-    #   seed pair per sign transmission attempt (1 + n_retx)
-    mod_seeds: Optional[Tuple[int, int]] = None   # bitlevel: modulus stream
+    seeds: Optional[Tensor] = None        # bitlevel: (2 + n_retx, 2) int32
+    #   uint32 seed patterns: the modulus stream's, then one pair per sign
+    #   transmission attempt
     sign_u: Optional[Tensor] = None       # bernoulli: (1 + n_retx, K) f32
     mod_u: Optional[Tensor] = None        # bernoulli: (K,) f32
     fate_u: Optional[Tensor] = None       # dds/onebit/scheduling: (1, K)
@@ -84,30 +87,43 @@ class Draws(NamedTuple):
     #   |h|^2 ~ Exp(1)
 
 
+def host_draws(k: int, n_retx: int, channel: str,
+               host_generator: torch.Generator,
+               kind: str = 'spfl') -> Dict[str, Tensor]:
+    """The host half of one round's draws for transport ``kind``, CPU
+    tensors by :class:`Draws` field: the bit channel's seed words (int32
+    patterns), the Bernoulli outcome uniforms, or the baselines'
+    packet-fate uniforms and scheduling's Rayleigh draws, in that order
+    from ``host_generator``."""
+    if kind == 'error_free':
+        return {}
+    if kind not in ('spfl', 'spfl_retx'):
+        out = {}
+        if kind == 'scheduling':
+            out['h2'] = torch.empty((k,)).exponential_(
+                generator=host_generator)
+        out['fate_u'] = torch.rand((1, k), generator=host_generator)
+        return out
+    if channel == 'bitlevel':
+        words = torch.randint(0, 2 ** 32, (n_retx + 2, 2),
+                              generator=host_generator)
+        return {'seeds': wire_fmt.to_words(words)}
+    sign_u = torch.rand((n_retx + 1, k), generator=host_generator)
+    return {'sign_u': sign_u,
+            'mod_u': torch.rand((k,), generator=host_generator)}
+
+
 def make_draws(k: int, l: int, n_retx: int, channel: str,
                device: torch.device, generator: torch.Generator,
                host_generator: torch.Generator,
                kind: str = 'spfl') -> Draws:
     """One round's draws for transport ``kind``: the (K, l) uniforms from
-    ``generator`` on ``device``; seeds, outcome uniforms and Rayleigh
-    draws from ``host_generator``."""
+    ``generator`` on ``device``, then :func:`host_draws` from
+    ``host_generator``, each copied to ``device``."""
     rand = (None if kind == 'onebit'
             else torch.rand((k, l), generator=generator, device=device))
-    if kind == 'error_free':
-        return Draws(rand)
-    if kind not in ('spfl', 'spfl_retx'):
-        h2 = (torch.empty((k,)).exponential_(generator=host_generator)
-              if kind == 'scheduling' else None)
-        fate_u = torch.rand((1, k), generator=host_generator)
-        return Draws(rand, fate_u=fate_u.to(device),
-                     h2=None if h2 is None else h2.to(device))
-    if channel == 'bitlevel':
-        words = torch.randint(0, 2 ** 32, (n_retx + 2, 2),
-                              generator=host_generator).tolist()
-        return Draws(rand, tuple(map(tuple, words[1:])), tuple(words[0]))
-    sign_u = torch.rand((n_retx + 1, k), generator=host_generator)
-    mod_u = torch.rand((k,), generator=host_generator)
-    return Draws(rand, sign_u=sign_u.to(device), mod_u=mod_u.to(device))
+    host = host_draws(k, n_retx, channel, host_generator, kind)
+    return Draws(rand, **{name: t.to(device) for name, t in host.items()})
 
 
 def _inverse_prob(accept: Tensor, q: Tensor) -> Tensor:
@@ -249,8 +265,7 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
             qg = adv_clients.flip_signs(qg, byz_mask)
     if channel == 'bitlevel':
         rep = bitchannel.transmit_uplink(
-            sign_words, mod_words, q, p, n=l, bits=bits,
-            sign_seeds=draws.sign_seeds, mod_seeds=draws.mod_seeds,
+            sign_words, mod_words, q, p, n=l, bits=bits, seeds=draws.seeds,
             n_retx=n_retx)
         sign_words, mod_words = rep.sign_words, rep.mod_words
         sign_ok, mod_ok = rep.sign_ok, rep.mod_ok

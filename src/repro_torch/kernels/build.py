@@ -44,13 +44,15 @@ _U = ctypes.c_uint32
 
 
 class Kernel(NamedTuple):
-    """One hand-written kernel: its ``csrc/<name>.cu`` source exports
-    ``entry``."""
+    """One hand-written kernel: its ``csrc/<source>.cu`` source (by
+    default ``csrc/<name>.cu``) exports ``entry``."""
     entry: str         # C entry point; returns its launch's cudaError_t
     argtypes: list
     path: str          # 'round': the FL round; 'api': the *_flat kernel
     #                    API; 'alloc': the on-device eq. (28) solver
     replaces: str      # the TPU function it ports, as repo file:line
+    source: str = ''   # the source's stem where another kernel's source
+    #                    holds this one (an instantiation of its template)
 
 
 _PK = 'src/repro/wire/pack_kernel.py'
@@ -64,8 +66,7 @@ TABLE = {
                                _P, _P, _I, _I, _I, _P],
                               'round', f'{_PK}:169'),
     'corrupt_fold': Kernel('spfl_corrupt_fold',
-                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U,
-                            _P],
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _U, _P],
                            'round', f'{_PK}:220'),
     'fold_words': Kernel('spfl_fold_words', [_P, _LL, _P, _I, _I, _P],
                          'round', f'{_PK}:263'),
@@ -84,9 +85,14 @@ TABLE = {
     'unpack_dequant': Kernel('spfl_unpack_dequant',
                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
                              'api', f'{_PK}:159'),
-    # the JAX engine's solve_traceable: one XLA program, no Pallas body
+    # the JAX engine's solve_traceable: one XLA program, no Pallas body;
+    # float64 (the host loop) and float32 (the fused rounds' in-round
+    # solve), two instantiations of one templated source
     'alloc_solve': Kernel('alloc_solve', [_P] * 18 + [_I] * 7 + [_P],
                           'alloc', 'src/repro/core/allocation_jax.py:584'),
+    'alloc_solve_f32': Kernel('alloc_solve_f32', [_P] * 18 + [_I] * 7 + [_P],
+                              'alloc', 'src/repro/core/allocation_jax.py:584',
+                              source='alloc_solve'),
 }
 KERNELS = tuple(TABLE)
 
@@ -106,12 +112,14 @@ def nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return CSRC / f'{name}.cu'
+    """``csrc/<name>.cu``, or the source that holds kernel ``name``."""
+    kern = TABLE.get(name)
+    return CSRC / f'{kern.source if kern and kern.source else name}.cu'
 
 
 def repo_source(name: str) -> str:
     """The source of kernel ``name`` as a path in the repository."""
-    return (CSRC / f'{name}.cu').relative_to(ROOT).as_posix()
+    return source(name).relative_to(ROOT).as_posix()
 
 
 _CONSTANT = re.compile(r'^constexpr int (\w+) = (\d+);', re.M)
@@ -121,7 +129,7 @@ def constants(name: str) -> Dict[str, int]:
     """The integer constants that kernel ``name``'s source defines as
     ``constexpr int NAME = <literal>;`` at the start of a line: its launch
     shape, read where the host needs it."""
-    text = (CSRC / f'{name}.cu').read_text()
+    text = source(name).read_text()
     return {key: int(val) for key, val in _CONSTANT.findall(text)}
 
 
@@ -144,7 +152,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     (one nvcc process each); -> {name: library path}.  Raises with the
     compiler's output if any build fails."""
     paths = {name: library_path(name) for name in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+    # one build a library: kernels that share a source share it
+    todo = {}
+    for n, p in paths.items():
+        if not p.exists() and p not in todo.values():
+            todo[n] = p
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

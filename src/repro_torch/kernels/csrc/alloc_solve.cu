@@ -8,6 +8,14 @@
 // repro_torch.core.allocation_jax.solve_plain, which this kernel repeats
 // operation for operation: the same iterates, trip bounds and exits.
 //
+// Two instantiations of one body, templated on the scalar type T: float64
+// (the host loop's 'jax' backend) and float32 (the fused rounds' in-round
+// solve, the reference's alloc_f32), exported as alloc_solve and
+// alloc_solve_f32.  The f32 one takes the f32 caps of
+// allocation_jax._caps(torch.float32) in its constants; every literal of
+// the body is written T(...), so the f32 instantiation rounds it to float
+// as PyTorch rounds a Python scalar against a float32 tensor.
+//
 // Bound: latency.  A solve is a chain of dependent float64 steps: ~70,000
 // golden-section steps on the main path (K = 20; each two surrogate
 // evaluations of two pow and up to four exp), each bisection step
@@ -75,8 +83,11 @@
 //   is not finite), and a division two terms share is made once.
 // - Rounding: every add, multiply and divide is a rounded intrinsic, so
 //   no FMA is contracted that the plain version does not make; exp, pow
-//   and sqrt are CUDA's float64 functions, which PyTorch's float64 exp,
-//   pow and sqrt call on the card.
+//   and sqrt are CUDA's functions of T (expf, powf, sqrtf for float),
+//   which PyTorch's exp, pow and sqrt of that dtype call on the card.  The
+//   arithmetic helpers and the math functions are overloads per type and
+//   take two of the same type, so a double constant left in a float
+//   expression does not compile.
 // - Loops leave once their done flag is set: the plain version's frozen
 //   trips change nothing, so this is the same function at any
 //   early_exit; early_exit only switches the tolerance exits (inner_tol)
@@ -116,26 +127,27 @@ enum { C_EXP_CAP, C_POW_CAP, C_H_FLOOR, C_LOG_FLOOR, C_NEWTON_EPS, C_A_EPS,
        C_ONE_M_A_EPS, C_BETA_MIN, C_BETA_MAX, C_GR, C_LN2, C_LN10, C_TOL,
        C_INNER_TOL, C_SCA_TOL, C_LR };
 
+template <typename T>
 struct Args {
-  const double* coef;      // (B, 4, K) A, B, C, D
-  const double* gains;     // (B, K)
-  const double* p_w;       // (B, K)
-  const double* mask;      // (B, K) 1 real, 0 pad
-  const double* scal;      // (B, 6) sign bits, modulus bits, bandwidth,
+  const T* coef;           // (B, 4, K) A, B, C, D
+  const T* gains;          // (B, K)
+  const T* p_w;            // (B, K)
+  const T* mask;           // (B, K) 1 real, 0 pad
+  const T* scal;           // (B, 6) sign bits, modulus bits, bandwidth,
                            //   noise PSD, latency, alpha_max
-  const double* gate;      // (B,) or null: not > 0 -> the uniform point
-  double* scratch;         // (B, scratch_doubles(K, G))
+  const T* gate;           // (B,) or null: not > 0 -> the uniform point
+  T* scratch;              // (B, scratch_doubles(K, G))
   int* brackets;           // (B, (G - 1) K)
-  double* alpha;           // (B, K) outputs
-  double* beta;
-  double* q;
-  double* p;
-  double* objective;       // (B,)
+  T* alpha;                // (B, K) outputs
+  T* beta;
+  T* q;
+  T* p;
+  T* objective;            // (B,)
   int* iters;              // (B,)
-  double* objectives;      // (B, max_iters)
+  T* objectives;           // (B, max_iters)
   int* exit_reason;        // (B,)
   int* trips;              // (B, N_TRIPS) or null
-  double c[N_CONSTS];
+  T c[N_CONSTS];
   int k, method, max_iters, n_grid, newton_iters, early_exit;
   // the layout (Layout): lanes a client, groups a block, blocks a
   // replica of the problem, blocks a problem, groups that take a price,
@@ -188,41 +200,69 @@ __device__ __forceinline__ double mul(double a, double b) {
 __device__ __forceinline__ double dvd(double a, double b) {
   return __ddiv_rn(a, b);
 }
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float dvd(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double xexp(double x) { return exp(x); }
+__device__ __forceinline__ float xexp(float x) { return expf(x); }
+__device__ __forceinline__ double xpow(double b, double e) {
+  return pow(b, e);
+}
+__device__ __forceinline__ float xpow(float b, float e) { return powf(b, e); }
+__device__ __forceinline__ double xsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float xsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double xabs(double x) { return fabs(x); }
+__device__ __forceinline__ float xabs(float x) { return fabsf(x); }
 // torch.clamp(max=) / clamp(min=) / clamp(lo, hi) and torch.minimum:
 // NaN passes through
-__device__ __forceinline__ double upto(double x, double hi) {
+template <typename T>
+__device__ __forceinline__ T upto(T x, T hi) {
   return isnan(x) ? x : (x < hi ? x : hi);
 }
-__device__ __forceinline__ double atleast(double x, double lo) {
+template <typename T>
+__device__ __forceinline__ T atleast(T x, T lo) {
   return isnan(x) ? x : (x > lo ? x : lo);
 }
-__device__ __forceinline__ double clip(double x, double lo, double hi) {
+template <typename T>
+__device__ __forceinline__ T clip(T x, T lo, T hi) {
   return upto(atleast(x, lo), hi);
 }
-__device__ __forceinline__ double nan_min(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
   return isnan(a) ? a : (isnan(b) ? b : (a < b ? a : b));
 }
 
 // What a thread knows of its problem and (if it has one) a client.
+template <typename T>
 struct Ctx {
-  const double* c;         // constants
-  double two_s, two_v;     // 2 l and 2 (l b + b0)
-  double bw, noise, lat, amax;
-  double cs[4];            // the client's A, B, C, D
-  double cap_c;            // 4 p_w gain
-  double m;                // mask
+  const T* c;              // constants
+  T two_s, two_v;          // 2 l and 2 (l b + b0)
+  T bw, noise, lat, amax;
+  T cs[4];                 // the client's A, B, C, D
+  T cap_c;                 // 4 p_w gain
+  T m;                     // mask
   int kk;                  // the client (K: none)
   bool client;             // has a client
 };
 
 // problem pb's context for its client kk (none if kk >= K)
-__device__ Ctx load_ctx(const Args& a, const double* consts, int pb,
-                        int kk) {
-  Ctx x;
+template <typename T>
+__device__ Ctx<T> load_ctx(const Args<T>& a, const T* consts, int pb,
+                           int kk) {
+  Ctx<T> x;
   x.c = consts;
-  const double* sc = a.scal + (long long)pb * 6;
-  x.two_s = mul(2.0, sc[0]);
-  x.two_v = mul(2.0, sc[1]);
+  const T* sc = a.scal + (long long)pb * 6;
+  x.two_s = mul(T(2), sc[0]);
+  x.two_v = mul(T(2), sc[1]);
   x.bw = sc[2];
   x.noise = sc[3];
   x.lat = sc[4];
@@ -231,45 +271,47 @@ __device__ Ctx load_ctx(const Args& a, const double* consts, int pb,
   x.kk = x.client ? kk : a.k;
   const long long row = (long long)pb * a.k;
   if (x.client) {
-    const double* coef = a.coef + row * 4;
+    const T* coef = a.coef + row * 4;
     for (int j = 0; j < 4; ++j) x.cs[j] = coef[(long long)j * a.k + kk];
-    x.cap_c = mul(mul(4.0, a.p_w[row + kk]), a.gains[row + kk]);
+    x.cap_c = mul(mul(T(4), a.p_w[row + kk]), a.gains[row + kk]);
     x.m = a.mask[row + kk];
   } else {
-    for (int j = 0; j < 4; ++j) x.cs[j] = 0.0;
-    x.cap_c = 1.0;
-    x.m = 0.0;
+    for (int j = 0; j < 4; ++j) x.cs[j] = T(0);
+    x.cap_c = T(1);
+    x.m = T(0);
   }
   return x;
 }
 
 // H(beta) of eq. (12)/(14) (alloc_common.h_term)
-__device__ double h_term(const Ctx& x, double beta, double two_bits) {
-  double bb = mul(beta, x.bw);
-  double expo = upto(dvd(two_bits, mul(bb, x.lat)), x.c[C_POW_CAP]);
-  double h = mul(dvd(mul(bb, x.noise), x.cap_c), sub(1.0, pow(2.0, expo)));
+template <typename T>
+__device__ T h_term(const Ctx<T>& x, T beta, T two_bits) {
+  T bb = mul(beta, x.bw);
+  T expo = upto(dvd(two_bits, mul(bb, x.lat)), x.c[C_POW_CAP]);
+  T h = mul(dvd(mul(bb, x.noise), x.cap_c), sub(T(1), xpow(T(2), expo)));
   return atleast(h, x.c[C_H_FLOOR]);
 }
 
 // dH/dbeta (alloc_common.h_term_prime)
-__device__ double h_prime(const Ctx& x, double beta, double two_bits) {
-  double c1 = dvd(mul(x.bw, x.noise), x.cap_c);
-  double expo = upto(dvd(two_bits, mul(mul(beta, x.bw), x.lat)),
-                     x.c[C_POW_CAP]);
-  double p2 = pow(2.0, expo);
-  return mul(c1, add(sub(1.0, p2), mul(mul(p2, x.c[C_LN2]), expo)));
+template <typename T>
+__device__ T h_prime(const Ctx<T>& x, T beta, T two_bits) {
+  T c1 = dvd(mul(x.bw, x.noise), x.cap_c);
+  T expo = upto(dvd(two_bits, mul(mul(beta, x.bw), x.lat)), x.c[C_POW_CAP]);
+  T p2 = xpow(T(2), expo);
+  return mul(c1, add(sub(T(1), p2), mul(mul(p2, x.c[C_LN2]), expo)));
 }
 
 // the four exponents of eq. (27) (alloc_common.g_exponents)
-__device__ void g_exponents(double alpha, double hs, double hv, double t[4]) {
-  double a = clip(alpha, 1e-12, 1.0);
-  double om = clip(sub(1.0, alpha), 1e-12, 1.0);
-  double t1 = dvd(hv, om);
-  double t4 = dvd(-hs, a);
-  if (alpha >= 1.0) t1 = -INFINITY;
-  if (alpha <= 0.0) t4 = INFINITY;
+template <typename T>
+__device__ void g_exponents(T alpha, T hs, T hv, T t[4]) {
+  T a = clip(alpha, T(1e-12), T(1));
+  T om = clip(sub(T(1), alpha), T(1e-12), T(1));
+  T t1 = dvd(hv, om);
+  T t4 = dvd(-hs, a);
+  if (alpha >= T(1)) t1 = -INFINITY;
+  if (alpha <= T(0)) t4 = INFINITY;
   t[0] = t1;
-  t[1] = mul(2.0, t1);
+  t[1] = mul(T(2), t1);
   t[2] = add(t1, t4);
   t[3] = t4;
 }
@@ -278,84 +320,89 @@ __device__ void g_exponents(double alpha, double hs, double hv, double t[4]) {
 // (1, 0), (2, 0), (1, 1), (0, 1) (alloc_common.TERM_W), written out:
 // V / om is shared by terms 0 and 2, (0 S) / a by 0 and 1, S / a by 2
 // and 3
-__device__ __forceinline__ void exponents(double v, double s, double om,
-                                          double a, double e[4]) {
-  double v1 = dvd(v, om);
-  double s0 = dvd(mul(0.0, s), a);
-  double s1 = dvd(s, a);
+template <typename T>
+__device__ __forceinline__ void exponents(T v, T s, T om, T a, T e[4]) {
+  T v1 = dvd(v, om);
+  T s0 = dvd(mul(T(0), s), a);
+  T s1 = dvd(s, a);
   e[0] = sub(v1, s0);
-  e[1] = sub(dvd(mul(2.0, v), om), s0);
+  e[1] = sub(dvd(mul(T(2), v), om), s0);
   e[2] = sub(v1, s1);
-  e[3] = sub(dvd(mul(0.0, v), om), s1);
+  e[3] = sub(dvd(mul(T(0), v), om), s1);
 }
 
 // G(alpha, beta) with H_s, H_v at beta (alloc_common.g_value)
-__device__ double g_value(const Ctx& x, const double cs[4], double alpha,
-                          double hs, double hv) {
-  double t[4];
+template <typename T>
+__device__ T g_value(const Ctx<T>& x, const T cs[4], T alpha, T hs, T hv) {
+  T t[4];
   g_exponents(alpha, hs, hv, t);
-  double ecap = x.c[C_EXP_CAP];
-  double r = add(mul(cs[0], exp(upto(t[0], ecap))),
-                 mul(cs[1], exp(upto(t[1], ecap))));
-  r = add(r, mul(cs[2], exp(upto(t[2], ecap))));
-  return add(r, mul(cs[3], exp(upto(t[3], ecap))));
+  T ecap = x.c[C_EXP_CAP];
+  T r = add(mul(cs[0], xexp(upto(t[0], ecap))),
+            mul(cs[1], xexp(upto(t[1], ecap))));
+  r = add(r, mul(cs[2], xexp(upto(t[2], ecap))));
+  return add(r, mul(cs[3], xexp(upto(t[3], ecap))));
 }
 
 // dG/dalpha, eq. (69) (alloc_common.g_prime_alpha)
-__device__ double g_prime(const Ctx& x, const double cs[4], double alpha,
-                          double hs, double hv) {
-  double a = clip(alpha, x.c[C_A_EPS], x.c[C_ONE_M_A_EPS]);
-  double om = sub(1.0, a);
-  double t[4];
+template <typename T>
+__device__ T g_prime(const Ctx<T>& x, const T cs[4], T alpha, T hs, T hv) {
+  T a = clip(alpha, x.c[C_A_EPS], x.c[C_ONE_M_A_EPS]);
+  T om = sub(T(1), a);
+  T t[4];
   g_exponents(a, hs, hv, t);
-  double dv = dvd(hv, mul(om, om));
-  double ds = dvd(hs, mul(a, a));
-  double ecap = x.c[C_EXP_CAP];
-  double r = add(mul(mul(cs[0], exp(upto(t[0], ecap))), dv),
-                 mul(mul(mul(cs[1], exp(upto(t[1], ecap))), 2.0), dv));
-  r = add(r, mul(mul(cs[2], exp(upto(t[2], ecap))), add(dv, ds)));
-  return add(r, mul(mul(cs[3], exp(upto(t[3], ecap))), ds));
+  T dv = dvd(hv, mul(om, om));
+  T ds = dvd(hs, mul(a, a));
+  T ecap = x.c[C_EXP_CAP];
+  T r = add(mul(mul(cs[0], xexp(upto(t[0], ecap))), dv),
+            mul(mul(mul(cs[1], xexp(upto(t[1], ecap))), T(2)), dv));
+  r = add(r, mul(mul(cs[2], xexp(upto(t[2], ecap))), add(dv, ds)));
+  return add(r, mul(mul(cs[3], xexp(upto(t[3], ecap))), ds));
 }
 
 // The block's shared state.
+template <typename T>
 struct Shared {
-  double terms[MAX_K];     // ordered sums' terms (a group's K in a row)
-  double vec[BLOCK];       // a section's betas for the client threads
-  double alpha[BLOCK];     // the SCA's alpha of each client
-  double beta[BLOCK];      // the SCA round's beta of each client
+  T terms[MAX_K];          // ordered sums' terms (a group's K in a row)
+  T vec[BLOCK];            // a section's betas for the client threads
+  T alpha[BLOCK];          // the SCA's alpha of each client
+  T beta[BLOCK];           // the SCA round's beta of each client
   // each group's sum and evaluations: two buffers that the cluster reads
   // in turns, and one for a final section that no round evaluated
-  double gsum[3][MAX_NODES];
+  T gsum[3][MAX_NODES];
   int gevals[3][MAX_NODES];
-  double bres[2][BLOCK];   // a speculative round's betas, by group
-  double all[MAX_NODES];   // a speculative round's sums, by group
+  T bres[2][BLOCK];        // a speculative round's betas, by group
+  T all[MAX_NODES];        // a speculative round's sums, by group
   int all_evals[MAX_NODES];
   int vote[2][MAX_NODES];  // the golden sections' tolerance votes
   int flags[MAX_CLUSTER];  // votes of the blocks of a cluster
-  double result;
+  T result;
   int n_brackets;
 };
 
 // The block's place in its problem's cluster.
-__device__ __forceinline__ int rank_of(const Args& a) {
+template <typename T>
+__device__ __forceinline__ int rank_of(const Args<T>& a) {
   return blockIdx.x % a.cluster;
 }
-__device__ __forceinline__ int part_of(const Args& a) {
+template <typename T>
+__device__ __forceinline__ int part_of(const Args<T>& a) {
   return rank_of(a) % a.parts;
 }
 // the first block of the block's replica
-__device__ __forceinline__ int head_of(const Args& a) {
+template <typename T>
+__device__ __forceinline__ int head_of(const Args<T>& a) {
   return rank_of(a) / a.parts * a.parts;
 }
 
 // Left-to-right sum over the K clients of v (every thread calls it; the
 // clients' v are already multiplied by the mask where the plain version
 // masks).  Every thread gets the sum.
-__device__ double ordered_sum(Shared& sh, double v, int k) {
+template <typename T>
+__device__ T ordered_sum(Shared<T>& sh, T v, int k) {
   if (threadIdx.x < k) sh.terms[threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
-    double acc = sh.terms[0];
+    T acc = sh.terms[0];
     for (int i = 1; i < k; ++i) acc = add(acc, sh.terms[i]);
     sh.result = acc;
   }
@@ -367,14 +414,15 @@ __device__ double ordered_sum(Shared& sh, double v, int k) {
 // problem on several blocks (parts > 1) adds in the first block of each
 // replica, to whose terms the others write through distributed shared
 // memory.
-__device__ double psum(Shared& sh, const Args& a, const Ctx& x, double v) {
+template <typename T>
+__device__ T psum(Shared<T>& sh, const Args<T>& a, const Ctx<T>& x, T v) {
   if (a.parts == 1) return ordered_sum(sh, v, a.k);
   cg::cluster_group cl = cg::this_cluster();
   const unsigned head = head_of(a);
   if (x.client) *cl.map_shared_rank(&sh.terms[x.kk], head) = v;
   cl.sync();
   if (rank_of(a) == (int)head && threadIdx.x == 0) {
-    double acc = sh.terms[0];
+    T acc = sh.terms[0];
     for (int i = 1; i < a.k; ++i) acc = add(acc, sh.terms[i]);
     sh.result = acc;
   }
@@ -385,7 +433,8 @@ __device__ double psum(Shared& sh, const Args& a, const Ctx& x, double v) {
 // Whether pred holds on every thread (any: on some thread) of the
 // block's replica of its problem, or with `whole` of its cluster (every
 // thread calls it).
-__device__ bool vote(Shared& sh, const Args& a, bool pred, bool any,
+template <typename T>
+__device__ bool vote(Shared<T>& sh, const Args<T>& a, bool pred, bool any,
                      bool whole = false) {
   int local = any ? __syncthreads_or(pred) : __syncthreads_and(pred);
   if (a.cluster == 1 || (!whole && a.parts == 1)) return local != 0;
@@ -406,15 +455,17 @@ __device__ bool vote(Shared& sh, const Args& a, bool pred, bool any,
   return r;
 }
 
-__device__ __forceinline__ double msum(Shared& sh, const Args& a,
-                                       const Ctx& x, double v) {
+template <typename T>
+__device__ __forceinline__ T msum(Shared<T>& sh, const Args<T>& a,
+                                  const Ctx<T>& x, T v) {
   return psum(sh, a, x, mul(v, x.m));
 }
 
 // sum_k G(alpha_k, beta_k) over the real clients
-__device__ double objective(Shared& sh, const Args& a, const Ctx& x,
-                            double alpha, double beta, int* trips) {
-  double g = 0.0;
+template <typename T>
+__device__ T objective(Shared<T>& sh, const Args<T>& a, const Ctx<T>& x,
+                       T alpha, T beta, int* trips) {
+  T g = T(0);
   if (x.client) {
     g = g_value(x, x.cs, alpha, h_term(x, beta, x.two_s),
                 h_term(x, beta, x.two_v));
@@ -427,35 +478,36 @@ __device__ double objective(Shared& sh, const Args& a, const Ctx& x,
 // optimize_alpha: Lemma 3
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ double grid_point(int i, int g, double step,
-                                             double hi_a) {
-  return i == g - 1 ? hi_a : add(1e-4, mul((double)i, step));
+template <typename T>
+__device__ __forceinline__ T grid_point(int i, int g, T step, T hi_a) {
+  return i == g - 1 ? hi_a : add(T(1e-4), mul(T(i), step));
 }
 
-__device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
-                                 int pb, double beta, double* scr,
-                                 int* brackets, int* trips) {
+template <typename T>
+__device__ T optimize_alpha(Shared<T>& sh, const Ctx<T>& x, const Args<T>& a,
+                            int pb, T beta, T* scr, int* brackets,
+                            int* trips) {
   const int k = a.k, g = a.n_grid, t = threadIdx.x, nt = blockDim.x;
   // this block's clients: k0 .. k0 + kb - 1; its brackets' list
   const int k0 = part_of(a) * BLOCK;
   const int kb = min(k - k0, BLOCK);
   int* list = brackets + (long long)(g - 1) * k0;
-  double* gp = scr;                       // (K, G)
-  double* roots = gp + (long long)k * g;  // (K, G - 1)
-  double* vals = roots + (long long)k * (g - 1);
-  double* hs_all = vals + (long long)k * (g - 1);
-  double* hv_all = hs_all + k;
-  const double* coef = a.coef + (long long)pb * 4 * k;
-  double hs = 0.0, hv = 0.0;
+  T* gp = scr;                            // (K, G)
+  T* roots = gp + (long long)k * g;       // (K, G - 1)
+  T* vals = roots + (long long)k * (g - 1);
+  T* hs_all = vals + (long long)k * (g - 1);
+  T* hv_all = hs_all + k;
+  const T* coef = a.coef + (long long)pb * 4 * k;
+  T hs = T(0), hv = T(0);
   if (x.client) {
     hs = h_term(x, beta, x.two_s);
     hv = h_term(x, beta, x.two_v);
     hs_all[x.kk] = hs;
     hv_all[x.kk] = hv;
   }
-  double a_max = clip(x.amax, 1e-3, 1.0);
-  double hi_a = sub(a_max, 1e-4);
-  double step = dvd(sub(hi_a, 1e-4), (double)(g - 1));
+  T a_max = clip(x.amax, T(1e-3), T(1));
+  T hi_a = sub(a_max, T(1e-4));
+  T step = dvd(sub(hi_a, T(1e-4)), T(g - 1));
   if (t == 0) {
     sh.n_brackets = 0;
     ++trips[T_ALPHA];
@@ -464,8 +516,7 @@ __device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
   // G' on the grid, every (point, client) pair
   for (long long idx = t; idx < (long long)g * kb; idx += nt) {
     int kk = k0 + (int)(idx % kb), i = (int)(idx / kb);
-    double cs[4] = {coef[kk], coef[k + kk], coef[2 * k + kk],
-                    coef[3 * k + kk]};
+    T cs[4] = {coef[kk], coef[k + kk], coef[2 * k + kk], coef[3 * k + kk]};
     gp[(long long)kk * g + i] = g_prime(x, cs, grid_point(i, g, step, hi_a),
                                         hs_all[kk], hv_all[kk]);
   }
@@ -473,7 +524,7 @@ __device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
   // the brackets where G' changes sign; the others are +inf
   for (long long idx = t; idx < (long long)(g - 1) * kb; idx += nt) {
     int kk = k0 + (int)(idx % kb), i = (int)(idx / kb);
-    const double* row = gp + (long long)kk * g;
+    const T* row = gp + (long long)kk * g;
     if (signbit(row[i]) != signbit(row[i + 1])) {
       list[atomicAdd(&sh.n_brackets, 1)] = (int)idx;
     } else {
@@ -483,30 +534,29 @@ __device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
   __syncthreads();
   // safeguarded Newton in each bracket, one thread a bracket
   const int n = sh.n_brackets;
-  const double eps = x.c[C_NEWTON_EPS];
+  const T eps = x.c[C_NEWTON_EPS];
   for (int j = t; j < n; j += nt) {
     int idx = list[j];
     int kk = k0 + idx % kb, i = idx / kb;
-    double cs[4] = {coef[kk], coef[k + kk], coef[2 * k + kk],
-                    coef[3 * k + kk]};
-    double hsk = hs_all[kk], hvk = hv_all[kk];
-    double lo = grid_point(i, g, step, hi_a);
-    double hi = grid_point(i + 1, g, step, hi_a);
-    bool flo_neg = gp[(long long)kk * g + i] < 0.0;
-    double xr = mul(0.5, add(lo, hi));
+    T cs[4] = {coef[kk], coef[k + kk], coef[2 * k + kk], coef[3 * k + kk]};
+    T hsk = hs_all[kk], hvk = hv_all[kk];
+    T lo = grid_point(i, g, step, hi_a);
+    T hi = grid_point(i + 1, g, step, hi_a);
+    bool flo_neg = gp[(long long)kk * g + i] < T(0);
+    T xr = mul(T(0.5), add(lo, hi));
     for (int s = 0; s < a.newton_iters; ++s) {
-      double f = g_prime(x, cs, xr, hsk, hvk);
-      double fp = dvd(sub(g_prime(x, cs, add(xr, eps), hsk, hvk), f), eps);
-      bool same = flo_neg == (f < 0.0);
+      T f = g_prime(x, cs, xr, hsk, hvk);
+      T fp = dvd(sub(g_prime(x, cs, add(xr, eps), hsk, hvk), f), eps);
+      bool same = flo_neg == (f < T(0));
       if (same) lo = xr; else hi = xr;
-      double newton = sub(xr, dvd(f, fp));
-      double mid = mul(0.5, add(lo, hi));
+      T newton = sub(xr, dvd(f, fp));
+      T mid = mul(T(0.5), add(lo, hi));
       bool good = isfinite(newton) && newton > lo && newton < hi;
       xr = good ? newton : mid;
     }
-    double v = g_value(x, cs, xr, hsk, hvk);
+    T v = g_value(x, cs, xr, hsk, hvk);
     roots[(long long)kk * (g - 1) + i] = xr;
-    vals[(long long)kk * (g - 1) + i] = isnan(v) ? INFINITY : v;
+    vals[(long long)kk * (g - 1) + i] = isnan(v) ? T(INFINITY) : v;
   }
   if (t == 0) {
     // every part's chains count in its replica's first block
@@ -519,11 +569,11 @@ __device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
   __syncthreads();
   // per client: the first-index argmin over the brackets, against the
   // boundary alpha_max
-  double alpha = a_max;
+  T alpha = a_max;
   if (x.client) {
-    double best_val = g_value(x, x.cs, a_max, hs, hv);
-    const double* v = vals + (long long)x.kk * (g - 1);
-    double bv = v[0];
+    T best_val = g_value(x, x.cs, a_max, hs, hv);
+    const T* v = vals + (long long)x.kk * (g - 1);
+    T bv = v[0];
     int bi = 0;
     for (int i = 1; i < g - 1; ++i) {
       if (v[i] < bv) {
@@ -542,17 +592,18 @@ __device__ double optimize_alpha(Shared& sh, const Ctx& x, const Args& a,
 // ---------------------------------------------------------------------------
 
 // The surrogate of G(alpha, .) around beta0 (alloc_common.surrogate_value)
+template <typename T>
 struct Surrogate {
-  double a, om, beta0, hs0, hv0, hs0p, hv0p;
-  double e0[4], cbase[4];
+  T a, om, beta0, hs0, hv0, hs0p, hv0p;
+  T e0[4], cbase[4];
   bool pos[4];
 };
 
-__device__ Surrogate make_surrogate(const Ctx& x, double alpha,
-                                    double beta0) {
-  Surrogate s;
+template <typename T>
+__device__ Surrogate<T> make_surrogate(const Ctx<T>& x, T alpha, T beta0) {
+  Surrogate<T> s;
   s.a = clip(alpha, x.c[C_A_EPS], x.c[C_ONE_M_A_EPS]);
-  s.om = sub(1.0, s.a);
+  s.om = sub(T(1), s.a);
   s.beta0 = beta0;
   s.hs0 = h_term(x, beta0, x.two_s);
   s.hv0 = h_term(x, beta0, x.two_v);
@@ -561,8 +612,8 @@ __device__ Surrogate make_surrogate(const Ctx& x, double alpha,
   exponents(s.hv0, s.hs0, s.om, s.a, s.e0);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    s.cbase[j] = mul(x.cs[j], exp(upto(s.e0[j], x.c[C_EXP_CAP])));
-    s.pos[j] = x.cs[j] >= 0.0;
+    s.cbase[j] = mul(x.cs[j], xexp(upto(s.e0[j], x.c[C_EXP_CAP])));
+    s.pos[j] = x.cs[j] >= T(0);
   }
   return s;
 }
@@ -571,30 +622,30 @@ __device__ Surrogate make_surrogate(const Ctx& x, double alpha,
 // and H_s exact where c_j >= 0, H_v exact and H_s linearized where not
 // (its supporting line of exp at e0); a division two terms share is made
 // once where both take the same side.
-__device__ double surrogate(const Ctx& x, const Surrogate& s, double beta,
-                            double lam) {
-  double hs = h_term(x, beta, x.two_s);
-  double hv = h_term(x, beta, x.two_v);
-  double dlt = sub(beta, s.beta0);
-  double hs_lin = add(s.hs0, mul(s.hs0p, dlt));
-  double hv_lin = add(s.hv0, mul(s.hv0p, dlt));
+template <typename T>
+__device__ T surrogate(const Ctx<T>& x, const Surrogate<T>& s, T beta, T lam) {
+  T hs = h_term(x, beta, x.two_s);
+  T hv = h_term(x, beta, x.two_v);
+  T dlt = sub(beta, s.beta0);
+  T hs_lin = add(s.hs0, mul(s.hs0p, dlt));
+  T hv_lin = add(s.hv0, mul(s.hv0p, dlt));
   const bool p0 = s.pos[0], p1 = s.pos[1], p2 = s.pos[2], p3 = s.pos[3];
   // weights (wv, ws): (1, 0), (2, 0), (1, 1), (0, 1)
-  double v0 = dvd(p0 ? hv_lin : hv, s.om);
-  double v2 = p2 == p0 ? v0 : dvd(p2 ? hv_lin : hv, s.om);
-  double v1 = dvd(mul(2.0, p1 ? hv_lin : hv), s.om);
-  double v3 = dvd(mul(0.0, p3 ? hv_lin : hv), s.om);
-  double s0 = dvd(mul(0.0, p0 ? hs : hs_lin), s.a);
-  double s1 = p1 == p0 ? s0 : dvd(mul(0.0, p1 ? hs : hs_lin), s.a);
-  double s2 = dvd(p2 ? hs : hs_lin, s.a);
-  double s3 = p3 == p2 ? s2 : dvd(p3 ? hs : hs_lin, s.a);
-  const double e[4] = {sub(v0, s0), sub(v1, s1), sub(v2, s2), sub(v3, s3)};
-  double total = 0.0;
+  T v0 = dvd(p0 ? hv_lin : hv, s.om);
+  T v2 = p2 == p0 ? v0 : dvd(p2 ? hv_lin : hv, s.om);
+  T v1 = dvd(mul(T(2), p1 ? hv_lin : hv), s.om);
+  T v3 = dvd(mul(T(0), p3 ? hv_lin : hv), s.om);
+  T s0 = dvd(mul(T(0), p0 ? hs : hs_lin), s.a);
+  T s1 = p1 == p0 ? s0 : dvd(mul(T(0), p1 ? hs : hs_lin), s.a);
+  T s2 = dvd(p2 ? hs : hs_lin, s.a);
+  T s3 = p3 == p2 ? s2 : dvd(p3 ? hs : hs_lin, s.a);
+  const T e[4] = {sub(v0, s0), sub(v1, s1), sub(v2, s2), sub(v3, s3)};
+  T total = T(0);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    double term = s.pos[j]
-        ? mul(x.cs[j], exp(upto(e[j], x.c[C_EXP_CAP])))
-        : mul(s.cbase[j], sub(add(1.0, e[j]), s.e0[j]));
+    T term = s.pos[j]
+        ? mul(x.cs[j], xexp(upto(e[j], x.c[C_EXP_CAP])))
+        : mul(s.cbase[j], sub(add(T(1), e[j]), s.e0[j]));
     // the plain version's 0 + term 0 differs only in a zero's sign,
     // which no comparison of the result sees
     total = j == 0 ? term : add(total, term);
@@ -614,14 +665,15 @@ struct Lane {
 
 // f at c and d of the lane's client, where `work`: two lanes trade their
 // halves (every lane of the warp shuffles), one lane evaluates both.
-__device__ __forceinline__ void evaluate(const Ctx& y, const Surrogate& s,
-                                         const Lane& ln, int lanes, double c,
-                                         double d, double lam, bool work,
-                                         double& fc, double& fd) {
+template <typename T>
+__device__ __forceinline__ void evaluate(const Ctx<T>& y,
+                                         const Surrogate<T>& s,
+                                         const Lane& ln, int lanes, T c, T d,
+                                         T lam, bool work, T& fc, T& fd) {
   if (lanes == 2) {
-    double f = 0.0;
+    T f = T(0);
     if (work) f = surrogate(y, s, ln.half ? d : c, lam);
-    double o = __shfl_xor_sync(0xffffffffu, f, 1);
+    T o = __shfl_xor_sync(0xffffffffu, f, 1);
     if (work) {
       fc = ln.half ? o : f;
       fd = ln.half ? f : o;
@@ -638,15 +690,16 @@ __device__ __forceinline__ void evaluate(const Ctx& y, const Surrogate& s,
 // tol_exit a group leaves once its whole bracket is that narrow (its
 // lanes vote through shared memory).  -> the lane's beta; *evals: the
 // group's evaluations of the pair.
-__device__ double golden(Shared& sh, const Args& a, const Ctx& y,
-                         const Surrogate& s, const Lane& ln, double lam,
-                         bool work, bool tol_exit, int* evals) {
+template <typename T>
+__device__ T golden(Shared<T>& sh, const Args<T>& a, const Ctx<T>& y,
+                    const Surrogate<T>& s, const Lane& ln, T lam, bool work,
+                    bool tol_exit, int* evals) {
   const int lanes = a.lanes;
-  const double gr = y.c[C_GR];
-  double lo = y.c[C_BETA_MIN], hi = y.c[C_BETA_MAX];
-  double w = mul(gr, sub(hi, lo));
-  double c = sub(hi, w), d = add(lo, w);
-  double fc = 0.0, fd = 0.0;
+  const T gr = y.c[C_GR];
+  T lo = y.c[C_BETA_MIN], hi = y.c[C_BETA_MAX];
+  T w = mul(gr, sub(hi, lo));
+  T c = sub(hi, w), d = add(lo, w);
+  T fc = T(0), fd = T(0);
   evaluate(y, s, ln, lanes, c, d, lam, work && ln.has, fc, fd);
   int n = 1, p = 0;
   bool frozen = !work;
@@ -685,7 +738,7 @@ __device__ double golden(Shared& sh, const Args& a, const Ctx& y,
     }
   }
   *evals = n;
-  return mul(0.5, add(lo, hi));
+  return mul(T(0.5), add(lo, hi));
 }
 
 // A golden section on every group with `work`, then each such group's
@@ -695,12 +748,13 @@ __device__ double golden(Shared& sh, const Args& a, const Ctx& y,
 // own): group 0 hands its betas to the client threads (sh.vec); buf 0
 // or 1 (a speculative round): every group keeps its betas in
 // sh.bres[buf] for fetch.
-__device__ void section(Shared& sh, const Ctx& y, const Surrogate& s,
-                        const Lane& ln, const Args& a, double lam, bool work,
+template <typename T>
+__device__ void section(Shared<T>& sh, const Ctx<T>& y, const Surrogate<T>& s,
+                        const Lane& ln, const Args<T>& a, T lam, bool work,
                         int buf, bool tol_exit) {
   const int k = a.k;
   int evals = 0;
-  double b = golden(sh, a, y, s, ln, lam, work, tol_exit, &evals);
+  T b = golden(sh, a, y, s, ln, lam, work, tol_exit, &evals);
   if (work && ln.half == 0 && ln.has) {
     if (buf == 2) {
       sh.vec[ln.kk] = b;
@@ -712,8 +766,8 @@ __device__ void section(Shared& sh, const Ctx& y, const Surrogate& s,
     if (work && ln.half == 0) sh.terms[ln.g * k + ln.kk] = mul(b, y.m);
     __syncthreads();
     if (work && ln.r == 0) {
-      const double* v = sh.terms + ln.g * k;
-      double acc = v[0];
+      const T* v = sh.terms + ln.g * k;
+      T acc = v[0];
       for (int i = 1; i < k; ++i) acc = add(acc, v[i]);
       sh.gsum[buf][ln.g] = acc;
       sh.gevals[buf][ln.g] = evals;
@@ -728,7 +782,7 @@ __device__ void section(Shared& sh, const Ctx& y, const Surrogate& s,
   }
   cl.sync();
   if (work && rank_of(a) == (int)head && threadIdx.x == 0) {
-    double acc = sh.terms[0];
+    T acc = sh.terms[0];
     for (int i = 1; i < k; ++i) acc = add(acc, sh.terms[i]);
     sh.gsum[buf][0] = acc;
     sh.gevals[buf][0] = evals;
@@ -737,7 +791,8 @@ __device__ void section(Shared& sh, const Ctx& y, const Surrogate& s,
 }
 
 // group 0's sum of a final section run on its own (buffer 2)
-__device__ __forceinline__ double group_sum(Shared& sh, const Args& a) {
+template <typename T>
+__device__ __forceinline__ T group_sum(Shared<T>& sh, const Args<T>& a) {
   if (a.parts == 1) return sh.gsum[2][0];
   return *cg::this_cluster().map_shared_rank(&sh.gsum[2][0],
                                               (unsigned)head_of(a));
@@ -748,9 +803,11 @@ __device__ __forceinline__ double group_sum(Shared& sh, const Args& a) {
 // group's sum (sh.all) and evaluations (sh.all_evals).  The cluster
 // reads a round's sums and betas from buffer `par` while the next round
 // writes the other: one cluster barrier a round.  -> the round's buffer.
-__device__ int spec_round(Shared& sh, const Ctx& y, const Surrogate& s,
-                          const Lane& ln, const Args& a, double lam, int n,
-                          bool tol_exit, int& par) {
+template <typename T>
+__device__ int spec_round(Shared<T>& sh, const Ctx<T>& y,
+                          const Surrogate<T>& s, const Lane& ln,
+                          const Args<T>& a, T lam, int n, bool tol_exit,
+                          int& par) {
   const int buf = par;
   section(sh, y, s, ln, a, lam, ln.gid >= 0 && ln.gid < n, buf, tol_exit);
   const int t = threadIdx.x;
@@ -778,8 +835,9 @@ __device__ int spec_round(Shared& sh, const Ctx& y, const Surrogate& s,
 // buffer buf, into the client threads' sh.vec (each its own client's;
 // read before the next round's cluster barrier, so before its owner
 // writes the buffer again).
-__device__ void fetch(Shared& sh, const Args& a, const Ctx& x, int gid,
-                      int buf) {
+template <typename T>
+__device__ void fetch(Shared<T>& sh, const Args<T>& a, const Ctx<T>& x,
+                      int gid, int buf) {
   if (!x.client) return;
   const int t = threadIdx.x;
   const int i = a.parts == 1 ? gid % a.groups * a.k + t : t;
@@ -791,28 +849,29 @@ __device__ void fetch(Shared& sh, const Args& a, const Ctx& x, int gid,
   }
 }
 
-__device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
-                      const Args& a, double alpha, double beta0, int* trips,
-                      int& par) {
+template <typename T>
+__device__ T sca(Shared<T>& sh, const Ctx<T>& x, const Ctx<T>& y,
+                 const Lane& ln, const Args<T>& a, T alpha, T beta0,
+                 int* trips, int& par) {
   const int t = threadIdx.x;
-  const bool tol_exit = a.early_exit && x.c[C_INNER_TOL] > 0.0;
-  const double inner_tol = x.c[C_INNER_TOL];
+  const bool tol_exit = a.early_exit && x.c[C_INNER_TOL] > T(0);
+  const T inner_tol = x.c[C_INNER_TOL];
   const bool counts = t == 0;
-  double beta = beta0;
-  double prev = objective(sh, a, x, alpha, beta, trips);
+  T beta = beta0;
+  T prev = objective(sh, a, x, alpha, beta, trips);
   if (x.client) sh.alpha[t] = alpha;
   for (int r = 0; r < 8; ++r) {
     if (counts) ++trips[T_SCA];
     if (x.client) sh.beta[t] = beta;
     __syncthreads();
-    Surrogate s;
+    Surrogate<T> s;
     if (ln.g >= 0) s = make_surrogate(y, sh.alpha[ln.kk], sh.beta[ln.kk]);
     // The dual bracket (lo, hi).  have: sh.vec holds the client's beta
     // of golden(hi), whose sum is `total` and evaluations `hevals`, so
     // the sequential loop's final section is that one again; pending: it
     // was a price the sequential loop evaluates only there (not yet
     // counted as speculative).
-    double hi = 1.0, lo = 0.0, total = 0.0;
+    T hi = T(1), lo = T(0), total = T(0);
     bool have = false, pending = false, dual = true;
     int hevals = 0;
     // Position 0 is lam = 0 (the section that decides whether the dual
@@ -821,10 +880,10 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
     // final section): `nodes` positions a round, group j the j-th.
     for (int pos = 0; pos <= GROW_STEPS + 1;) {
       const int n = min(a.nodes, GROW_STEPS + 2 - pos);
-      double lam = 0.0;
+      T lam = T(0);
       if (ln.gid >= 0 && pos + ln.gid >= 1) {
-        lam = 1.0;
-        for (int j = 1; j < pos + ln.gid; ++j) lam = mul(lam, 10.0);
+        lam = T(1);
+        for (int j = 1; j < pos + ln.gid; ++j) lam = mul(lam, T(10));
       }
       const int buf = spec_round(sh, y, s, ln, a, lam, n, tol_exit, par);
       int j = 0, used = 0;
@@ -837,7 +896,7 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
             ++trips[T_GOLDEN];
             trips[T_EVAL] += sh.all_evals[0];
           }
-          if (!(sh.all[0] > 1.0)) {
+          if (!(sh.all[0] > T(1))) {
             dual = false;      // beta(0) meets the constraint
             fetch(sh, a, x, 0, buf);
             stop = true;
@@ -847,7 +906,7 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
           continue;
         }
         // hi is p_{q - 1} here
-        if (q - 1 >= GROW_STEPS || !(hi < 1e30)) {
+        if (q - 1 >= GROW_STEPS || !(hi < T(1e30))) {
           // the grow loop ends before pricing hi: golden(hi) is the
           // final section
           fetch(sh, a, x, j, buf);
@@ -863,22 +922,22 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
           ++trips[T_GOLDEN];
           trips[T_EVAL] += sh.all_evals[j];
         }
-        if (!(sh.all[j] > 1.0)) {
+        if (!(sh.all[j] > T(1))) {
           fetch(sh, a, x, j, buf);    // hi = p_{q - 1} stays
           have = stop = true;
           total = sh.all[j];
           hevals = sh.all_evals[j];
           break;
         }
-        hi = mul(hi, 10.0);
+        hi = mul(hi, T(10));
       }
       if (counts) trips[T_SPEC] += n - used;
       pos += n;
       if (stop) break;
     }
-    double b = 0.0;
+    T b = T(0);
     if (!dual) {
-      b = x.client ? sh.vec[t] : 0.0;
+      b = x.client ? sh.vec[t] : T(0);
     } else {
       // bisect on the sum constraint, a subtree of midpoints below (lo,
       // hi) a round.  Full: `depth` levels, group j node j + 1 of the
@@ -888,31 +947,31 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
       // the infeasible side: L nodes down that side (group i the i-th)
       // and the feasible child of each but the last (group L + i that of
       // node i), 2L - 1 nodes, L levels if the walk keeps to it.
-      bool spine = have && total > 1.0;
+      bool spine = have && total > T(1);
       for (int step = 0; step < BISECT_STEPS;) {
         if (tol_exit && sub(hi, lo) <= mul(inner_tol, hi)) break;
         const int rem = BISECT_STEPS - step;
         const int levels = spine ? min((a.nodes + 1) / 2, rem)
                                  : min(a.depth, rem);
         const int n = spine ? 2 * levels - 1 : (1 << levels) - 1;
-        double l = lo, h = hi;
+        T l = lo, h = hi;
         if (ln.gid >= 0 && ln.gid < n) {
           if (spine) {
             const bool side = ln.gid >= levels;
             for (int i = side ? ln.gid - levels : ln.gid; i > 0; --i) {
-              l = mul(0.5, add(l, h));
+              l = mul(T(0.5), add(l, h));
             }
-            if (side) h = mul(0.5, add(l, h));
+            if (side) h = mul(T(0.5), add(l, h));
           } else {
             int node = ln.gid + 1;
             for (int bit = 30 - __clz(node); bit >= 0; --bit) {
-              double m = mul(0.5, add(l, h));
+              T m = mul(T(0.5), add(l, h));
               if ((node >> bit) & 1) h = m; else l = m;
             }
           }
         }
-        const int buf = spec_round(sh, y, s, ln, a, mul(0.5, add(l, h)), n,
-                                   tol_exit, par);
+        const int buf = spec_round(sh, y, s, ln, a, mul(T(0.5), add(l, h)),
+                                   n, tol_exit, par);
         int g = 0, lev = 0, last = -1;
         bool stop = false;
         for (; lev < levels && g >= 0; ++lev) {
@@ -925,8 +984,8 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
             ++trips[T_GOLDEN];
             trips[T_EVAL] += sh.all_evals[g];
           }
-          double mid = mul(0.5, add(lo, hi));
-          const bool infeasible = sh.all[g] > 1.0;
+          T mid = mul(T(0.5), add(lo, hi));
+          const bool infeasible = sh.all[g] > T(1);
           if (infeasible) lo = mid; else hi = mid;
           if (!infeasible) last = g;
           if (!spine) {
@@ -960,14 +1019,14 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
         ++trips[T_GOLDEN];
         trips[T_EVAL] += hevals;
       }
-      b = x.client ? sh.vec[t] : 0.0;
-      b = mul(b, upto(dvd(1.0, atleast(total, 1e-12)), 1.0));
+      b = x.client ? sh.vec[t] : T(0);
+      b = mul(b, upto(dvd(T(1), atleast(total, T(1e-12))), T(1)));
     }
     // MM guarantee: only accept descent on the true objective
-    double cur = objective(sh, a, x, alpha, b, trips);
+    T cur = objective(sh, a, x, alpha, b, trips);
     if (cur <= prev) beta = b;
-    bool conv = fabs(sub(prev, cur))
-                <= mul(x.c[C_SCA_TOL], add(1.0, fabs(prev)));
+    bool conv = xabs(sub(prev, cur))
+                <= mul(x.c[C_SCA_TOL], add(T(1), xabs(prev)));
     prev = nan_min(prev, cur);
     if (conv) break;
   }
@@ -978,59 +1037,62 @@ __device__ double sca(Shared& sh, const Ctx& x, const Ctx& y, const Lane& ln,
 // §IV-D: log-barrier + projected gradient descent
 // ---------------------------------------------------------------------------
 
-__device__ double g_dbeta(const Ctx& x, double a, double om, double b) {
-  double hs = h_term(x, b, x.two_s), hv = h_term(x, b, x.two_v);
-  double hsp = h_prime(x, b, x.two_s), hvp = h_prime(x, b, x.two_v);
-  double e[4], de[4];
+template <typename T>
+__device__ T g_dbeta(const Ctx<T>& x, T a, T om, T b) {
+  T hs = h_term(x, b, x.two_s), hv = h_term(x, b, x.two_v);
+  T hsp = h_prime(x, b, x.two_s), hvp = h_prime(x, b, x.two_v);
+  T e[4], de[4];
   exponents(hv, hs, om, a, e);
   exponents(hvp, hsp, om, a, de);
-  double out = 0.0;
+  T out = T(0);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    out = add(out, mul(mul(x.cs[j], exp(upto(e[j], x.c[C_EXP_CAP]))), de[j]));
+    out = add(out, mul(mul(x.cs[j], xexp(upto(e[j], x.c[C_EXP_CAP]))), de[j]));
   }
   return out;
 }
 
-__device__ double barrier(Shared& sh, const Ctx& x, const Args& args,
-                          double alpha, double beta0, int* trips) {
-  const double inner_tol = x.c[C_INNER_TOL];
-  double beta = atleast(beta0, 1e-4);
-  double s = msum(sh, args, x, beta);
-  if (s >= 1.0) beta = mul(dvd(beta, s), 0.95);
-  double a = clip(alpha, x.c[C_A_EPS], x.c[C_ONE_M_A_EPS]);
-  double om = sub(1.0, a);
-  double mu = 10.0;
-  for (int stage = 0; stage < 5; ++stage, mu = mul(mu, 10.0)) {
-    double inv = dvd(1.0, mul(mu, x.c[C_LN10]));
+template <typename T>
+__device__ T barrier(Shared<T>& sh, const Ctx<T>& x, const Args<T>& args,
+                     T alpha, T beta0, int* trips) {
+  const T inner_tol = x.c[C_INNER_TOL];
+  T beta = atleast(beta0, T(1e-4));
+  T s = msum(sh, args, x, beta);
+  if (s >= T(1)) beta = mul(dvd(beta, s), T(0.95));
+  T a = clip(alpha, x.c[C_A_EPS], x.c[C_ONE_M_A_EPS]);
+  T om = sub(T(1), a);
+  T mu = T(10);
+  for (int stage = 0; stage < 5; ++stage, mu = mul(mu, T(10))) {
+    T inv = dvd(T(1), mul(mu, x.c[C_LN10]));
     for (int it = 0; it < 200; ++it) {
       if (threadIdx.x == 0) ++trips[T_BARRIER];
-      double slack = sub(1.0, msum(sh, args, x, beta));
-      double grad = 0.0;
+      T slack = sub(T(1), msum(sh, args, x, beta));
+      T grad = T(0);
       if (x.client) {
         grad = sub(g_dbeta(x, a, om, beta),
-                   mul(inv, sub(sub(dvd(1.0, beta), dvd(1.0, sub(1.0, beta))),
-                                dvd(1.0, slack))));
+                   mul(inv, sub(sub(dvd(T(1), beta),
+                                    dvd(T(1), sub(T(1), beta))),
+                                dvd(T(1), slack))));
         grad = mul(grad, x.m);        // pads hold their start point
       }
-      double gn = sqrt(psum(sh, args, x, mul(grad, grad)));
-      double step = dvd(x.c[C_LR], add(1.0, gn));
+      T gn = xsqrt(psum(sh, args, x, mul(grad, grad)));
+      T step = dvd(x.c[C_LR], add(T(1), gn));
       // feasibility backtracking: 27 halvings reach t <= 1e-8
-      double t = 1.0;
-      double nw = sub(beta, mul(step, grad));
+      T t = T(1);
+      T nw = sub(beta, mul(step, grad));
       for (int bt = 0; bt < 27; ++bt) {
-        bool infeas = vote(sh, args, x.client && (nw <= 0.0 || nw >= 1.0),
-                           true);
-        if (!infeas) infeas = msum(sh, args, x, nw) >= 1.0;
-        if (!(infeas && t > 1e-8)) break;
+        bool infeas = vote(sh, args,
+                           x.client && (nw <= T(0) || nw >= T(1)), true);
+        if (!infeas) infeas = msum(sh, args, x, nw) >= T(1);
+        if (!(infeas && t > T(1e-8))) break;
         if (threadIdx.x == 0) ++trips[T_BACKTRACK];
-        t = mul(0.5, t);
+        t = mul(T(0.5), t);
         nw = sub(beta, mul(mul(t, step), grad));
       }
-      bool give_up = gn < 1e-14 || t <= 1e-8;
+      bool give_up = gn < T(1e-14) || t <= T(1e-8);
       // inner_tol = 0 stops only at an exact fixed point (absorbing)
       bool stalled = vote(sh, args,
-                          !x.client || fabs(sub(nw, beta)) <= inner_tol,
+                          !x.client || xabs(sub(nw, beta)) <= inner_tol,
                           false);
       if (!give_up) beta = nw;
       if (give_up || stalled) break;
@@ -1043,10 +1105,12 @@ __device__ double barrier(Shared& sh, const Ctx& x, const Args& args,
 // Algorithm 1
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(BLOCK, 1) alloc_solve_kernel(const Args a) {
-  __shared__ Shared sh;
+template <typename T>
+__global__ void __launch_bounds__(BLOCK, 1)
+    alloc_solve_kernel(const Args<T> a) {
+  __shared__ Shared<T> sh;
   __shared__ int trip_sh[N_TRIPS];
-  __shared__ double consts[N_CONSTS];
+  __shared__ T consts[N_CONSTS];
   const int cs = a.cluster;
   const int b = blockIdx.x / cs, rank = blockIdx.x % cs;
   const int part = rank % a.parts, rep = rank / a.parts;
@@ -1058,7 +1122,7 @@ __global__ void __launch_bounds__(BLOCK, 1) alloc_solve_kernel(const Args a) {
     for (int i = 0; i < N_CONSTS; ++i) consts[i] = a.c[i];
   }
   // thread t of part p is client p BLOCK + t
-  const Ctx x = load_ctx(a, consts, b, part * BLOCK + t);
+  const Ctx<T> x = load_ctx(a, consts, b, part * BLOCK + t);
   // the golden sections' layout: groups of lanes x K lanes (one group,
   // one lane a client, with parts > 1)
   Lane ln;
@@ -1078,30 +1142,30 @@ __global__ void __launch_bounds__(BLOCK, 1) alloc_solve_kernel(const Args a) {
   ln.gid = ln.g >= 0 && rep * a.groups + ln.g < a.nodes
       ? rep * a.groups + ln.g : -1;
   // the lane's client's context (with parts > 1 the thread's own)
-  const Ctx y = load_ctx(a, consts, b, a.parts > 1 ? part * BLOCK + t
-                                       : (ln.has ? ln.kk : k));
+  const Ctx<T> y = load_ctx(a, consts, b, a.parts > 1 ? part * BLOCK + t
+                                          : (ln.has ? ln.kk : k));
   const long long row = (long long)b * k;
-  double* scr = a.scratch + (long long)b * scratch_doubles(k, a.n_grid);
+  T* scr = a.scratch + (long long)b * scratch_doubles(k, a.n_grid);
   int* brackets = a.brackets + (long long)b * (a.n_grid - 1) * k;
   __syncthreads();
 
   int method = a.method;
-  if (method != UNIFORM && a.gate != nullptr && !(a.gate[b] > 0.0)) {
+  if (method != UNIFORM && a.gate != nullptr && !(a.gate[b] > T(0))) {
     method = UNIFORM;   // no compensation history yet (round 0)
   }
   // the uniform point: alpha 1/2, beta = mask / sum(mask)
-  const double alpha_u = 0.5;
-  const double beta_u = dvd(x.m, psum(sh, a, x, x.m));
-  const double uniform_obj = objective(sh, a, x, alpha_u, beta_u, trips);
+  const T alpha_u = T(0.5);
+  const T beta_u = dvd(x.m, psum(sh, a, x, x.m));
+  const T uniform_obj = objective(sh, a, x, alpha_u, beta_u, trips);
 
-  double alpha = alpha_u, beta = beta_u, prev = INFINITY;
+  T alpha = alpha_u, beta = beta_u, prev = INFINITY;
   bool done = false, bad_seen = false;
   int iters = 0, ran = 0, par = 0;
-  double* objs = a.objectives + (long long)b * a.max_iters;
+  T* objs = a.objectives + (long long)b * a.max_iters;
   if (method != UNIFORM) {
     for (int i = 0; i < a.max_iters && !done; ++i, ++ran) {
       if (t == 0) ++trips[T_OUTER];
-      double alpha_n = 0.0;
+      T alpha_n = T(0);
       if (rep == 0) {
         alpha_n = optimize_alpha(sh, x, a, b, beta, scr, brackets, trips);
       }
@@ -1115,21 +1179,21 @@ __global__ void __launch_bounds__(BLOCK, 1) alloc_solve_kernel(const Args a) {
         }
         cl.sync();
       }
-      double beta_n = method == BARRIER
+      T beta_n = method == BARRIER
           ? barrier(sh, x, a, alpha_n, beta, trips)
           : sca(sh, x, y, ln, a, alpha_n, beta, trips, par);
-      double obj = objective(sh, a, x, alpha_n, beta_n, trips);
+      T obj = objective(sh, a, x, alpha_n, beta_n, trips);
       // a non-finite iterate must not poison the carry
       bool bad = !isfinite(obj);
-      bool conv = fabs(sub(prev, obj))
-                  <= mul(x.c[C_TOL], add(1.0, fabs(obj)));
+      bool conv = xabs(sub(prev, obj))
+                  <= mul(x.c[C_TOL], add(T(1), xabs(obj)));
       if (!bad) {
         alpha = alpha_n;
         beta = beta_n;
         prev = obj;
         iters = i + 1;
       }
-      if (t == 0 && rank == 0) objs[i] = bad ? NAN : obj;
+      if (t == 0 && rank == 0) objs[i] = bad ? T(NAN) : obj;
       done = conv || bad;
       bad_seen = bad_seen || bad;
     }
@@ -1150,21 +1214,21 @@ __global__ void __launch_bounds__(BLOCK, 1) alloc_solve_kernel(const Args a) {
     prev = uniform_obj;
   }
   if (rank == 0 && t == 0) {
-    for (int i = ran; i < a.max_iters; ++i) objs[i] = NAN;
+    for (int i = ran; i < a.max_iters; ++i) objs[i] = T(NAN);
     a.objective[b] = prev;
     a.iters[b] = iters;
     a.exit_reason[b] = reason;
   }
   if (rep == 0 && x.client) {
-    double hs = h_term(x, beta, x.two_s), hv = h_term(x, beta, x.two_v);
-    double lf = x.c[C_LOG_FLOOR];
+    T hs = h_term(x, beta, x.two_s), hv = h_term(x, beta, x.two_v);
+    T lf = x.c[C_LOG_FLOOR];
     a.alpha[row + x.kk] = alpha;
     a.beta[row + x.kk] = beta;
-    a.q[row + x.kk] = alpha > 0.0
-        ? exp(atleast(dvd(hs, clip(alpha, 1e-12, 1.0)), lf)) : 0.0;
-    a.p[row + x.kk] = alpha < 1.0
-        ? exp(atleast(dvd(hv, clip(sub(1.0, alpha), 1e-12, 1.0)), lf))
-        : 0.0;
+    a.q[row + x.kk] = alpha > T(0)
+        ? xexp(atleast(dvd(hs, clip(alpha, T(1e-12), T(1))), lf)) : T(0);
+    a.p[row + x.kk] = alpha < T(1)
+        ? xexp(atleast(dvd(hv, clip(sub(T(1), alpha), T(1e-12), T(1))), lf))
+        : T(0);
   }
   __syncthreads();
   if (rank == 0 && a.trips != nullptr && t < N_TRIPS) {
@@ -1192,7 +1256,8 @@ static cudaLaunchConfig_t launch_config(int nb, int cluster,
 }
 
 // How many clusters of c blocks card `dev` runs at once (asked once a
-// card and size; 0: none).
+// card, size and instantiation; 0: none).
+template <typename T>
 static int cluster_capacity(int dev, int c) {
   constexpr int MAX_DEVICES = 16;
   static int known[MAX_DEVICES][MAX_CLUSTER + 1] = {};   // capacity + 1
@@ -1201,7 +1266,7 @@ static int cluster_capacity(int dev, int c) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(1, c, 0, attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, alloc_solve_kernel, &cfg)
+  if (cudaOccupancyMaxActiveClusters(&n, alloc_solve_kernel<T>, &cfg)
       != cudaSuccess) {
     n = 0;
   }
@@ -1216,6 +1281,7 @@ static int cluster_capacity(int dev, int c) {
 // clusters run at once (a cluster lies within one GPC, so fewer than
 // SMs / blocks of them may fit); the other methods, and a batch of more
 // problems than SMs, take one replica.
+template <typename T>
 static Layout layout_of(int nb, int k, int method) {
   const int parts = (k + BLOCK - 1) / BLOCK;
   int replicas = 1;
@@ -1224,11 +1290,11 @@ static Layout layout_of(int nb, int k, int method) {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     // clusters above 8 blocks: Hopper runs 16 when the kernel allows it
-    cudaFuncSetAttribute(alloc_solve_kernel,
+    cudaFuncSetAttribute(alloc_solve_kernel<T>,
                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     replicas = sms / (nb * parts);
     if (replicas > MAX_CLUSTER / parts) replicas = MAX_CLUSTER / parts;
-    while (replicas > 1 && cluster_capacity(dev, replicas * parts) < nb) {
+    while (replicas > 1 && cluster_capacity<T>(dev, replicas * parts) < nb) {
       --replicas;
     }
     if (replicas < 1) replicas = 1;
@@ -1236,20 +1302,59 @@ static Layout layout_of(int nb, int k, int method) {
   return block_layout(k, replicas);
 }
 
-// -> {threads, lanes, groups, parts, cluster, nodes, depth} of a launch
-extern "C" int alloc_solve_layout(int nb, int k, int method, int* out) {
+template <typename T>
+static int layout_entry(int nb, int k, int method, int* out) {
   if (nb <= 0 || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
-  Layout l = layout_of(nb, k, method);
+  Layout l = layout_of<T>(nb, k, method);
   const int v[N_LAYOUT] = {l.threads, l.lanes, l.groups, l.parts,
                            l.cluster, l.nodes, l.depth};
   for (int i = 0; i < N_LAYOUT; ++i) out[i] = v[i];
   return (int)cudaSuccess;
 }
 
-static int launch(const Args& a, int nb, cudaStream_t stream) {
+// -> {threads, lanes, groups, parts, cluster, nodes, depth} of a launch
+extern "C" int alloc_solve_layout(int nb, int k, int method, int* out) {
+  return layout_entry<double>(nb, k, method, out);
+}
+
+extern "C" int alloc_solve_layout_f32(int nb, int k, int method, int* out) {
+  return layout_entry<float>(nb, k, method, out);
+}
+
+template <typename T>
+static int solve_entry(const T* coef, const T* gains, const T* p_w,
+                       const T* mask, const T* scal, const T* gate,
+                       T* scratch, int* brackets, T* alpha, T* beta, T* q,
+                       T* p, T* objective, int* iters, T* objectives,
+                       int* exit_reason, int* trips, const T* consts, int nb,
+                       int k, int method, int max_iters, int n_grid,
+                       int newton_iters, int early_exit,
+                       cudaStream_t stream) {
+  if (nb <= 0) return 0;
+  if (k < 1 || k > MAX_K || n_grid < 2 || max_iters < 0
+      || max_iters > MAX_ITERS || newton_iters < 0 || method < UNIFORM
+      || method > BARRIER) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args<T> a{coef, gains, p_w, mask, scal, gate, scratch, brackets, alpha,
+            beta, q, p, objective, iters, objectives, exit_reason, trips};
+  for (int i = 0; i < N_CONSTS; ++i) a.c[i] = consts[i];
+  a.k = k;
+  a.method = method;
+  a.max_iters = max_iters;
+  a.n_grid = n_grid;
+  a.newton_iters = newton_iters;
+  a.early_exit = early_exit;
+  const Layout l = layout_of<T>(nb, k, method);
+  a.lanes = l.lanes;
+  a.groups = l.groups;
+  a.parts = l.parts;
+  a.cluster = l.cluster;
+  a.nodes = l.nodes;
+  a.depth = l.depth;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(nb, a.cluster, stream, attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, alloc_solve_kernel, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, alloc_solve_kernel<T>, a);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -1263,27 +1368,29 @@ extern "C" int alloc_solve(const double* coef, const double* gains,
                            const double* consts, int nb, int k, int method,
                            int max_iters, int n_grid, int newton_iters,
                            int early_exit, cudaStream_t stream) {
-  if (nb <= 0) return 0;
-  if (k < 1 || k > MAX_K || n_grid < 2 || max_iters < 0
-      || max_iters > MAX_ITERS || newton_iters < 0 || method < UNIFORM
-      || method > BARRIER) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Args a{coef, gains, p_w, mask, scal, gate, scratch, brackets, alpha, beta,
-         q, p, objective, iters, objectives, exit_reason, trips};
-  for (int i = 0; i < N_CONSTS; ++i) a.c[i] = consts[i];
-  a.k = k;
-  a.method = method;
-  a.max_iters = max_iters;
-  a.n_grid = n_grid;
-  a.newton_iters = newton_iters;
-  a.early_exit = early_exit;
-  const Layout l = layout_of(nb, k, method);
-  a.lanes = l.lanes;
-  a.groups = l.groups;
-  a.parts = l.parts;
-  a.cluster = l.cluster;
-  a.nodes = l.nodes;
-  a.depth = l.depth;
-  return launch(a, nb, stream);
+  return solve_entry<double>(coef, gains, p_w, mask, scal, gate, scratch,
+                             brackets, alpha, beta, q, p, objective, iters,
+                             objectives, exit_reason, trips, consts, nb, k,
+                             method, max_iters, n_grid, newton_iters,
+                             early_exit, stream);
+}
+
+// the float32 instantiation: every pointer float32 but brackets, iters,
+// exit_reason and trips (int32), the constants the f32 caps
+extern "C" int alloc_solve_f32(const float* coef, const float* gains,
+                               const float* p_w, const float* mask,
+                               const float* scal, const float* gate,
+                               float* scratch, int* brackets, float* alpha,
+                               float* beta, float* q, float* p,
+                               float* objective, int* iters,
+                               float* objectives, int* exit_reason,
+                               int* trips, const float* consts, int nb, int k,
+                               int method, int max_iters, int n_grid,
+                               int newton_iters, int early_exit,
+                               cudaStream_t stream) {
+  return solve_entry<float>(coef, gains, p_w, mask, scal, gate, scratch,
+                            brackets, alpha, beta, q, p, objective, iters,
+                            objectives, exit_reason, trips, consts, nb, k,
+                            method, max_iters, n_grid, newton_iters,
+                            early_exit, stream);
 }

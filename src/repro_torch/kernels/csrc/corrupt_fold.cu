@@ -47,6 +47,11 @@
 //   writes its outputs directly.  Launches on one stream run in order, so
 //   the wrapper keeps one set of accumulators per device and stream.
 //
+// - The two seed words are read from device memory (a (2,) uint32 row,
+//   once per thread before its loop), not passed by value: a round
+//   captured in a CUDA graph replays with the seeds its input slot holds
+//   that round.
+//
 // The PRF is the reference's: the counter is k * n_words + col + word0
 // in uint32 (wrapping), columns >= n_words never flip (no thread covers
 // them), and an all-flip row is 0xFFFFFFFF.
@@ -118,9 +123,10 @@ __global__ void __launch_bounds__(THREADS)
                         unsigned long long* __restrict__ acc,
                         uint32_t* __restrict__ fold,
                         int32_t* __restrict__ flips, int n_words,
-                        int per_block, uint32_t seed0, uint32_t seed1,
+                        int per_block, const uint32_t* __restrict__ seeds,
                         uint32_t word0) {
   __shared__ uint2 warp_part[THREADS / 32];
+  const uint32_t seed0 = seeds[0], seed1 = seeds[1];
   const int k = blockIdx.y;
   const int blocks = gridDim.x;
   const int lo = min(n_words, (int)blockIdx.x * per_block);
@@ -177,8 +183,8 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int spfl_corrupt_fold(const void* words, void* rx,
                                  const void* thresh, const void* allflip,
                                  void* acc, void* fold, void* flips,
-                                 int n_clients, int n_words, uint32_t seed0,
-                                 uint32_t seed1, uint32_t word0,
+                                 int n_clients, int n_words,
+                                 const void* seeds, uint32_t word0,
                                  void* stream) {
   if (n_clients == 0) return 0;
   const int blocks =
@@ -188,6 +194,6 @@ extern "C" int spfl_corrupt_fold(const void* words, void* rx,
                         (cudaStream_t)stream>>>(
       (const uint32_t*)words, (uint32_t*)rx, (const uint32_t*)thresh,
       (const int32_t*)allflip, (unsigned long long*)acc, (uint32_t*)fold,
-      (int32_t*)flips, n_words, per_block, seed0, seed1, word0);
+      (int32_t*)flips, n_words, per_block, (const uint32_t*)seeds, word0);
   return (int)cudaGetLastError();
 }

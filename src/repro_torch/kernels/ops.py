@@ -16,7 +16,8 @@ outputs, and then:
 ``launch_counts`` counts successful kernel launches per kernel; a run
 resets it with :func:`reset_launch_counts` and reads it afterwards to
 show that its path went through the kernels.  Plain-version calls are not
-counted.
+counted.  A launch issued into a CUDA graph being captured counts once,
+there; the graph's replays do not pass through the wrappers.
 
 Words are int32 tensors holding uint32 bit patterns (``wire.format``).
 """
@@ -363,35 +364,50 @@ def corrupt_fold_accumulators(k: int, device) -> Tensor:
     return acc
 
 
-def corrupt_fold_words(seeds: Tuple[int, int], words: Tensor, ber,
+def seed_words(seeds, device) -> Tensor:
+    """Seed pairs (Python ints: one pair, or a sequence of pairs) as the
+    int32 tensor of their uint32 patterns on ``device`` that
+    :func:`corrupt_fold_words` reads: (2,) or (n, 2).  One copy from the
+    host; the training loop's draws make theirs in one copy a round."""
+    return fmt.to_words(torch.as_tensor(seeds, dtype=torch.int64)
+                        & fmt.MASK32).to(device)
+
+
+def corrupt_fold_words(seeds, words: Tensor, ber,
                        word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused bit-channel pass over (K, W) word buffers at per-client BER
-    ``ber`` (scalar or (K,)) with the counter PRF keyed by the two uint32
-    ``seeds``; ``word0`` offsets the global word counter.
-    -> (received (K, W), per-client flip-mask xor-fold (K,), per-client
-    flip count (K,)), all int32.  On the card it launches one kernel
-    besides the threshold arithmetic: the kernel writes every output."""
+    ``ber`` (scalar or (K,)) with the counter PRF keyed by two uint32
+    seed words: ``seeds`` is a (2,) int32 tensor of their patterns on the
+    words' device (read by the kernel from device memory, so a captured
+    launch replays with whatever the tensor holds), or a pair of Python
+    ints, copied there first (:func:`seed_words`).  ``word0`` offsets the
+    global word counter.  -> (received (K, W), per-client flip-mask
+    xor-fold (K,), per-client flip count (K,)), all int32.  On the card
+    it launches one kernel besides the threshold arithmetic: the kernel
+    writes every output."""
     _expect(words, 'words', torch.int32)
     if words.dim() != 2:
         raise ValueError('words: expected (K, W)')
     k, w = words.shape
+    if not isinstance(seeds, Tensor):
+        seeds = seed_words(seeds, words.device)
+    _expect(seeds, 'seeds', torch.int32, (2,))
     thresh, allf = wire_corrupt.flip_threshold(
         torch.as_tensor(ber, dtype=torch.float32,
                         device=words.device).expand(k))
     thresh = fmt.to_words(thresh).contiguous()
     allf = allf.to(torch.int32).contiguous()
-    s0, s1 = (int(s) & fmt.MASK32 for s in seeds)
     word0 = int(word0) & fmt.MASK32
-    if not _on_card(words, thresh):
-        return ref.corrupt_fold((s0, s1), words, thresh, allf, word0)
-    _contig(words, 'words')
+    if not _on_card(words, thresh, seeds):
+        return ref.corrupt_fold(seeds, words, thresh, allf, word0)
+    _contig(words, 'words'), _contig(seeds, 'seeds')
     rx = torch.empty_like(words)
     fold = torch.empty((k,), dtype=torch.int32, device=words.device)
     flips = torch.empty((k,), dtype=torch.int32, device=words.device)
     acc = corrupt_fold_accumulators(k, words.device)
     _launch('corrupt_fold', words, words.data_ptr(), rx.data_ptr(),
             thresh.data_ptr(), allf.data_ptr(), acc.data_ptr(),
-            fold.data_ptr(), flips.data_ptr(), k, w, s0, s1, word0)
+            fold.data_ptr(), flips.data_ptr(), k, w, seeds.data_ptr(), word0)
     return rx, fold, flips
 
 
@@ -430,19 +446,28 @@ def alloc_limits() -> dict:
     return build.constants('alloc_solve')
 
 
-def alloc_layout(nb: int, k: int, method: str = 'alternating') -> dict:
+# the solver kernel of each dtype: (kernel name, C scalar type, layout
+# entry point)
+_ALLOC_KERNELS = {
+    torch.float64: ('alloc_solve', ctypes.c_double, 'alloc_solve_layout'),
+    torch.float32: ('alloc_solve_f32', ctypes.c_float,
+                    'alloc_solve_layout_f32')}
+
+
+def alloc_layout(nb: int, k: int, method: str = 'alternating',
+                 dtype: torch.dtype = torch.float64) -> dict:
     """How the card lays out a launch of ``nb`` problems of ``k``
-    clients (``ALLOC_LAYOUT``): threads a block, lanes a client in a
-    golden section, groups of lanes a block, blocks that hold the
-    clients once (parts), blocks a problem (a cluster of replicas x
+    clients (``ALLOC_LAYOUT``) in ``dtype``: threads a block, lanes a
+    client in a golden section, groups of lanes a block, blocks that hold
+    the clients once (parts), blocks a problem (a cluster of replicas x
     parts), groups that take a dual price, bisection levels a round.
     Needs the card."""
     from repro_torch.core import allocation_jax as AJ
     AJ._check_method(method)
+    name, _, entry = _ALLOC_KERNELS[dtype]
     out = (ctypes.c_int * len(ALLOC_LAYOUT))()
-    err = build.library('alloc_solve').alloc_solve_layout(
-        ctypes.c_int(nb), ctypes.c_int(k),
-        ctypes.c_int(AJ.METHODS.index(method)), out)
+    err = getattr(build.library(name), entry)(ctypes.c_int(nb), ctypes.c_int(k),
+             ctypes.c_int(AJ.METHODS.index(method)), out)
     if err:
         raise ValueError(f'alloc_solve_layout({nb}, {k}, {method!r}): '
                          f'CUDA error {err}')
@@ -457,9 +482,11 @@ def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
     """Solve eq. (28) for one problem or a batch
     (``core.allocation_jax.JaxAllocationProblem``) -> ``JaxAllocation``.
 
-    On the card: one launch of the ``alloc_solve`` kernel (a thread
-    block or a cluster of blocks a problem, ``alloc_layout``), float64
-    only; no value is read back to the host.
+    On the card: one launch of the ``alloc_solve`` kernel (float64) or
+    of its float32 instantiation ``alloc_solve_f32`` (a thread block or a
+    cluster of blocks a problem, ``alloc_layout``); a problem of mixed
+    dtypes raises.  No value is read back to the host, so a launch can
+    be captured in a CUDA graph.
     ``gate`` (one value per problem, or one for all, on the card) solves
     a problem whose gate is not > 0 at the uniform point instead; with
     ``trips`` (int32 (B, len(ALLOC_TRIPS)) on the card) the kernel counts
@@ -472,10 +499,13 @@ def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
     if not _on_card(*fields, *extra):
         return AJ.solve_plain(prob, method, max_iters, tol, n_grid,
                               newton_iters, early_exit, inner_tol, gate)
-    if any(t.dtype != torch.float64 for t in fields + extra):
-        raise NotImplementedError(
-            'the alloc_solve kernel solves float64 problems; a float32 '
-            'solve on the card (fused rounds) is ROADMAP Queue 1 item 11')
+    dtype = fields[0].dtype
+    if dtype not in _ALLOC_KERNELS or any(t.dtype != dtype
+                                          for t in fields + extra):
+        raise TypeError('alloc_solve takes a problem (and gate) all float64 '
+                        'or all float32, got '
+                        f'{sorted({str(t.dtype) for t in fields + extra})}')
+    name, c_type, _ = _ALLOC_KERNELS[dtype]
     limits = alloc_limits()
     batched = AJ.is_batched(prob)
     nb, k = tuple(prob.A.shape) if batched else (1, prob.A.shape[0])
@@ -497,7 +527,7 @@ def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
                        dim=1).contiguous()
     gains, p_w = per_client(prob.gains), per_client(prob.p_w)
     mask = (per_client(prob.mask) if prob.mask is not None
-            else torch.ones((nb, k), dtype=torch.float64, device=dev))
+            else torch.ones((nb, k), dtype=dtype, device=dev))
     scal = torch.stack([getattr(prob, f).reshape(nb) for f in AJ.SCALARS],
                        dim=1).contiguous()
     if gate is not None:
@@ -505,26 +535,28 @@ def alloc_solve(prob, method: str = 'alternating', max_iters: int = 6,
     if trips is not None:
         _expect(trips, 'trips', torch.int32, (nb, len(ALLOC_TRIPS)))
         _contig(trips, 'trips')
-    caps = AJ._caps(torch.float64)
-    consts = (ctypes.c_double * 16)(
+    caps = AJ._caps(dtype)
+    # Python floats, rounded to the kernel's type as PyTorch rounds a
+    # Python scalar against a tensor of that dtype
+    consts = (c_type * 16)(
         caps.exp_cap, caps.pow_cap, caps.h_floor, caps.log_floor,
         caps.newton_eps, caps.a_eps, 1.0 - caps.a_eps, AJ.AC.BETA_MIN,
         AJ.AC.BETA_MAX, AJ.GOLDEN_RATIO, AJ.AC.LN2, AJ.LN10, tol, inner_tol,
         AJ.SCA_TOL, AJ.BARRIER_LR)
-    f64 = dict(dtype=torch.float64, device=dev)
-    scratch = torch.empty((nb, 3 * n_grid * k + 2 * k), **f64)
+    real = dict(dtype=dtype, device=dev)
+    scratch = torch.empty((nb, 3 * n_grid * k + 2 * k), **real)
     brackets = torch.empty((nb, (n_grid - 1) * k), dtype=torch.int32,
                            device=dev)
-    alpha, beta, q, p = (torch.empty((nb, k), **f64) for _ in range(4))
-    objective = torch.empty((nb,), **f64)
-    objectives = torch.empty((nb, max_iters), **f64)
+    alpha, beta, q, p = (torch.empty((nb, k), **real) for _ in range(4))
+    objective = torch.empty((nb,), **real)
+    objectives = torch.empty((nb, max_iters), **real)
     iters, reason = (torch.empty((nb,), dtype=torch.int32, device=dev)
                      for _ in range(2))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _launch('alloc_solve', coef, coef.data_ptr(), gains.data_ptr(),
+    _launch(name, coef, coef.data_ptr(), gains.data_ptr(),
             p_w.data_ptr(), mask.data_ptr(), scal.data_ptr(), ptr(gate),
             scratch.data_ptr(), brackets.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), q.data_ptr(), p.data_ptr(),

@@ -155,11 +155,13 @@ def unpack_dequant(sign_words: Tensor, qidx_words: Tensor, gbar: Tensor,
                      mod_ok, weight, n, bits)[1][0]
 
 
-def corrupt_fold(seeds: Tuple[int, int], words: Tensor, thresh: Tensor,
+def corrupt_fold(seeds, words: Tensor, thresh: Tensor,
                  allflip: Tensor, word0: int = 0
                  ) -> Tuple[Tensor, Tensor, Tensor]:
     """Counter-PRF flips of (K, W) words at per-client uint32 thresholds
-    -> (received, mask xor-fold (K,), flip count (K,)), int32."""
+    with the seed words ``seeds`` (two ints, or a (2,) int32 tensor of
+    their patterns, as the kernel reads them) -> (received, mask xor-fold
+    (K,), flip count (K,)), int32."""
     mask = wire_corrupt.threshold_mask(seeds, tuple(words.shape), thresh,
                                        allflip, word0, words.device)
     return (fmt.to_words(words) ^ fmt.to_words(mask), fmt.xor_fold(mask),

@@ -319,17 +319,18 @@ MAIN_PATHS = {
         'coordinate': (),
         'client': (),
     }),
-    'corrupt_fold': ('5ffb84ccd2bcf531', {
+    'corrupt_fold': ('6f16689711cf1d79', {
         # every thread: entry, bounds test, the warp and block reductions;
-        # a thread with a word: the loop's preheader; per word one trip
-        # (the 32-plane PRF, the xor, fold and count); per block of a row
-        # of several: its first thread's two atomics and the predicated
-        # fold store; per row: the count's last block's store
-        'thread': ((0x0000, 0x0100), (0x1730, 0x1920)),
-        'worker': ((0x0110, 0x0350),),
-        'word': ((0x0360, 0x1720),),
-        'block': ((0x1930, 0x1c70),),
-        'row': ((0x1c80, 0x1cb0),),
+        # a thread with a word: the loop's preheader (with the two seed
+        # words' loads); per word one trip (the 32-plane PRF, the xor, fold
+        # and count); per block of a row of several: its first thread's
+        # two atomics and the predicated fold store; per row: the count's
+        # last block's store
+        'thread': ((0x0000, 0x00f0), (0x1770, 0x1960)),
+        'worker': ((0x0100, 0x0370),),
+        'word': ((0x0380, 0x1760),),
+        'block': ((0x1970, 0x1cb0),),
+        'row': ((0x1cc0, 0x1cf0),),
     }),
     'fold_words': ('8a77a7a1f5dce961', {
         # every thread: set-up, the split cluster barrier, the warp and
@@ -456,6 +457,32 @@ MAIN_PATHS = {
         'golden_pair': (),
         'barrier_step': ((0x5c730, 0x62490), (0x64e00, 0x662b0)),
         'backtrack': ((0x624a0, 0x64df0),),
+        'bracket': (),
+        'alpha_client': (),
+        'golden_call': (),
+        'sca_round': (),
+        'objective': (),
+    }),
+    'alloc_solve_f32': ('ddd8e5afa6a30eb8', {
+        # alloc_solve_kernel<float>, the same units as alloc_solve's (its
+        # float64 twin's build has alloc_solve's fingerprint: the template
+        # left its SASS as it was).  The two functions have the same loop
+        # structure (sass.regions: 191 loops at the same depths), so each
+        # span is the f32 loop of the same place: the grid loop and the
+        # Newton loop whole; a golden step's head (the tolerance-exit
+        # test), the bracket update (predicated here, not branched) up to
+        # the two-lane branch, and the two-lane path to the loop's end,
+        # with the surrogate evaluations and the shuffle; the barrier
+        # step around the backtracking loop, and that loop.  The f32
+        # divisions' slow path and powf's and expf's subroutines are CALLs
+        # outside the spans.
+        'grid_point': ((0x05fe0, 0x06e20),),
+        'newton_step': ((0x07ed0, 0x09360),),
+        'golden_step': ((0x25a60, 0x25a90), (0x28470, 0x28580),
+                        (0x2bc00, 0x2d940)),
+        'golden_pair': (),
+        'barrier_step': ((0x42b70, 0x47520), (0x49f20, 0x4b3c0)),
+        'backtrack': ((0x47530, 0x49f10),),
         'bracket': (),
         'alpha_client': (),
         'golden_call': (),

@@ -14,6 +14,12 @@ Records pushed into one ring share a layout: the same fields are
 tensors, host values or ``None`` (one transport, wire and channel
 configuration).  Pushing more than ``capacity`` records between flushes
 wraps and overwrites the oldest; ``flush`` returns the surviving window.
+
+Fused rounds (``training.fused``) write a segment's records into fixed
+slots instead, inside a captured CUDA graph ('scan': round i of the
+segment into slot i, :func:`ring_write`) or behind its replay ('eager':
+a device copy from a one-slot ring, :func:`ring_copy`), and mark the
+slots written with :func:`ring_written` before the flush.
 """
 from __future__ import annotations
 
@@ -62,18 +68,40 @@ def ring_init(proto: RoundTelemetry, capacity: int) -> TelemetryRing:
     return TelemetryRing(buf, host, capacity)
 
 
-def ring_push(ring: TelemetryRing, rec: RoundTelemetry) -> TelemetryRing:
-    """Write ``rec`` into the next slot: device copies only."""
+def ring_write(ring: TelemetryRing, slot: int,
+               rec: RoundTelemetry) -> None:
+    """Write ``rec`` into slot ``slot``: device copies only (so a
+    captured round can write its record)."""
     tensors, host = _split(rec)
     if set(tensors) != set(ring.buf) or set(host) != set(ring.host_fields):
         raise ValueError('a record of another layout than the ring\'s: '
                          f'{sorted(tensors)} / {sorted(host)}')
-    slot = ring.idx % ring.capacity
     for name, val in tensors.items():
         ring.buf[name][slot].copy_(val)
     ring.host[slot] = host
+
+
+def ring_push(ring: TelemetryRing, rec: RoundTelemetry) -> TelemetryRing:
+    """Write ``rec`` into the next slot: device copies only."""
+    ring_write(ring, ring.idx % ring.capacity, rec)
     ring.idx += 1
     return ring
+
+
+def ring_copy(dst: TelemetryRing, slot: int, src: TelemetryRing,
+              src_slot: int = 0) -> None:
+    """Device copies of ``src``'s slot ``src_slot`` into ``dst``'s slot
+    ``slot`` (rings of one layout)."""
+    for name, b in src.buf.items():
+        dst.buf[name][slot].copy_(b[src_slot])
+    dst.host[slot] = dict(src.host[src_slot])
+
+
+def ring_written(ring: TelemetryRing, n: int) -> None:
+    """Mark slots 0..n-1 as the records written since the last flush."""
+    if not 0 <= n <= ring.capacity:
+        raise ValueError(f'{n} records in a ring of {ring.capacity}')
+    ring.idx = n
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:

@@ -1,5 +1,5 @@
-"""Paper-scale wireless FL simulator — Algorithm 2 in a host loop (the
-port of ``repro.training.fl_loop`` with ``round_fusion='none'``).
+"""Paper-scale wireless FL simulator — Algorithm 2 in a host loop, or in
+fused rounds (the port of ``repro.training.fl_loop``).
 
 Per round n:
   1. each device computes g_{k,n} = ∇F_k(w_n): one batched
@@ -50,10 +50,42 @@ the host in one copy, and its rows (``obs.record.to_row``) fill the
 ``telemetry_path`` set, the JSONL sink (``obs.sink``), which also gets
 the host spans of ``sim.trace`` and the metrics at the end of the run.
 
+Fused rounds (``round_fusion`` 'eager' or 'scan', :meth:`FLSimulator.
+_run_fused`, ``training.fused``): the rounds run in segments of
+``scan_segment_rounds`` (default ``telemetry_flush_every``) with no host
+read or host copy inside a segment.  Every draw the host loop makes on
+the host is made at the segment's boundary, from the same generators in
+the same order, and reaches the card in one copy a segment; eq. (28) is
+solved in float32 inside the round (the reference's ``alloc_f32``: f32
+stats, ``problem_from_stats(dtype=float32)``, the ``alloc_solve_f32``
+kernel, the round-0 guard as the kernel's gate).  On the card 'scan'
+captures a segment's rounds into one CUDA graph and launches it once a
+segment, 'eager' captures one round and replays it once a round; on the
+CPU both run the same round body eagerly.  The host loop and the fused
+rounds share one round body (:meth:`FLSimulator._round_body`), which
+updates the simulator's carry (``sim.params``, ``sim.gbar``, the
+straggler state) in place; the fused runs keep their buffers and graphs
+from one run to the next.  A transport that solves
+nothing gives the host loop's run bit for bit; spfl/spfl_retx differ
+from it only through the float32 solve's (q, p).  The boundary is the
+run's only sync point: one ring flush, the evaluation (every boundary;
+``eval_every`` is quantized to them) and the segment's last mean client
+loss; ``alloc_time_s`` is 0.0 and ``round_time_s`` the segment's wall
+time over its rounds.
+
 The CNN runs in full float32: constructing a simulator sets
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), since
-TF32 convolutions keep about three decimal digits.
+TF32 convolutions keep about three decimal digits.  The gradient pass
+runs under ``torch.backends.cudnn.deterministic`` when
+``sim.deterministic`` is set (the default under fused rounds, so that a
+round gives the same bits whether it runs eagerly or replays from a
+graph, and 'scan' the same as 'eager'): cuDNN's default weight-gradient
+algorithm on the card adds in an order that changes from pass to pass.
+The host loop does not set it by default (the deterministic algorithms
+are slower; PERF.md has the cost) and leaves the process-wide flag as
+the caller set it; set ``sim.deterministic = True`` to compare a
+host-loop run with a fused one bit for bit on the card.
 
 Randomness comes from ``torch.Generator``s seeded from the run seed
 (and, in population mode, from the Threefry keys above):
@@ -73,9 +105,11 @@ round given the same draws (and gains) agrees exactly
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -99,11 +133,10 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.record import RoundTelemetry, to_row
 from repro_torch.obs.sink import JsonlSink, run_manifest
 from repro_torch.obs.trace import StageTrace
+from repro_torch.training import fused
 
 # knobs the port does not run yet -> the ROADMAP.md item that brings them
 _NOT_YET = (
-    (lambda fl: fl.round_fusion != 'none',
-     'round_fusion {fl.round_fusion!r} is ROADMAP Queue 1 item 11'),
     (lambda fl: fl.collective != 'gather',
      "collective='sharded' is ROADMAP Queue 1 item 12"),
 )
@@ -245,6 +278,8 @@ class FLSimulator:
         self.device = resolve(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # deterministic cuDNN algorithms for the gradient pass
+        self.deterministic = fl.round_fusion != 'none'
         self.fl = fl
         seed = fl.seed if seed is None else seed
         # population mode: client_x holds the S data shards and K is the
@@ -264,8 +299,8 @@ class FLSimulator:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.host_gen = torch.Generator().manual_seed(seed)
         self.model = CNN().to(self.device)
-        self.params = init_params(self.host_gen).to(self.device)
-        self.dim = self.params.shape[0]
+        self._params = init_params(self.host_gen).to(self.device)
+        self.dim = self._params.shape[0]
 
         def to_nchw(x: np.ndarray) -> torch.Tensor:
             t = torch.as_tensor(np.asarray(x, np.float32))
@@ -339,6 +374,13 @@ class FLSimulator:
         # from the flushed rows
         self.trace = StageTrace()
         self.metrics = MetricsRegistry()
+        # fused rounds: a context manager entered around each segment's
+        # launch (its upload and replays), for callers that watch it
+        # (a sync-debug mode on the card, host reads made to raise)
+        self.segment_guard = contextlib.nullcontext
+        # fused rounds: the buffers and graphs kept from run to run
+        # (``_fused_setup``; None before the first fused run)
+        self._fused = None
 
         def client_loss(flat, x, y):
             logits = functional_call(self.model, module_params(flat), (x,))
@@ -349,13 +391,25 @@ class FLSimulator:
 
     # ------------------------------------------------------------------
     @property
+    def params(self) -> torch.Tensor:
+        """The flat model parameters.  The simulator owns the tensor and
+        every round updates it in place (a captured round writes to its
+        address); assigning copies the value into it."""
+        return self._params
+
+    @params.setter
+    def params(self, value: torch.Tensor) -> None:
+        self._params.copy_(value)
+
+    @property
     def gbar(self) -> torch.Tensor:
-        """The compensation vector(s) the next round uses."""
+        """The compensation vector(s) the next round uses (owned and
+        updated in place, as :attr:`params`)."""
         return self.comp.gbar
 
     @gbar.setter
     def gbar(self, value: torch.Tensor) -> None:
-        self.comp = self.comp._replace(gbar=value)
+        self.comp.gbar.copy_(value)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return functional_call(self.model, module_params(self.params), (x,))
@@ -368,7 +422,9 @@ class FLSimulator:
         if cohort is not None:
             xs = xs.index_select(0, cohort.shards)
             ys = ys.index_select(0, cohort.shards)
-        grads, losses = self._client_grads(params, xs, ys)
+        with (_cudnn_deterministic() if self.deterministic
+              else contextlib.nullcontext()):
+            grads, losses = self._client_grads(params, xs, ys)
         return losses, grads
 
     @torch.no_grad()
@@ -504,38 +560,50 @@ class FLSimulator:
                 int(sol.info.get('iters_used', 0)),
                 int(sol.info.get('exit_reason', 0)), alloc_t)
 
-    def draw_cohort(self, round_key: Optional[torch.Tensor] = None
-                    ) -> pop.CohortDraw:
+    def draw_cohort(self, round_key: Optional[torch.Tensor] = None,
+                    n: Optional[int] = None) -> pop.CohortDraw:
         """Population mode: the cohort of round key ``round_key`` (default:
         the next key of the chain, ``self.key, kr = split(self.key)``), its
-        gains at this round (shadowed under ``allocation_cadence=
-        'per_round'``) and, under an attack, its byzantine membership —
-        CPU tensors (``population.draw_cohort``)."""
+        gains at round ``n`` (default this round; shadowed under
+        ``allocation_cadence='per_round'``) and, under an attack, its
+        byzantine membership — CPU tensors (``population.draw_cohort``)."""
         fl = self.fl
         if round_key is None:
             self.key, round_key = threefry.split(self.key)
         return pop.draw_cohort(
-            round_key, self.pop_streams, fl, self._round,
+            round_key, self.pop_streams, fl,
+            self._round if n is None else n,
             gains=fl.transport in ALLOCATING,
             shadowing=fl.allocation_cadence == 'per_round',
             byzantine=fl.attack != 'none')
 
     def cohort_to_device(self, draw: pop.CohortDraw) -> CohortRound:
-        """A host cohort draw on the simulator's device, in one copy: its
-        per-slot arrays stacked as float64 columns (ids < 2^32 and the
-        float32 budgets and gains are exact there), then split on the
-        device."""
-        fl, c = self.fl, draw.cohort
+        """A host cohort draw on the simulator's device, in one copy of
+        its :meth:`cohort_columns`, split there (:meth:`cohort_round`)."""
+        return self.cohort_round(self.cohort_columns(draw).to(
+            self.device, non_blocking=True))
+
+    def cohort_columns(self, draw: pop.CohortDraw) -> torch.Tensor:
+        """A host cohort draw's per-slot arrays stacked as (K, C) float64
+        columns on the host (ids < 2^32 and the float32 budgets and gains
+        are exact there): ids, shards, presence, budgets, then the gains
+        and the byzantine flags where the draw has them."""
+        c = draw.cohort
         n_shards = self.client_x.shape[0]
         cols = [c.ids, pop.shard_ids(c.ids, n_shards), c.present, c.p_w]
         if draw.gains is not None:
             cols.append(draw.gains)
         if draw.byzantine is not None:
             cols.append(draw.byzantine)
-        packed = torch.stack([col.to(torch.float64) for col in cols], dim=1)
-        dev = packed.to(self.device, non_blocking=True).unbind(1)
-        gains = dev[4] if draw.gains is not None else None
-        byz = dev[-1] > 0.0 if draw.byzantine is not None else None
+        return torch.stack([col.to(torch.float64) for col in cols], dim=1)
+
+    def cohort_round(self, cols: torch.Tensor) -> CohortRound:
+        """The :class:`CohortRound` of (K, C) :meth:`cohort_columns` on the
+        device (device operations only)."""
+        fl = self.fl
+        dev = cols.unbind(1)
+        gains = dev[4] if fl.transport in ALLOCATING else None
+        byz = dev[-1] > 0.0 if fl.attack != 'none' else None
         present = (dev[2] > 0.0 if fl.cohort_sampler == 'availability'
                    else None)
         return CohortRound(dev[0].to(torch.int64), dev[1].to(torch.int64),
@@ -544,26 +612,31 @@ class FLSimulator:
     def step_stragglers(self, u: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
         """One step of the straggler chain on the (K,) f32 uniforms ``u``
-        (default: K fresh ones from ``straggler_gen``) -> this round's
-        (K,) bool active mask."""
+        (default: K fresh ones from ``straggler_gen``), its state updated
+        in place -> this round's (K,) bool active mask."""
         fl = self.fl
         if u is None:
             u = torch.rand((self.K,), generator=self.straggler_gen)
-        self.straggler, active = adversary.straggler_step(
+        state, active = adversary.straggler_step(
             u.to(self.device), self.straggler, fl.dropout_rate,
             fl.straggler_stickiness)
+        self.straggler.copy_(state)
         return active
 
-    def _transport(self, grads, q, p, draws, active=None, byz_mask=None):
+    def _transport(self, grads, q, p, draws, active=None, byz_mask=None,
+                   round_idx=None):
         """Step 3: the configured transport -> (ghat, telemetry).  The
         adversarial knobs reach spfl/spfl_retx only; ``byz_mask`` (the
-        cohort's, in population mode) replaces the run-static mask."""
+        cohort's, in population mode) replaces the run-static mask;
+        ``round_idx`` (an int, or an int64 device scalar in fused rounds;
+        default this round) stamps the packet headers."""
         fl, kind = self.fl, self.fl.transport
+        round_idx = self._round if round_idx is None else round_idx
         if kind in ALLOCATING:
             return transport.spfl_aggregate(
                 grads, self.gbar, q, p, fl.quant_bits, fl.b0_bits, draws,
                 n_retx=1 if kind == 'spfl_retx' else 0, wire=fl.wire,
-                round_idx=self._round, channel=fl.channel,
+                round_idx=round_idx, channel=fl.channel,
                 attack=fl.attack,
                 byz_mask=self.byz_mask if byz_mask is None else byz_mask,
                 attack_scale=fl.attack_scale, active=active,
@@ -581,44 +654,63 @@ class FLSimulator:
             return transport.scheduling_aggregate(grads, self.gains_f32,
                                                   self.p_w_f32, fl, draws)
         return transport.error_free_aggregate(grads, fl, draws,
-                                              round_idx=self._round)
+                                              round_idx=round_idx)
 
     def _roll_compensation(self, ghat: torch.Tensor, grads: torch.Tensor,
-                           n: int) -> None:
-        """Step 4's ḡ roll.  seeded_random draws round n's vector for the
-        next round from a generator seeded off the seed and n."""
+                           normals: Optional[torch.Tensor]) -> None:
+        """Step 4's ḡ roll, in place.  seeded_random takes the next round's
+        vector from ``normals`` (:meth:`_host_inputs`)."""
         kind = self.fl.compensation
-        self.comp = compensation.update_state(kind, self.comp, ghat, grads)
-        if kind == 'seeded_random':
-            gen = torch.Generator().manual_seed(
-                (self.fl.seed + 99) * 1_000_003 + n)
-            self.gbar = compensation.current_gbar(kind, self.comp,
-                                                  generator=gen)
+        state = compensation.update_state(kind, self.comp, ghat, grads)
+        gbar = (compensation.current_gbar(kind, state, normals=normals)
+                if kind == 'seeded_random' else state.gbar)
+        if gbar is not self.comp.gbar:
+            self.comp.gbar.copy_(gbar)
+        self.comp = self.comp._replace(round_idx=state.round_idx)
 
-    def round_step(self, draws: Optional[transport.Draws] = None,
-                   n: Optional[int] = None, gains=None,
-                   straggler_u: Optional[torch.Tensor] = None,
-                   cohort: Optional[pop.CohortDraw] = None
-                   ) -> RoundResult:
-        """One round of Algorithm 2; ``draws`` default to fresh ones from
-        the simulator's generators.  ``n`` is the index within the
-        current ``run`` (the seeded-random compensation keys on it).
-        ``gains`` (K,) replace the static gains in this round's solve:
-        float64 on the device for the 'jax' backend (a host array is
-        copied there), a host array for 'numpy'.  Under dropout_rate > 0
-        the straggler chain steps first, on ``straggler_u`` (K,) if
-        given.  In population mode the round's cohort is ``cohort`` (a
-        host ``population.CohortDraw``) or the next of the key chain
-        (``draw_cohort``), drawn before the gradients."""
+    def _host_inputs(self, n_run: int, n: int,
+                     cohort: Optional[pop.CohortDraw] = None,
+                     straggler_u: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """The host-made inputs of the run's round ``n_run`` (round ``n``
+        of the simulator) that both dispatches draw the same way, CPU
+        tensors by field: the cohort's columns (population mode;
+        ``cohort`` or the next of the key chain), the straggler uniforms
+        (``straggler_u`` or K from ``straggler_gen``) and the
+        seeded-random normals (a generator seeded off the seed and
+        ``n_run``)."""
         fl = self.fl
-        n = self._round if n is None else n
-        crd = None
+        out = {}
         if self.population:
             with record_function('round/cohort'):
-                crd = self.cohort_to_device(
-                    self.draw_cohort() if cohort is None else cohort)
-            gains = crd.gains
-        active = (self.step_stragglers(straggler_u)
+                out['cohort'] = self.cohort_columns(
+                    self.draw_cohort(n=n) if cohort is None else cohort)
+        if fl.dropout_rate > 0.0:
+            out['straggler_u'] = (
+                torch.rand((self.K,), generator=self.straggler_gen)
+                if straggler_u is None else straggler_u)
+        if fl.compensation == 'seeded_random':
+            gen = torch.Generator().manual_seed(
+                (fl.seed + 99) * 1_000_003 + n_run)
+            out['normals'] = torch.randn(self.gbar.shape, generator=gen,
+                                         dtype=torch.float32)
+        return out
+
+    def _round_body(self, inp: Dict[str, torch.Tensor],
+                    draws: transport.Draws, solve, round_idx
+                    ) -> RoundResult:
+        """One round of Algorithm 2, for both dispatches: the host loop
+        (:meth:`round_step`) and the fused rounds (:meth:`_fused_round`).
+        ``inp`` holds the round's inputs by field (:meth:`_host_inputs`,
+        and ``gains`` where given; the cohort's columns on the device),
+        ``solve(grads, gains, p_w)`` is step 2 (:meth:`_solve` or
+        :meth:`_solve_f32`), ``round_idx`` stamps the headers and the
+        record.  The carry (parameters, ḡ, straggler state) is updated in
+        place."""
+        fl = self.fl
+        crd = self.cohort_round(inp['cohort']) if self.population else None
+        gains = crd.gains if crd is not None else inp.get('gains')
+        active = (self.step_stragglers(inp['straggler_u'])
                   if fl.dropout_rate > 0.0 else None)
         if crd is not None:
             active = pop.combine_active(crd.present, active)
@@ -626,33 +718,324 @@ class FLSimulator:
             losses, grads = self.client_grads(self.params, crd)
         with self.trace.span('alloc_solve'):
             if fl.transport in ALLOCATING:
-                (sol, stats, q, p, objective, iters, reason,
-                 alloc_t) = self._solve(grads, gains,
-                                        None if crd is None else crd.p_w)
+                solved = solve(grads, gains,
+                               None if crd is None else crd.p_w)
             else:
                 # no eq. (28) solve: q = p = 1, as the reference's loop
-                sol = stats = objective = iters = reason = None
-                q = p = torch.ones(self.K, device=self.device)
-                alloc_t = 0.0
+                ones = torch.ones(self.K, device=self.device)
+                solved = (None, None, ones, ones, None, None, None, 0.0)
+        sol, stats, q, p, objective, iters, reason, alloc_t = solved
         with record_function('round/transport'):
-            draws = self.draw() if draws is None else draws
             ghat, rec = self._transport(
                 grads, q, p, draws, active,
-                None if crd is None else crd.byzantine)
+                None if crd is None else crd.byzantine, round_idx=round_idx)
         with self.trace.span('update'), record_function('round/update'):
-            self.params = self.params - fl.learning_rate * ghat
-            self._roll_compensation(ghat, grads, n)
+            self.params.copy_(self.params - fl.learning_rate * ghat)
+            self._roll_compensation(ghat, grads, inp.get('normals'))
         rec = rec.with_allocation(q, p, objective=objective,
-                                  round_idx=self._round, iters=iters,
+                                  round_idx=round_idx, iters=iters,
                                   exit_reason=reason)
         if crd is not None:
             rec = rec._replace(cohort_ids=crd.ids)
-        self._round += 1
         return RoundResult(losses, grads, ghat, rec, sol, stats, alloc_t)
 
+    def round_step(self, draws: Optional[transport.Draws] = None,
+                   n: Optional[int] = None, gains=None,
+                   straggler_u: Optional[torch.Tensor] = None,
+                   cohort: Optional[pop.CohortDraw] = None
+                   ) -> RoundResult:
+        """One round of Algorithm 2 in the host loop; ``draws`` default to
+        fresh ones from the simulator's generators.  ``n`` is the index
+        within the current ``run`` (the seeded-random compensation keys on
+        it).  ``gains`` (K,) replace the static gains in this round's
+        solve: float64 on the device for the 'jax' backend (a host array
+        is copied there), a host array for 'numpy'.  Under dropout_rate >
+        0 the straggler chain steps first, on ``straggler_u`` (K,) if
+        given.  In population mode the round's cohort is ``cohort`` (a
+        host ``population.CohortDraw``) or the next of the key chain
+        (``draw_cohort``), drawn before the gradients."""
+        n = self._round if n is None else n
+        inp = self._host_inputs(n, self._round, cohort, straggler_u)
+        if 'cohort' in inp:
+            inp['cohort'] = inp['cohort'].to(self.device, non_blocking=True)
+        if gains is not None:
+            inp['gains'] = gains
+        res = self._round_body(inp, self.draw() if draws is None else draws,
+                               self._solve, self._round)
+        self._round += 1
+        return res
+
     # ------------------------------------------------------------------
+    # fused rounds (round_fusion 'eager' | 'scan')
+    # ------------------------------------------------------------------
+    def _solve_f32(self, grads: torch.Tensor, gains=None, p_w=None):
+        """Step 2 inside a fused round, float32 end to end (the
+        reference's ``alloc_f32``): :func:`fused_stats`, the float32
+        problem and one solver call (the ``alloc_solve_f32`` kernel on the
+        card), with the round-0 guard as the solver's gate max(gb2) > 0:
+        no host read.  ``gains`` and ``p_w`` (K,) default to the static
+        geometry's and the budgets.  -> (sol, stats, q, p, objective,
+        iters, exit_reason, 0.0) as :meth:`_solve`, device tensors."""
+        fl = self.fl
+        gains = self.gains_dev if gains is None else gains
+        p_w = self.p_w_dev if p_w is None else p_w
+        with record_function('round/stats'):
+            g2, gb2, v, d2 = fused_stats(grads, self.gbar, fl.quant_bits)
+            prob = alloc_jax.problem_from_stats(g2, gb2, v, d2, gains, p_w,
+                                                self.dim, fl,
+                                                dtype=torch.float32)
+        with record_function('round/solve'):
+            gate = None if fl.allocator == 'uniform' else torch.amax(gb2)
+            sol = ops.alloc_solve(prob, fl.allocator,
+                                  max_iters=fl.allocation_max_iters or 6,
+                                  tol=fl.allocation_tol or 1e-5,
+                                  early_exit=fl.allocation_early_exit,
+                                  gate=gate)
+        stats = dict(g2=g2, gb2=gb2, v=v, d2=d2, prob=prob)
+        return (sol, stats, sol.q, sol.p, sol.objective, sol.iters,
+                sol.exit_reason, 0.0)
+
+    def _fused_host_inputs(self, n_run: int, n: int,
+                           traj_host: Optional[np.ndarray]
+                           ) -> Dict[str, torch.Tensor]:
+        """A fused round's input slot (CPU tensors by field): the host
+        loop's host-made inputs of that round (:meth:`_host_inputs`), the
+        transport's host draws (``transport.host_draws``), the fading row
+        and the round index."""
+        fl = self.fl
+        out = self._host_inputs(n_run, n)
+        out['n'] = torch.tensor([n], dtype=torch.int64)
+        n_retx = 1 if fl.transport == 'spfl_retx' else 0
+        out.update(transport.host_draws(self.K, n_retx, fl.channel,
+                                        self.host_gen, kind=fl.transport))
+        if traj_host is not None:
+            out['gains'] = torch.as_tensor(traj_host[n_run])
+        return out
+
+    def _fused_round(self, inp: Dict[str, torch.Tensor],
+                     rand: Optional[torch.Tensor]):
+        """One fused round from its input slot ``inp``
+        (``training.fused.Staging``) and quantizer uniforms ``rand``: the
+        round body with the float32 in-round solve, device operations
+        only.  -> (condensed record, mean client loss)."""
+        draws = transport.Draws(rand, **{f: inp[f] for f in _DRAW_FIELDS
+                                         if f in inp})
+        res = self._round_body(inp, draws, self._solve_f32, inp['n'][0])
+        return res.telemetry.condensed(), res.losses.mean()
+
+    def _fused_warm_up(self, stage: fused.Staging, stream):
+        """One round on scratch copies of the carry and on slot 0, on the
+        capture stream, before anything is captured: it loads the
+        kernels, initialises cuDNN and the vmapped gradient and makes the
+        capture stream's corrupt_fold accumulators (outside any graph's
+        pool; the kernel leaves them zero).  The generators, parameters,
+        ḡ, straggler state and ring stay where they were.  -> the round's
+        record (the ring's prototype)."""
+        carry = (self._params, self.comp, self.straggler)
+        self._params = self._params.clone()
+        self.comp = self.comp._replace(gbar=self.comp.gbar.clone())
+        self.straggler = self.straggler.clone()
+        try:
+            with fused.on_stream(stream):
+                rec, _ = self._fused_round(*stage.slot(0))
+        finally:
+            self._params, self.comp, self.straggler = carry
+        return rec
+
+    def _fused_setup(self, first: Dict[str, torch.Tensor],
+                     seg_len: int) -> SimpleNamespace:
+        """The buffers of the simulator's fused runs, shaped after a first
+        input slot, with the warm-up round run on it (slot 0 of ``stage``
+        holds it): the staging (and under 'eager' the one slot its graph
+        reads), the telemetry ring (and the graph's one-slot ring), the
+        loss slots, the capture stream and the graphs, captured at first
+        use and kept by key ('eager', or the segment length).  Every later
+        fused run reuses them: the graphs read and write these buffers and
+        the carry at their addresses."""
+        fl = self.fl
+        eager = fl.round_fusion == 'eager'
+        layout = fused.SlotLayout(first)
+        rand_shape = None if fl.transport == 'onebit' else (self.K, self.dim)
+        st = SimpleNamespace(
+            eager=eager,
+            stage=fused.Staging(layout, seg_len, rand_shape, self.device),
+            static=(fused.Staging(layout, 1, rand_shape, self.device)
+                    if eager else None),
+            losses=torch.zeros((seg_len,), device=self.device),
+            static_loss=torch.zeros((), device=self.device),
+            stream=fused.side_stream(self.device),
+            ring=None, out_ring=None, graphs={})
+        return st
+
+    def _fused_launcher(self, st: SimpleNamespace, m: int):
+        """The callable that runs a segment's m rounds from ``st``'s
+        staged slots: on the card the graph ('scan': one a segment length;
+        'eager': one round's, behind device copies of each slot), captured
+        at its first use; on the CPU the same body, run eagerly."""
+        on_card = self.device.type == 'cuda'
+        stage = st.stage
+
+        def scan_rounds():
+            for i in range(m):
+                rec, loss = self._fused_round(*stage.slot(i))
+                obs_ring.ring_write(st.ring, i, rec)
+                st.losses[i].copy_(loss)
+
+        def eager_round():
+            rec, loss = self._fused_round(*st.static.slot(0))
+            obs_ring.ring_write(st.out_ring, 0, rec)
+            st.static_loss.copy_(loss)
+
+        key = 'eager' if st.eager else m
+        body = eager_round if st.eager else scan_rounds
+        if on_card and key not in st.graphs:
+            st.graphs[key] = fused.capture(body, st.stream)
+        step = st.graphs[key].replay if on_card else body
+        if not st.eager:
+            return step
+
+        def rounds():
+            for i in range(m):
+                st.static.dev[0].copy_(stage.dev[i])
+                if stage.rand is not None:
+                    st.static.rand[0].copy_(stage.rand[i])
+                step()
+                obs_ring.ring_copy(st.ring, i, st.out_ring, 0)
+                st.losses[i].copy_(st.static_loss)
+        return rounds
+
+    def _run_fused(self, n_rounds: int, compute_bound: bool) -> FLHistory:
+        """Segment-dispatched run (module docstring): 'scan' launches ONE
+        graph a segment (kept by its length: at most two), 'eager' replays
+        one round's graph once a round; on the CPU the same body runs
+        eagerly.  The first fused run of a simulator warms up and sets up
+        the buffers (:meth:`_fused_setup`); later runs reuse them and the
+        graphs.  Refuses what the reference refuses, with its messages."""
+        fl = self.fl
+        if fl.round_fusion not in ('eager', 'scan'):
+            raise ValueError(f'round_fusion must be none|eager|scan, '
+                             f'got {fl.round_fusion!r}')
+        if compute_bound:
+            raise ValueError("compute_bound=True requires "
+                             "round_fusion='none' (the Theorem-1 bound "
+                             "needs host-side per-round stats)")
+        if fl.transport in ALLOCATING and fl.allocation_backend != 'jax':
+            raise ValueError("round_fusion requires "
+                             "allocation_backend='jax' on allocating "
+                             "transports (eq. (28) must solve in-trace)")
+        hist = FLHistory()
+        seg_len = fl.scan_segment_rounds or max(1, fl.telemetry_flush_every)
+        sink = (JsonlSink(fl.telemetry_path, run_manifest(
+                    fl, extra={'driver': 'fl_loop',
+                               'round_fusion': fl.round_fusion},
+                    device=self.device))
+                if fl.telemetry_path else None)
+        traj_host = self._fading_host(n_rounds)
+        n0, comp_idx = self._round, self.comp.round_idx
+        on_card = self.device.type == 'cuda'
+        done = 0
+        while done < n_rounds:
+            m = min(seg_len, n_rounds - done)
+            t0 = time.perf_counter()
+            with self.trace.span('fused_segment'):
+                # every host-made draw of the segment, at its boundary
+                slots = [self._fused_host_inputs(done + i, n0 + done + i,
+                                                 traj_host)
+                         for i in range(m)]
+                if self._fused is None:
+                    self._fused = self._fused_setup(slots[0], seg_len)
+                st = self._fused
+                for i, values in enumerate(slots):
+                    st.stage.put(i, values)
+                    if st.stage.rand is not None:
+                        st.stage.rand[i].uniform_(0.0, 1.0,
+                                                  generator=self.gen)
+                if st.ring is None:
+                    st.stage.upload(m)
+                    proto = self._fused_warm_up(st.stage, st.stream)
+                    st.ring = obs_ring.ring_init(proto, seg_len)
+                    if st.eager:
+                        st.out_ring = obs_ring.ring_init(proto, 1)
+                launch = self._fused_launcher(st, m)
+                with self.segment_guard():
+                    st.stage.upload(m)            # the segment's one copy
+                    launch()
+            # ---- the segment boundary: the run's only host syncs ----
+            obs_ring.ring_written(st.ring, m)
+            recs, _ = obs_ring.flush(st.ring)     # one device->host copy
+            self._record_rows(recs, hist, sink)
+            prev_loss = float(st.losses[m - 1])
+            with record_function('round/evaluation'):
+                loss, acc = self.global_metrics()
+            hist.loss.append(loss)
+            hist.test_acc.append(acc)
+            hist.loss_delta.append(loss - prev_loss)
+            if on_card:
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
+            # eq. (28) runs inside the round: no host stage to time
+            hist.alloc_time_s.extend([0.0] * m)
+            hist.round_time_s.extend([wall / m] * m)
+            done += m
+            self._round += m
+        # a captured round rolls the state's round counter only when it
+        # is captured: set it from the rounds run
+        self.comp = self.comp._replace(round_idx=comp_idx + n_rounds)
+        self.metrics.observe_alloc(host_solver_calls=self.host_solver_calls)
+        if sink is not None:
+            sink.write_spans(self.trace.summary())
+            sink.write_metrics(self.metrics.snapshot())
+            sink.close()
+        return hist
+
+    # ------------------------------------------------------------------
+    def _record_rows(self, recs, hist: FLHistory, sink) -> None:
+        """Flushed host records into ``sim.records``, the history's
+        per-round lists, the metrics and the sink."""
+        fl = self.fl
+        packed_agreement = (fl.wire == 'packed' and fl.transport in
+                            ('spfl', 'spfl_retx', 'error_free'))
+        participation = fl.dropout_rate > 0.0 or (
+            self.population and fl.cohort_sampler == 'availability')
+        for rec in recs:
+            self.records.append(rec)
+            row = to_row(rec)
+            hist.payload_bits.append(row['payload_bits'])
+            hist.retransmissions.append(row['retransmissions'])
+            hist.sign_ok_frac.append(row['sign_ok_frac'])
+            hist.mod_ok_frac.append(row['mod_ok_frac'])
+            hist.q_mean.append(row['q_mean'])
+            hist.p_mean.append(row['p_mean'])
+            if packed_agreement:
+                hist.sign_agreement.append(row['sign_agreement'])
+            hist.alloc_iters.append(row['alloc_iters'])
+            hist.alloc_exit_reason.append(row['alloc_exit_reason'])
+            if participation:
+                hist.participation_frac.append(row['participation_frac'])
+            if fl.screen:
+                hist.suspect_frac.append(row['suspect_frac'])
+            self.metrics.observe_round(row)
+            if sink is not None:
+                sink.write_round(row)
+
+    def _fading_host(self, n_rounds: int) -> Optional[np.ndarray]:
+        """Under ``allocation_cadence='per_round'`` (not population mode)
+        on an allocating transport: the run's fading trajectory, kept on
+        the device as ``self.trajectory`` (float64) and returned as a host
+        array; else None."""
+        fl = self.fl
+        if not (fl.allocation_cadence == 'per_round' and fl.transport in
+                ALLOCATING and not self.population):
+            return None
+        # population mode keys each device's shadowing by (id, round)
+        traj = self.fading_trajectory(n_rounds).to(torch.float64)
+        self.trajectory = traj.to(self.device)
+        return traj.numpy()
+
     def run(self, n_rounds: int, eval_every: int = 1,
             compute_bound: bool = False) -> FLHistory:
+        if self.fl.round_fusion != 'none':
+            return self._run_fused(n_rounds, compute_bound)
         hist = FLHistory()
         fl = self.fl
         if compute_bound and fl.allocation_backend == 'jax':
@@ -660,13 +1043,7 @@ class FLSimulator:
             # the on-device path never brings to the host
             raise ValueError("compute_bound=True requires "
                              "allocation_backend='numpy'")
-        traj_host = None
-        if (fl.allocation_cadence == 'per_round' and fl.transport in
-                ALLOCATING and not self.population):
-            # population mode keys each device's shadowing by (id, round)
-            traj = self.fading_trajectory(n_rounds).to(torch.float64)
-            self.trajectory = traj.to(self.device)
-            traj_host = traj.numpy()
+        traj_host = self._fading_host(n_rounds)
         # telemetry: a device ring, flushed every telemetry_flush_every
         # rounds and after the last
         flush_every = max(1, fl.telemetry_flush_every)
@@ -675,34 +1052,10 @@ class FLSimulator:
                           run_manifest(fl, extra={'driver': 'fl_loop'},
                                        device=self.device))
                 if fl.telemetry_path else None)
-        packed_agreement = (fl.wire == 'packed' and fl.transport in
-                            ('spfl', 'spfl_retx', 'error_free'))
-        participation = fl.dropout_rate > 0.0 or (
-            self.population and fl.cohort_sampler == 'availability')
 
         def flush_telemetry():
             recs, _ = obs_ring.flush(ring)          # one device->host copy
-            for rec in recs:
-                self.records.append(rec)
-                row = to_row(rec)
-                hist.payload_bits.append(row['payload_bits'])
-                hist.retransmissions.append(row['retransmissions'])
-                hist.sign_ok_frac.append(row['sign_ok_frac'])
-                hist.mod_ok_frac.append(row['mod_ok_frac'])
-                hist.q_mean.append(row['q_mean'])
-                hist.p_mean.append(row['p_mean'])
-                if packed_agreement:
-                    hist.sign_agreement.append(row['sign_agreement'])
-                hist.alloc_iters.append(row['alloc_iters'])
-                hist.alloc_exit_reason.append(row['alloc_exit_reason'])
-                if participation:
-                    hist.participation_frac.append(
-                        row['participation_frac'])
-                if fl.screen:
-                    hist.suspect_frac.append(row['suspect_frac'])
-                self.metrics.observe_round(row)
-                if sink is not None:
-                    sink.write_round(row)
+            self._record_rows(recs, hist, sink)
 
         for n in range(n_rounds):
             t0 = time.perf_counter()
@@ -745,6 +1098,35 @@ class FLSimulator:
             sink.write_metrics(self.metrics.snapshot())
             sink.close()
         return hist
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """``torch.backends.cudnn.deterministic`` set inside the block (a
+    process-wide flag, restored after)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+# the transport draws a fused round's input slot may hold
+_DRAW_FIELDS = ('seeds', 'sign_u', 'mod_u', 'fate_u', 'h2')
+
+
+def fused_stats(grads: torch.Tensor, gbar: torch.Tensor, bits: int):
+    """The per-client scalars of a fused round's solve, float32 where the
+    gradients lie (the reference's ``alloc_f32``): (g2, gb2, v, d2), each
+    (K,), from the (K, l) gradients and the (l,) or (K, l) ḡ; d2 is the
+    exact expected quantization MSE."""
+    g = grads.detach()
+    gb = (gbar if gbar.dim() == 2 else gbar.expand(g.shape)).detach()
+    g2 = torch.sum(g ** 2, dim=1)
+    gb2 = torch.sum(gb ** 2, dim=1)
+    v = torch.sum(torch.abs(g) * gb, dim=1)
+    return g2, gb2, v, expected_quant_mse(g, bits, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ its flip decision is a threshold test of a murmur3-fmix32 double mix —
 the first round mixes the uint32 word counter with seed word ``s0``, the
 second folds in ``s1`` salted by the bit plane.  The seeds are two
 explicit uint32 words (the reference derives them from a JAX key with
-``seeds_from_key``; parity tests pass the reference's words).
+``seeds_from_key``; parity tests pass the reference's words): a pair of
+Python ints, or a (2,) integer tensor of their bit patterns (the
+transport's seed rows, which stay on the device).
 
 The plain functions here compute in int64 masked to 32 bits.  A product
 ``x * c`` of two uint32 values overflows int64, so :func:`_mul32` forms it
@@ -77,7 +79,17 @@ def _word_index(shape, word0: int, device) -> Tensor:
     return (idx + word0) & MASK32
 
 
-def threshold_mask(seeds: Tuple[int, int], shape, thresh: Tensor,
+def seed_pair(seeds) -> Tuple:
+    """Two uint32 seed words as ``hash_bits`` takes them: Python ints
+    masked to 32 bits, or the two elements of a (2,) integer tensor of
+    their patterns as int64 in [0, 2^32)."""
+    if isinstance(seeds, Tensor):
+        s = u64(seeds.reshape(2))
+        return s[0], s[1]
+    return int(seeds[0]) & MASK32, int(seeds[1]) & MASK32
+
+
+def threshold_mask(seeds, shape, thresh: Tensor,
                    allflip: Tensor, word0: int = 0, device=None) -> Tensor:
     """uint32 flip mask (int64 values) for a word buffer of ``shape``
     given per-row uint32 thresholds and all-flip flags (broadcast over
@@ -88,15 +100,16 @@ def threshold_mask(seeds: Tuple[int, int], shape, thresh: Tensor,
     thresh = thresh.reshape(bshape)
     allf = allf.reshape(bshape)
     base = _word_index(shape, word0, device)
+    seed0, seed1 = seed_pair(seeds)
     mask = torch.zeros(shape, dtype=torch.int64, device=device)
     for j in range(WORD_BITS):
-        h = hash_bits(base, j, seeds[0], seeds[1])
+        h = hash_bits(base, j, seed0, seed1)
         bit = ((h < thresh) | allf).to(torch.int64)
         mask = mask | (bit << j)
     return mask
 
 
-def flip_mask(seeds: Tuple[int, int], shape, ber, word0: int = 0,
+def flip_mask(seeds, shape, ber, word0: int = 0,
               device=None) -> Tensor:
     """uint32 flip mask (int64 values) for a word buffer of ``shape``;
     ``ber`` broadcasts over the leading (per-client) axes."""
@@ -113,7 +126,7 @@ def count_flips(mask: Tensor) -> Tensor:
     return count.sum(dim=-1).to(torch.int32)
 
 
-def corrupt_fold(seeds: Tuple[int, int], words: Tensor, ber,
+def corrupt_fold(seeds, words: Tensor, ber,
                  word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Transmit (K, W) buffers through the bit-flip channel ->
     (received words, per-client xor-fold of the flip mask, per-client

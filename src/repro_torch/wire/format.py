@@ -176,7 +176,8 @@ def word_to_f32(w: Tensor) -> Tensor:
 
 def stamp_round(round_idx, attempt=0):
     """Round header word: [attempt:8 | round:24] (uint32 value; a Python
-    int for Python inputs, an int64 tensor otherwise)."""
+    int for Python inputs, an int64 tensor otherwise: a round index held
+    on the device as an int64 tensor stamps the same word as its int)."""
     return (((round_idx & ROUND_MASK) | (attempt << RETX_SHIFT)) & MASK32)
 
 
@@ -190,9 +191,12 @@ def attempt_of(word_: Tensor) -> Tensor:
 
 def _field(value, shape, device) -> Tensor:
     """One header field (Python int, uint32 tensor or int32 pattern)
-    broadcast to ``shape`` as an int32 pattern."""
+    broadcast to ``shape`` as an int32 pattern.  A Python int becomes a
+    fill on the device, not a copy from the host, so framing makes no
+    host copy (a round captured in a CUDA graph frames its packets)."""
     if isinstance(value, int):
-        value = torch.tensor(word(value), dtype=torch.int32, device=device)
+        return torch.full(tuple(shape), word(value), dtype=torch.int32,
+                          device=device)
     return to_words(torch.as_tensor(value, device=device)).expand(shape)
 
 

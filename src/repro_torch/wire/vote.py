@@ -40,7 +40,9 @@ def lane_mask_words(n: int, n_words: int, device=None) -> Tensor:
     masks = torch.full((n_words,), -1, dtype=torch.int32, device=device)
     tail = n % fmt.GROUP
     if tail and n_words:
-        masks[-1] = (1 << tail) - 1
+        # a fill, not an item assignment (which copies from the host and
+        # cannot be captured in a CUDA graph)
+        masks[-1:].fill_((1 << tail) - 1)
     return masks
 
 

@@ -291,13 +291,20 @@ def card():
 
 def test_card_refuses_float32_and_wide_problems(card):
     """On the card the wrapper launches the kernel or raises: a float32
-    problem (fused rounds, ROADMAP Queue 1 item 11) and a K above the
-    kernel's limit raise, and nothing runs the plain version."""
+    problem launches the float32 instantiation (fused rounds) and equals
+    its plain version bit for bit; a problem of mixed dtypes and a K above
+    the kernel's limit raise, and nothing runs the plain version."""
     _, p4 = problems(4, -14.0, 1)
     f32 = AJ.from_reference(p4, dtype=torch.float32, device=card)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match='item 11'):
-        ops.alloc_solve(f32, 'barrier')
+    got = ops.alloc_solve(f32, 'barrier', max_iters=1)
+    assert ops.launch_counts['alloc_solve_f32'] == 1
+    plain = AJ.solve_plain(f32, 'barrier', max_iters=1)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name).nan_to_num(7.0),
+                           getattr(plain, name).nan_to_num(7.0)), name
+    with pytest.raises(TypeError, match='float64'):
+        ops.alloc_solve(f32._replace(gains=f32.gains.double()), 'barrier')
     k = ops.alloc_limits()['MAX_K'] + 1
     wide = AJ.batch_over_gains(AJ.from_reference(p4, device=card),
                                np.ones((1, 4)))

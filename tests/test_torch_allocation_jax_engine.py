@@ -103,9 +103,9 @@ def test_check_supported_takes_the_jax_backend():
                                      population_n=100))
     with pytest.raises(ValueError, match="allocation_backend='jax'"):
         fl_loop.check_supported(FLConfig(population_n=100))
-    with pytest.raises(NotImplementedError, match='item 11'):
-        fl_loop.check_supported(FLConfig(allocation_backend='jax',
-                                         round_fusion='scan'))
+    # fused rounds run on the 'jax' backend (ROADMAP Queue 1 item 11)
+    fl_loop.check_supported(FLConfig(allocation_backend='jax',
+                                     round_fusion='scan'))
     with pytest.raises(ValueError, match='allocation_backend'):
         fl_loop.check_supported(FLConfig(allocation_backend='cvx'))
     assert dataclasses.asdict(FLConfig())['allocation_backend'] == 'numpy'

@@ -12,6 +12,7 @@ import torch
 
 from repro.wire import corrupt as WC
 from repro_torch.core.transport import Draws
+from repro_torch.kernels import ops as tops
 
 
 def words_np(t):
@@ -41,7 +42,8 @@ def draws_from_key(key, k, l, n_retx, channel):
         ks, kv = jax.random.split(ko)
         sign = [seeds(ks)] + [seeds(jax.random.fold_in(ks, a))
                               for a in range(1, n_retx + 1)]
-        return Draws(rand, tuple(sign), seeds(kv))
+        # the modulus stream's pair, then one per sign attempt
+        return Draws(rand, seeds=tops.seed_words([seeds(kv)] + sign, 'cpu'))
     if n_retx == 0:
         k1, k2 = jax.random.split(ko)
         sign_u = jax.random.uniform(k1, (k,))[None]
@@ -111,10 +113,11 @@ def test_draws_from_key_layout(channel, n_retx):
     assert 0.0 <= float(draws.rand.min()) and float(draws.rand.max()) < 1.0
     if channel == 'bitlevel':
         assert draws.sign_u is None and draws.mod_u is None
-        streams = list(draws.sign_seeds) + [draws.mod_seeds]
+        assert draws.seeds.dtype == torch.int32
+        streams = [tuple(r) for r in draws.seeds.tolist()]
         assert len(streams) == n_retx + 2 and len(set(streams)) == n_retx + 2
     else:
-        assert draws.sign_seeds == () and draws.mod_seeds is None
+        assert draws.seeds is None
         assert tuple(draws.sign_u.shape) == (n_retx + 1, k)
         assert tuple(draws.mod_u.shape) == (k,)
 

@@ -120,8 +120,19 @@ def test_simulator_runs_on_cpu_with_measured_payload():
     dict(collective='sharded'),
     dict(telemetry_path='t.jsonl', collective='sharded')])
 def test_unsupported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _tiny_simulator(FLConfig(**kw))
+    """Only ``collective='sharded'`` is still unported (it raises, naming
+    its ROADMAP item); fused rounds build, and refuse the host solver of
+    an allocating transport when they run, with the reference's
+    message."""
+    if kw.get('collective') == 'sharded':
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            _tiny_simulator(FLConfig(**kw))
+        return
+    sim = _tiny_simulator(FLConfig(**kw))
+    assert sim.fl.round_fusion in ('eager', 'scan')
+    if kw.get('allocation_backend') != 'jax':
+        with pytest.raises(ValueError, match="allocation_backend='jax'"):
+            sim.run(1)
 
 
 def test_bitlevel_needs_packed_wire():
