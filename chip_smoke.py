@@ -143,7 +143,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    replayed round beside the host loop's round, and one segment's idle
    share under ``torch.profiler``; the last round's f32 solve held to
    its plain version bit for bit (its row in the JSON line, ``launches``
-   the profiler's count of the 'scan' run).
+   the profiler's count of the 'scan' run);
+11. the LLM-scale FL step (``run_llm``): ``launch.train.run(
+   'smollm-135m', steps=4, clients=4, batch=8, seq=256, wire='packed',
+   allocator='barrier', allocation_backend='jax')`` at full width
+   (134,515,008 bf16 parameters in 11 leaves) with the counters reset
+   just before and read just after (11 ``quantize_pack`` and 11
+   ``spfl_accumulate`` a step, one ``alloc_solve`` a step from step 1,
+   nothing else), each step's time and loss, each solve again alone with
+   its trips; two steps under ``torch.profiler`` (the kernels the card
+   ran per step; step 1 split into gradients, stats, solve, transport
+   and update, with the device's idle share); one bit-level
+   ``make_fl_train_step`` step (22 ``corrupt_fold``) and one error_free
+   step, each with exact launch counts; the three kernels of the tree
+   step against their plain versions on the bit-level step's gradients
+   at the embedding (n = 28,311,552) and final_norm (n = 576) leaves,
+   ``corrupt_fold`` at the step's BER and at BER 0 and 1, timed at the
+   embedding leaf (``llm_leaf_kernels``); and the reduced model's tree
+   transport on the card against the CPU given the same gradients and
+   draws (``check_llm_transport_card_vs_cpu``).
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -163,7 +181,10 @@ the build on the same path is printed beside it as a diagnostic.  Its
 ``ms`` is timed from device memory (``kernel_ms``), ``warm_ms`` on one
 set of tensors; the rows of pack_bits, dequant, roundtrip and
 unpack_dequant add ``variants``, the same for their other phase 6 calls
-(bits 1, mod_ok 0).  It imports
+(bits 1, mod_ok 0); those of quantize_pack, spfl_accumulate (no votes)
+and corrupt_fold add ``llm``, the same at phase 11's embedding leaf
+(K=4), with the launches of phase 11's run (``corrupt_fold``: its
+bit-level step).  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -269,6 +290,11 @@ FUNCTION_OPS = {
         'backtrack': {'fp64': 4, 'alu': 2},
     },
 }
+# spfl_accumulate's function with no vote output (the tree transports,
+# phase 11): the client's sign bit, knob planes, selects and sums as
+# above, no vote bit, no popcount
+NO_VOTE_OPS = {'client': {'alu': 3 + BITS, 'shift': 1 + BITS,
+                          'bitset': BITS, 'fp32': 5, 'xu': 1}}
 # its float32 instantiation (the fused rounds' in-round solve): the same
 # operations on the float32 pipe
 FUNCTION_OPS['alloc_solve_f32'] = {
@@ -2543,9 +2569,8 @@ def spine_only(trips: dict, nodes: int) -> bool:
 
 
 def time_device_solves(sim, kept: list, label: str = 'main-jax') -> list:
-    """Each kept round's solve again, alone: its kernel time (CUDA events,
-    median of 5), trip counts, effort and whether its dual searches kept
-    to the spine.  -> one dict per round."""
+    """Each kept round's solve again, alone (``timed_solve``).  -> one
+    dict per round."""
     import torch
     from repro_torch.kernels import ops
     fl = sim.fl
@@ -2555,29 +2580,41 @@ def time_device_solves(sim, kept: list, label: str = 'main-jax') -> list:
     out = []
     for n, stats in enumerate(kept):
         prob, gate = stats['prob'], torch.amax(stats['gb2'])
-        trips = torch.zeros((1, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
-                            device='cuda')
-
-        def solve(prob=prob, gate=gate, trips=trips):
-            return ops.alloc_solve(
-                prob, fl.allocator, max_iters=fl.allocation_max_iters or 6,
-                tol=fl.allocation_tol or 1e-5,
-                early_exit=fl.allocation_early_exit, gate=gate, trips=trips)
-
-        ms = device_ms([solve], reps=5, inner=1)
-        sol = solve()
-        torch.cuda.synchronize()
-        named = dict(zip(ops.ALLOC_TRIPS, trips[0].tolist()))
-        spine = spine_only(named, layout['nodes'])
-        out.append(dict(round=n, ms=ms, iters=int(sol.iters),
-                        exit_reason=int(sol.exit_reason),
-                        trips=trips[0].tolist(), prob=prob, gate=gate,
-                        sol=sol, spine=spine))
-        print(f'{label} round {n}: alloc_solve kernel {ms:.4f} ms, '
-              f'iters_used {int(sol.iters)}, exit_reason '
-              f'{int(sol.exit_reason)}, spine only {spine}, trips '
-              f'{json.dumps(named)}', flush=True)
+        r = timed_solve(prob, fl.allocator, fl.allocation_max_iters or 6,
+                        fl.allocation_tol or 1e-5, fl.allocation_early_exit,
+                        gate)
+        out.append(dict(round=n, ms=r['ms'], iters=r['iters'],
+                        exit_reason=r['exit_reason'],
+                        trips=list(r['trips'].values()), prob=prob,
+                        gate=gate, sol=r['sol'], spine=r['spine']))
+        print(f'{label} round {n}: alloc_solve kernel {r["ms"]:.4f} ms, '
+              f'iters_used {r["iters"]}, exit_reason {r["exit_reason"]}, '
+              f'spine only {r["spine"]}, trips {json.dumps(r["trips"])}',
+              flush=True)
     return out
+
+
+def timed_solve(prob, method: str, max_iters: int, tol: float,
+                early_exit: bool, gate=None) -> dict:
+    """One solve again, alone: its kernel ms (CUDA events, median of 5),
+    trip counts (``ops.ALLOC_TRIPS`` names), effort and whether its dual
+    searches kept to the spine."""
+    import torch
+    from repro_torch.kernels import ops
+    nodes = ops.alloc_layout(1, prob.A.shape[-1], method)['nodes']
+    trips = torch.zeros((1, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
+                        device='cuda')
+
+    def solve():
+        return ops.alloc_solve(prob, method, max_iters=max_iters, tol=tol,
+                               early_exit=early_exit, gate=gate, trips=trips)
+
+    ms = device_ms([solve], reps=5, inner=1)
+    sol = solve()
+    torch.cuda.synchronize()
+    named = dict(zip(ops.ALLOC_TRIPS, trips[0].tolist()))
+    return dict(ms=ms, iters=int(sol.iters), exit_reason=int(sol.exit_reason),
+                trips=named, spine=spine_only(named, nodes), sol=sol)
 
 
 def check_no_sync(sim, label: str = 'main-jax', gains=None) -> None:
@@ -3889,16 +3926,490 @@ def run_fused(data) -> dict:
             'alloc': alloc, 'solves': solves}
 
 
-def kernel_bound(label: str, r: dict, sass_mix, name: str = None):
+# ---------------------------------------------------------------------------
+# phase 11: the LLM-scale FL step on smollm-135m at full width
+# ---------------------------------------------------------------------------
+
+LLM_ARCH = 'smollm-135m'
+LLM_K = 4
+# launch.train.run's sizes and the launcher's own defaults (its main())
+LLM_RUN = dict(clients=LLM_K, batch=8, seq=256, transport_kind='spfl',
+               allocator='barrier', lr=0.05, bandwidth_hz=10e9,
+               tx_power_dbm=-4.0, wire='packed', allocation_backend='jax')
+LLM_STEPS = 4
+STEP_SPANS = ('step/gradients', 'step/stats', 'step/solve',
+              'step/transport', 'step/update')
+# the three kernels of the tree step, held at its largest and smallest
+# leaves (the tree order's 'embed' and 'final_norm')
+LLM_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold')
+LLM_LEAVES = (('embed', 0), ('final_norm', 1))
+
+
+def keep_llm_solves(kept: list):
+    """Keep each solve of ``launch.train``'s 'jax' backend (its problem
+    and options) by wrapping ``allocation_jax.solve_from_stats``, the
+    function the launcher calls.  -> a callable that undoes the wrap."""
+    from repro_torch.core import allocation_jax as AJ
+    orig = AJ.solve_from_stats
+
+    def wrapped(g2, gb2, v, d2, gains, p_w, dim, fl, method='alternating',
+                max_iters=6, tol=1e-5, early_exit=True, device=None):
+        prob = AJ.problem_from_stats(g2, gb2, v, d2, gains, p_w, dim, fl,
+                                     device=device)
+        sol = AJ.solve_traceable(prob, method, max_iters, tol,
+                                 early_exit=early_exit)
+        kept.append(dict(prob=prob, method=method, max_iters=max_iters,
+                         tol=tol, early_exit=early_exit))
+        return sol
+
+    AJ.solve_from_stats = wrapped
+    return lambda: setattr(AJ, 'solve_from_stats', orig)
+
+
+def llm_step_split(prof) -> dict:
+    """The last step of a profiled ``launch.train`` run from its
+    ``torch.profiler`` record: the host and device ms of each span of
+    ``STEP_SPANS`` (the device side: the profiler's span of the
+    annotation, from its first to the end of its last device operation),
+    the step's wall ms (its host span, which ends in a host read of the
+    step's results), the device's busy ms (the union of its operations'
+    intervals in the step) and idle share."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+    host, device, steps, ops_ = {}, {}, [], []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        rng = (e.time_range.start, e.time_range.end)
+        if e.name == 'step' and e.device_type == cpu:
+            steps.append(rng)
+        elif e.name in STEP_SPANS:
+            (host if e.device_type == cpu else device)[e.name] = rng
+        elif e.device_type != cpu and not e.name.startswith('step'):
+            ops_.append(rng)          # an operation, not an annotation
+    a, b = steps[-1]
+    busy = busy_ms([(s, min(t, b)) for s, t in ops_ if a <= s < b])
+    wall = (b - a) / 1e3
+
+    def ms(r):
+        return (r[1] - r[0]) / 1e3 if r else 0.0
+
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                host={n: ms(host.get(n)) for n in STEP_SPANS},
+                device={n: ms(device.get(n)) for n in STEP_SPANS})
+
+
+def llm_profile() -> dict:
+    """Two steps of phase 11's run under ``torch.profiler``: the kernels
+    the card ran, per step (step 0 solves nothing, step 1 once), and the
+    split of step 1 (``llm_step_split``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train.run(LLM_ARCH, steps=2, **LLM_RUN)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    kinds = op_kinds(names)
+    per_step = {'quantize_pack': kinds.get('quantize_pack', 0) / 2,
+                'spfl_accumulate': kinds.get('spfl_accumulate', 0) / 2,
+                'alloc_solve': kinds.get('alloc_solve', 0),
+                'corrupt_fold': kinds.get('corrupt_fold', 0) / 2}
+    print(f'llm launches per step (torch.profiler, 2 steps, the solve in '
+          f'step 1): {json.dumps(per_step)}; device operations '
+          f'{sum(names.values())}', flush=True)
+    want = {'quantize_pack': 11, 'spfl_accumulate': 11, 'alloc_solve': 1,
+            'corrupt_fold': 0}
+    if per_step != want:
+        raise AssertionError(f'llm: the card ran {per_step}, want {want}')
+    split = llm_step_split(prof)
+    print(f'llm step 1 split (torch.profiler): wall {split["wall_ms"]:.3f} '
+          f'ms, device busy {split["busy_ms"]:.3f} ms (idle share '
+          f'{split["idle"]:.4f})', flush=True)
+    for name in STEP_SPANS:
+        print(f'  {name}: host {split["host"][name]:.3f} ms, device '
+              f'{split["device"][name]:.3f} ms', flush=True)
+    return dict(per_step=per_step, split=split)
+
+
+def llm_params(cfg, seed: int):
+    """Random full-width weights on the card (the launcher's own
+    initializer and generator)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    return tree.map(lambda t: t.to('cuda'),
+                    tf.init_params(cfg, torch.Generator().manual_seed(seed)))
+
+
+def llm_step(label: str, fl, kind: str, want: dict, seed: int,
+             q=None, p=None) -> dict:
+    """One ``make_fl_train_step`` step of smollm-135m at full width (K=4
+    clients of 8 x 256 tokens) with the launch counters reset just before
+    and read just after: exactly ``want`` launches, finite outputs.  The
+    step's gradients and stats are kept (``client_grads`` wrapped)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import transport as tr
+    from repro_torch.data import synth_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.training import distributed as dist
+    cfg = get_arch(LLM_ARCH)
+    params = llm_params(cfg, seed)
+    toks = synth_tokens(LLM_K * 8, 256, cfg.vocab_size, seed)
+    toks = torch.as_tensor(toks.reshape(LLM_K, 8, 256), device='cuda')
+    gbar = dist.init_gbar(params)
+    ones = torch.ones((LLM_K,), device='cuda')
+    q = ones if q is None else q
+    p = ones if p is None else p
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+    draws = tr.make_tree_draws(LLM_K, sizes, 0, fl.channel, 'cuda', gen,
+                               host, kind=kind)
+    kept = []
+    orig = dist.client_grads
+
+    def keep(*args):
+        kept.append(orig(*args))
+        return kept[-1]
+
+    step = dist.make_fl_train_step(cfg, fl, kind)
+    dist.client_grads = keep
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new_params, new_gbar, m = step(params, {'tokens': toks}, gbar, q, p,
+                                       draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.launch_counts)
+    finally:
+        dist.client_grads = orig
+    got = {name: counts[name] for name in want}
+    others = {n: c for n, c in counts.items() if n not in want and c}
+    if got != want or others:
+        raise AssertionError(f'{label}: launches {counts}, want {want}')
+    if not all(bool(torch.isfinite(x).all()) for x in
+               tree.leaves(new_params) + tree.leaves(new_gbar)):
+        raise AssertionError(f'{label}: non-finite parameters or gbar')
+    tel = m['telemetry']
+    print(f'{label}: {ms:.3f} ms (a first step, warm-up included), loss '
+          f'{float(m["loss"]):.6f}, sign_ok {tel.sign_ok.tolist()}, mod_ok '
+          f'{tel.mod_ok.tolist()}, payload_bits '
+          f'{float(m["payload_bits"]):.0f}, launches {json.dumps(got)}',
+          flush=True)
+    losses, grads = kept[0]
+    return dict(ms=ms, counts=counts, grads=grads, params=params, q=q, p=p,
+                telemetry=tel, stats=tr.tree_client_stats(grads))
+
+
+def llm_leaf_kernels(bit: dict, timed_leaf: str = 'embed') -> dict:
+    """The three kernels of the tree step against their plain versions on
+    the bit-level step's own gradients at the embedding and final_norm
+    leaves (K=4, the tree-wide ranges): quantize_pack's words, then
+    corrupt_fold on the knob words at the step's modulus BER and at BER
+    0 and 1 (received words, folds, flip counts), then spfl_accumulate
+    without votes on the step-BER words with a shared ḡ, all bit for bit
+    but the f32 sum, held to the FMA-wobble bound.  At ``timed_leaf``
+    each kernel is timed from device memory (``kernel_ms``) and its plain
+    version (median of 3), with its bytes and units of work for the
+    bound.  -> {kernel: row extras}."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import bitchannel
+    from repro_torch.core.quantize import knob_step
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.wire import corrupt as wire_corrupt
+    from repro_torch.wire import format as fmt
+    k = LLM_K
+    leaves = tree.leaves(bit['grads'])
+    stats = bit['stats']
+    gmin, gmax = stats['g_min'].contiguous(), stats['g_max'].contiguous()
+    # the step's modulus BER: every leaf's knob words plus the framing
+    wm = sum(fmt.n_groups(int(x[0].numel())) * BITS for x in leaves) + (
+        fmt.MOD_HEADER_WORDS + fmt.CRC_WORDS)
+    ber_step = bitchannel.ber_for_success(bit['p'], wm)
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    out = {}
+    for leaf, i in LLM_LEAVES:
+        g = leaves[i].to(torch.float32).reshape(k, -1).contiguous()
+        n = g.shape[1]
+        groups = fmt.n_groups(n)
+        rand = torch.rand((k, n), generator=gen, device='cuda')
+        sw, qw = ops.quantize_pack_flat(g, rand, gmin, gmax, BITS)
+        rsw, rqw = ref.quantize_pack(g, rand, gmin, gmax, BITS)
+        if max(int_err(sw, rsw), int_err(qw, rqw)):
+            raise AssertionError(f'llm {leaf}: quantize_pack differs')
+        del rsw, rqw
+        timed = leaf == timed_leaf
+        if timed:
+            out['quantize_pack'] = dict(
+                leaf=leaf, n=n, k=k, max_abs_err=0.0,
+                bytes=k * n * 8 + k * 8 + k * groups * (1 + BITS) * 4,
+                units=quantize_pack_units(k, n, BITS))
+            out['quantize_pack'].update(kernel_ms(
+                build.kernel('quantize_pack'), (g, rand, gmin, gmax, sw, qw),
+                lambda *t: (*(x.data_ptr() for x in t), k, n, BITS,
+                            torch.cuda.current_stream().cuda_stream)))
+            out['quantize_pack']['plain_ms'] = device_ms(
+                [lambda: ref.quantize_pack(g, rand, gmin, gmax, BITS)],
+                reps=3, inner=1)
+        del g, rand
+        # the bit channel on the knob words
+        seeds = ops.seed_words((0x5EED0000 + i, 0x0BADCAFE), 'cuda')
+        rx_step = None
+        for label, ber in (('step', ber_step),
+                           ('0', torch.zeros((k,), device='cuda')),
+                           ('1', torch.ones((k,), device='cuda'))):
+            rx, fold, flips = ops.corrupt_fold_words(seeds, qw, ber)
+            th, allf = wire_corrupt.flip_threshold(ber)
+            th = fmt.to_words(th).contiguous()
+            allf = allf.to(torch.int32).contiguous()
+            rrx, rfold, rflips = ref.corrupt_fold(seeds, qw, th, allf)
+            if (int_err(rx, rrx) or int_err(fold, rfold)
+                    or not torch.equal(flips, rflips)):
+                raise AssertionError(f'llm {leaf}: corrupt_fold differs at '
+                                     f'BER {label}')
+            total = [int(x) for x in flips.tolist()]
+            print(f'llm {leaf} corrupt_fold at BER {label}: flips {total} '
+                  f'(bit for bit)', flush=True)
+            if label == '1' and total != [qw.shape[1] * 32] * k:
+                raise AssertionError(f'llm {leaf}: BER 1 flipped {total}')
+            if label == '0' and any(total):
+                raise AssertionError(f'llm {leaf}: BER 0 flipped {total}')
+            if label == 'step':
+                rx_step = rx
+                if timed:
+                    w = qw.shape[1]
+                    stream = torch.cuda.current_stream().cuda_stream
+                    out['corrupt_fold'] = dict(
+                        leaf=leaf, n=n, k=k, words=w, max_abs_err=0.0,
+                        ber=ber.tolist(), bytes=2 * k * w * 4 + k * 16,
+                        units=corrupt_fold_units(k, w))
+                    out['corrupt_fold'].update(kernel_ms(
+                        build.kernel('corrupt_fold'),
+                        (qw, rx, th, allf, fold, flips),
+                        corrupt_fold_args(k, w, seeds, stream)))
+                    out['corrupt_fold']['plain_ms'] = device_ms(
+                        [lambda: ref.corrupt_fold(seeds, qw, th, allf)],
+                        reps=3, inner=1)
+            del rrx
+        # the PS decode of the received words, shared ḡ, no votes
+        gbar = torch.rand((n,), generator=gen, device='cuda') * float(
+            gmax.max()) * 0.5
+        mod_ok = torch.tensor([True, True, False, True], device='cuda')
+        sign_ok = torch.ones((k,), dtype=torch.bool, device='cuda')
+        weight = sign_ok.to(torch.float32) / bit['q']
+        acc, votes = ops.spfl_aggregate_packed(sw, rx_step, gbar, gmin, gmax,
+                                               mod_ok, weight, sign_ok, n,
+                                               BITS, with_votes=False)
+        step = knob_step(gmin, gmax, BITS)
+        mok = mod_ok.to(torch.float32)
+        gate = sign_ok.to(torch.int32)
+        racc, _ = ref.spfl_accumulate(sw, rx_step, gbar, gmin, step, mok,
+                                      weight, gate, n, BITS, False)
+        err = float((acc - racc).abs().max())
+        tol = ulp_atol(weight, gmax, gbar)
+        if votes is not None or not same_f32(acc, racc) or err > tol:
+            raise AssertionError(f'llm {leaf}: spfl_accumulate differs '
+                                 f'({err} > {tol})')
+        print(f'llm {leaf} (n={n}): quantize_pack, corrupt_fold bit for '
+              f'bit; spfl_accumulate (no votes) within {err:.3e} of its '
+              f'plain version (bound {tol:.3e})', flush=True)
+        if timed:
+            stream = torch.cuda.current_stream().cuda_stream
+            tensors = (sw, rx_step, gbar, gmin, step, mok.contiguous(),
+                       weight.contiguous(), gate, acc)
+            out['spfl_accumulate'] = dict(
+                leaf=leaf, n=n, k=k, max_abs_err=err,
+                bytes=k * groups * (1 + BITS) * 4 + n * 8 + k * 20,
+                units=spfl_accumulate_units(k, n, BITS))
+            out['spfl_accumulate'].update(kernel_ms(
+                build.kernel('spfl_accumulate'), tensors,
+                lambda sp, mp, *t: (sp.data_ptr(), sp.stride(0),
+                                    mp.data_ptr(), mp.stride(0),
+                                    t[0].data_ptr(), 0,
+                                    *(x.data_ptr() for x in t[1:]), None, k,
+                                    n, BITS, stream)))
+            out['spfl_accumulate']['plain_ms'] = device_ms(
+                [lambda: ref.spfl_accumulate(sw, rx_step, gbar, gmin, step,
+                                             mok, weight, gate, n, BITS,
+                                             False)], reps=3, inner=1)
+        del sw, qw, rx_step, acc, racc, gbar
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_llm_transport_card_vs_cpu(seed: int = 41) -> None:
+    """At reduced width (``smollm-135m-reduced``, float32, K=4) the tree
+    transport on the card given the CPU's gradients and draws: SP-FL on
+    the packed bit channel with one sign resend, and error_free packed.
+    Every integer bit for bit, ĝ within the FMA-wobble bound."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import transport as tr
+    from repro_torch.data import synth_tokens
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import distributed as dist
+    cfg = get_arch(LLM_ARCH + '-reduced')
+    gen = torch.Generator().manual_seed(seed)
+    params = tf.init_params(cfg, gen)
+    toks = torch.as_tensor(synth_tokens(LLM_K * 2, 65, cfg.vocab_size, seed)
+                           .reshape(LLM_K, 2, 65))
+    _, grads = dist.client_grads(params, cfg, toks)
+    gbar = tree.map(lambda x: torch.rand(x.shape, generator=gen) * 1e-3,
+                    params)
+    q = torch.linspace(0.4, 1.0, LLM_K)
+    p = torch.linspace(1.0, 0.4, LLM_K)
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+    for kind, fl, n_retx in (
+            ('spfl', FLConfig(n_devices=LLM_K, wire='packed',
+                              channel='bitlevel'), 1),
+            ('error_free', FLConfig(n_devices=LLM_K, wire='packed'), 0)):
+        draws = tr.make_tree_draws(LLM_K, sizes, n_retx, fl.channel, 'cpu',
+                                   gen, gen, kind=kind)
+        draws = draws._replace(rand=[draws.rand[i] for i in range(len(sizes))])
+        out = {}
+        for dev in ('cuda', 'cpu'):
+            d = draws._replace(rand=[r.to(dev) for r in draws.rand],
+                               **{f: getattr(draws, f).to(dev)
+                                  for f in ('seeds', 'sign_u', 'mod_u')
+                                  if getattr(draws, f) is not None})
+            g_d = tree.map(lambda x: x.to(dev), grads)
+            if kind == 'spfl':
+                ghat, stats, tel = tr.spfl_aggregate_tree(
+                    g_d, tree.map(lambda x: x.to(dev), gbar), q.to(dev),
+                    p.to(dev), fl, d, n_retx=n_retx)
+            else:
+                ghat, stats, tel = tr.error_free_aggregate_tree(g_d, fl, d)
+            out[dev] = ([x.cpu() for x in tree.leaves(ghat)], tel.to_host(),
+                        stats['g_max'].cpu())
+        (g_gpu, t_gpu, gmax), (g_cpu, t_cpu, _) = out['cuda'], out['cpu']
+        for name, val in t_cpu._asdict().items():
+            other = getattr(t_gpu, name)
+            if (val is None) != (other is None) or (
+                    val is not None and not (val == other).all()):
+                raise AssertionError(f'llm reduced {kind} {name}: card != '
+                                     'CPU')
+        gb_max = max(float(x.max()) for x in tree.leaves(gbar))
+        weight = torch.as_tensor(t_cpu.sign_ok, dtype=torch.float32) / (
+            q if kind == 'spfl' else 1.0)
+        tol = ulp_atol(weight, gmax, torch.tensor([gb_max])) / LLM_K
+        err = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
+        if err > tol:
+            raise AssertionError(f'llm reduced {kind}: ghat card - CPU {err} '
+                                 f'> {tol}')
+        flips = (0 if t_cpu.sign_flips is None
+                 else int(t_cpu.sign_flips.sum() + t_cpu.mod_flips.sum()))
+        if kind == 'spfl' and flips == 0:
+            raise AssertionError('llm reduced: the bit channel drew no flips')
+        print(f'llm reduced {kind}: card = CPU (integers bit for bit, ghat '
+              f'within {err:.3e} <= {tol:.3e}; flips {flips})', flush=True)
+
+
+def run_llm() -> dict:
+    """Phase 11: ``launch.train.run('smollm-135m', ...)`` at full width
+    for ``LLM_STEPS`` steps (the launcher's sizes: K=4 clients of 8 x 256
+    tokens, packed wire, barrier allocator, 'jax' backend) with the
+    counters reset just before and read just after (11 ``quantize_pack``
+    and 11 ``spfl_accumulate`` a step, one ``alloc_solve`` a step from
+    step 1, nothing else), each solve again alone with its trips; two
+    steps under ``torch.profiler`` (the launches per step, the split of
+    step 1, the idle share); one bit-level step (22 ``corrupt_fold``),
+    one error_free step; the three kernels at the embedding and
+    final_norm leaves (``llm_leaf_kernels``); the reduced model's
+    transport on the card against the CPU.  -> {'rows': the three
+    kernels' timed leaf results, 'launches': the counts of the run}."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    kept = []
+    undo = keep_llm_solves(kept)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = train.run(LLM_ARCH, steps=LLM_STEPS, **LLM_RUN)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+    finally:
+        undo()
+    print(f'llm run ({LLM_ARCH}, {LLM_STEPS} steps, set-up included): '
+          f'{run_s:.3f} s; step ms '
+          f'{json.dumps([t * 1e3 for t in hist["step_s"]])}; loss '
+          f'{json.dumps(hist["loss"])}; q̄ {json.dumps(hist["q"])}; p̄ '
+          f'{json.dumps(hist["p"])}', flush=True)
+    print(f'llm launches: {json.dumps(counts)}', flush=True)
+    if not all(math.isfinite(x) for x in hist['loss']):
+        raise AssertionError(f'llm: non-finite loss {hist["loss"]}')
+    want = {'quantize_pack': 11 * LLM_STEPS, 'spfl_accumulate': 11 * LLM_STEPS,
+            'alloc_solve': LLM_STEPS - 1}
+    if ({n: counts[n] for n in want} != want
+            or any(c for n, c in counts.items() if n not in want)):
+        raise AssertionError(f'llm: launches {counts}, want {want}')
+    if len(kept) != LLM_STEPS - 1:
+        raise AssertionError(f'llm: {len(kept)} solves kept')
+    solves = []
+    for n, s in enumerate(kept, start=1):
+        r = timed_solve(s['prob'], s['method'], s['max_iters'], s['tol'],
+                        s['early_exit'])
+        solves.append({key: r[key] for key in ('ms', 'iters', 'exit_reason',
+                                               'spine')})
+        print(f'llm step {n}: alloc_solve kernel {r["ms"]:.4f} ms, '
+              f'iters_used {r["iters"]}, exit_reason {r["exit_reason"]}, '
+              f'spine only {r["spine"]}, trips {json.dumps(r["trips"])}',
+              flush=True)
+    profiled = llm_profile()
+    fl_bit = FLConfig(n_devices=LLM_K, learning_rate=LLM_RUN['lr'],
+                      bandwidth_hz=LLM_RUN['bandwidth_hz'], wire='packed',
+                      channel='bitlevel')
+    q = torch.tensor([0.55, 0.7, 0.85, 1.0], device='cuda')
+    p = torch.tensor([0.9, 0.6, 0.75, 0.95], device='cuda')
+    bit = llm_step('llm bitlevel step', fl_bit, 'spfl',
+                   {'quantize_pack': 11, 'spfl_accumulate': 11,
+                    'corrupt_fold': 22}, seed=3, q=q, p=p)
+    tel = bit['telemetry']
+    if int(tel.sign_flips.sum() + tel.mod_flips.sum()) == 0:
+        raise AssertionError('llm bitlevel step: the channel drew no flips')
+    print(f'llm bitlevel step: flips sign {tel.sign_flips.tolist()} mod '
+          f'{tel.mod_flips.tolist()}', flush=True)
+    rows = llm_leaf_kernels(bit)
+    del bit
+    torch.cuda.empty_cache()
+    llm_step('llm error_free step',
+             FLConfig(n_devices=LLM_K, wire='packed'), 'error_free',
+             {'quantize_pack': 11, 'spfl_accumulate': 11}, seed=4)
+    torch.cuda.empty_cache()
+    check_llm_transport_card_vs_cpu()
+    launches = {'quantize_pack': counts['quantize_pack'],
+                'spfl_accumulate': counts['spfl_accumulate'],
+                'corrupt_fold': 22}
+    return dict(rows=rows, launches=launches, step_ms=[
+        t * 1e3 for t in hist['step_s']], solves=solves, **profiled)
+
+
+def kernel_bound(label: str, r: dict, sass_mix, name: str = None,
+                 per_unit: dict = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
     ``r['bytes']`` and does ``r['units']`` units of work of kernel
     ``name`` (default ``label``): the larger of the bytes over the HBM
-    rate and the function's operations (``FUNCTION_OPS``) on the busiest
-    resource.  Prints both, and the SASS of the build on the same units
-    (``sass_mix``, per unit) beside them as a diagnostic."""
+    rate and the function's operations (``FUNCTION_OPS``, or
+    ``per_unit`` where given) on the busiest resource.  Prints both, and
+    the SASS of the build on the same units (``sass_mix``, per unit)
+    beside them as a diagnostic."""
     from repro_torch.kernels import sass
     bytes_ms = r['bytes'] / HBM_BYTES_PER_S * 1e3
-    ops = launch_mix(FUNCTION_OPS[name or label], r['units'])
+    ops = launch_mix(per_unit or FUNCTION_OPS[name or label], r['units'])
     clocks = sass.resource_clocks(ops)
     ops_ms = max(clocks.values()) / (N_SM * SM_CLOCK_HZ) * 1e3
     line = (f'{label}: {r["bytes"]} B -> {bytes_ms:.7f} ms; function '
@@ -4036,6 +4547,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fused = run_fused(data_of(sim_j))
     print(f'phase 10: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 11. the LLM-scale FL step on smollm-135m at full width
+    t0 = time.perf_counter()
+    llm = run_llm()
+    print(f'phase 11: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -4083,6 +4598,17 @@ def main() -> int:
             'ms': r['ms'], 'warm_ms': r['warm_ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': None}
+        if name in llm['rows']:
+            v = llm['rows'][name]
+            v_bound, v_by = kernel_bound(
+                f'{name} (llm, {v["leaf"]} leaf)', v, None, name,
+                NO_VOTE_OPS if name == 'spfl_accumulate' else None)
+            row['llm'] = {
+                'leaf': v['leaf'], 'k': v['k'], 'n': v['n'],
+                'launches': llm['launches'][name],
+                'max_abs_err': v['max_abs_err'], 'ms': v['ms'],
+                'warm_ms': v['warm_ms'], 'plain_ms': v['plain_ms'],
+                'bound_ms': v_bound, 'bound_by': v_by}
         if 'variants' in r:
             row['variants'] = {}
             for label, v in r['variants'].items():

@@ -1,1 +1,3 @@
-from repro_torch.configs.base import FLConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    FLConfig, INPUT_SHAPES, ModelConfig, ShapeConfig,
+)

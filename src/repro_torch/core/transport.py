@@ -1,5 +1,9 @@
-"""Gradient transports — the uplink of one FL round (the port of the flat
-transports of ``repro.core.transport`` for ``collective='gather'``).
+"""Gradient transports — the uplink of one FL round (the port of
+``repro.core.transport`` for ``collective='gather'``): the flat
+transports over (K, l) gradient rows, and their tree variants over
+per-client gradient trees of the LLM-scale step
+(:func:`spfl_aggregate_tree`, :func:`error_free_aggregate_tree`, with
+:class:`TreeDraws`; the end of this module).
 
 * ``spfl`` / ``spfl_retx`` (:func:`spfl_aggregate`) consume per-client
   gradients (K, l) and produce the aggregate the PS decodes, eq.
@@ -45,11 +49,13 @@ makes no copy from the host and can be captured in a CUDA graph
 from __future__ import annotations
 
 import math
+from collections.abc import Sequence
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
+from repro_torch import tree
 from repro_torch.adversary import clients as adv_clients
 from repro_torch.adversary import screen as adv_screen
 from repro_torch.core import bitchannel
@@ -61,6 +67,7 @@ from repro_torch.core.quantize import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.record import RoundTelemetry
+from repro_torch.wire import corrupt as wire_corrupt
 from repro_torch.wire import format as wire_fmt
 from repro_torch.wire import packets as wire_packets
 from repro_torch.wire import vote as wire_vote
@@ -467,3 +474,380 @@ def error_free_aggregate(grads: Tensor, fl: FLConfig, draws: Draws,
                                 * dequantize_modulus(qg))
     return ghat, RoundTelemetry(ok, ok, ok, _scalar(payload, dev),
                                 _scalar(0.0, dev), **extras)
+
+
+# ---------------------------------------------------------------------------
+# pytree variants (LLM scale): one radio per client, leaf-wise math
+# ---------------------------------------------------------------------------
+
+SHARDED_LATER = ("collective='sharded' on the LLM-scale step is ROADMAP "
+                 'Queue 1 item 12')
+
+
+class TreeDraws(NamedTuple):
+    """The random inputs of one round's tree transport, bound to the
+    gradient tree's leaves in ``repro_torch.tree.leaves`` order."""
+    rand: Sequence[Tensor]                # leaf i: (K, n_i) f32 quantizer
+    #   uniforms (a LeafUniforms draws each when the transport asks)
+    seeds: Optional[Tensor] = None        # bitlevel: (2 + n_retx, L + 1, 2)
+    #   int32 uint32 seed patterns: per transmission pass (the modulus
+    #   pass, then each sign attempt) one pair a leaf, then the pair of
+    #   the pass's framing-word draw
+    sign_u: Optional[Tensor] = None       # bernoulli: (1 + n_retx, K) f32
+    mod_u: Optional[Tensor] = None        # bernoulli: (K,) f32
+
+
+class LeafUniforms(Sequence):
+    """Quantizer uniforms drawn leaf by leaf: item i is a fresh (K, n_i)
+    f32 draw from ``generator`` on ``device``, made when the transport
+    quantizes leaf i and dropped after it, so a round never holds the
+    uniforms of the whole tree.  The transports take each item once, in
+    leaf order."""
+
+    def __init__(self, k: int, sizes: Sequence[int],
+                 generator: torch.Generator, device):
+        self.k, self.sizes = k, tuple(int(n) for n in sizes)
+        self.generator, self.device = generator, device
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def __getitem__(self, i: int) -> Tensor:
+        return torch.rand((self.k, self.sizes[i]), generator=self.generator,
+                          device=self.device)
+
+
+def make_tree_draws(k: int, sizes: Sequence[int], n_retx: int, channel: str,
+                    device, generator: torch.Generator,
+                    host_generator: torch.Generator,
+                    kind: str = 'spfl') -> TreeDraws:
+    """One round's tree draws: the leaves' uniforms from ``generator`` on
+    ``device`` as the transport asks for them (:class:`LeafUniforms`),
+    then from ``host_generator`` the bit channel's seed words
+    ('bitlevel') or the Bernoulli uniforms, copied to ``device``
+    (error_free draws only the uniforms)."""
+    rand = LeafUniforms(k, sizes, generator, device)
+    if kind == 'error_free':
+        return TreeDraws(rand)
+    if channel == 'bitlevel':
+        words = torch.randint(0, 2 ** 32, (n_retx + 2, len(sizes) + 1, 2),
+                              generator=host_generator)
+        return TreeDraws(rand, seeds=wire_fmt.to_words(words).to(device))
+    sign_u = torch.rand((n_retx + 1, k), generator=host_generator)
+    mod_u = torch.rand((k,), generator=host_generator)
+    return TreeDraws(rand, sign_u=sign_u.to(device), mod_u=mod_u.to(device))
+
+
+def _check_gather(collective: str) -> None:
+    if collective == 'sharded':
+        raise NotImplementedError(SHARDED_LATER)
+    if collective != 'gather':
+        raise ValueError(f"collective must be 'gather' or 'sharded', got "
+                         f'{collective!r}')
+
+
+def tree_client_stats(grads_tree) -> dict:
+    """Per-client (leading-K) scalars across the whole gradient tree:
+    ||g_k||^2 (f32, summed leaf by leaf), min |g|, max |g| and the
+    dimension."""
+    leaves = tree.leaves(grads_tree)
+    k = leaves[0].shape[0]
+    dev = leaves[0].device
+    g2 = torch.zeros((k,), dtype=torch.float32, device=dev)
+    g_min = torch.full((k,), math.inf, dtype=torch.float32, device=dev)
+    g_max = torch.zeros((k,), dtype=torch.float32, device=dev)
+    for lf in leaves:
+        a = torch.abs(lf.to(torch.float32).reshape(k, -1))
+        g2 = g2 + torch.sum(a * a, dim=1)
+        lo, hi = torch.aminmax(a, dim=1)
+        g_min = torch.minimum(g_min, lo)
+        g_max = torch.maximum(g_max, hi)
+    dim = sum(int(lf.numel()) // k for lf in leaves)
+    return {'g2': g2, 'g_min': g_min, 'g_max': g_max, 'dim': dim}
+
+
+def delta_sq_tree(stats: dict, bits: int) -> Tensor:
+    """Per-client quantization error bound delta^2 (Lemma 2, eq. (25))
+    from the tree stats: l (g_max - g_min)^2 / (4 (2^b - 1))."""
+    spread = stats['dim'] * (stats['g_max'] - stats['g_min']) ** 2
+    return true_div(spread, 4.0 * (2 ** bits - 1))
+
+
+def _bitlevel_tree_pass(seeds: Tensor, word_leaves, ber: Tensor,
+                        frame_words: int, k: int):
+    """One transmission of every client's virtual framed packet whose
+    payload words are scattered over the leaves' (K, W_i) buffers:
+    ``seeds`` (L + 1, 2) holds one PRF pair a leaf (a ``corrupt_fold``
+    launch each) and the pair of the (K, frame_words) framing words
+    (header and CRC, never materialized: their flip mask alone is drawn).
+    The PS check ``fold(received) == crc`` of a contiguous packet is
+    ``fold(flip mask over all its words) == 0``, so the leaves' mask
+    folds, xor-ed, verify the virtual packet.  -> (received leaf buffers,
+    verify_ok (K,), flips (K,))."""
+    dev = ber.device
+    fold = torch.zeros((k,), dtype=torch.int32, device=dev)
+    flips = torch.zeros((k,), dtype=torch.int32, device=dev)
+    rx = []
+    for i, words in enumerate(word_leaves):
+        cw, f, nf = kops.corrupt_fold_words(seeds[i], words, ber)
+        rx.append(cw)
+        fold = fold ^ f
+        flips = flips + nf
+    fmask = wire_corrupt.flip_mask(seeds[len(word_leaves)], (k, frame_words),
+                                   ber, device=dev)
+    fold = fold ^ wire_fmt.xor_fold(fmask)
+    flips = flips + wire_corrupt.count_flips(fmask)
+    return rx, fold == 0, flips
+
+
+def _tree_mean(s: Tensor, k: int, denom) -> Tensor:
+    """A leaf's client sum over the present count, as the reference's
+    ``sum / denom`` promotes it: a tensor count takes the sum to float32
+    first, the Python int K divides in the sum's dtype."""
+    if isinstance(denom, Tensor):
+        return s.to(torch.float32) / denom
+    return true_div(s, float(k)).to(torch.float32)
+
+
+def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
+                        fl: FLConfig, draws: TreeDraws,
+                        stats: Optional[dict] = None, n_retx: int = 0,
+                        wire: Optional[str] = None,
+                        channel: Optional[str] = None,
+                        collective: Optional[str] = None,
+                        attack: str = 'none',
+                        byz_mask: Optional[Tensor] = None,
+                        attack_scale: float = 10.0,
+                        active: Optional[Tensor] = None,
+                        screen: bool = False, screen_z: float = 4.0,
+                        min_participation: float = 0.0):
+    """SP-FL over per-client gradient trees (leaves (K, ...), any float
+    dtype): eq. (15)-(17) leaf by leaf with per-client quantizer ranges,
+    packet outcomes and 1/q weights shared by all leaves.  Returns
+    (ghat tree (float32 leaves of the parameter shapes), stats,
+    telemetry).
+
+    ``wire='packed'`` (default ``fl.wire``): each leaf is quantized and
+    packed by the ``quantize_pack`` kernel with the tree-wide ranges and
+    decoded once by the ``spfl_accumulate`` kernel (no votes), so a round
+    launches each once a leaf; the framing (headers and CRCs) is one
+    packet pair a client, charged once in ``payload_bits``.
+    ``channel='bitlevel'`` (packed only) sends every client's sign and
+    modulus packets through the bit channel, one ``corrupt_fold`` launch
+    a leaf a pass, verdicts from the folded flip masks; a failed sign
+    packet is resent ``n_retx`` times (the pristine payload, a fresh
+    draw).  ``wire='analytic'`` sums the dequantized contributions in
+    ``fl.uplink_reduce_dtype``.
+
+    Adversarial knobs as ``spfl_aggregate``'s: 'signflip' negates the
+    byzantine rows' gradients before quantization (their signs flip,
+    zeros stay +1, the knobs are unchanged: the reference's pre-pack
+    ``flip_signs``); 'scaled' quantizes honestly and reports scaled
+    ranges to the decoder; ``active`` rows transmit nothing; ``screen``
+    gates on the norm reports alone (the tree path keeps no votes).
+    ``collective='sharded'`` raises ``NotImplementedError`` (ROADMAP
+    Queue 1 item 12)."""
+    wire = fl.wire if wire is None else wire
+    channel = fl.channel if channel is None else channel
+    if wire not in WIRE_KINDS:
+        raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
+    if channel not in chan.CHANNEL_KINDS:
+        raise ValueError(f'channel must be one of {chan.CHANNEL_KINDS}, '
+                         f'got {channel!r}')
+    if channel == 'bitlevel' and wire != 'packed':
+        raise ValueError("channel='bitlevel' requires wire='packed'")
+    if attack not in adv_clients.ATTACK_KINDS:
+        raise ValueError(f'attack must be one of {adv_clients.ATTACK_KINDS}'
+                         f', got {attack!r}')
+    _check_gather(fl.collective if collective is None else collective)
+    if stats is None:
+        stats = tree_client_stats(grads_tree)
+    K = q.shape[0]
+    bits = fl.quant_bits
+    q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)
+    g_min, g_max = stats['g_min'], stats['g_max']
+    byz = byz_mask if attack in ('signflip', 'scaled') else None
+    g_min_rep, g_max_rep = g_min, g_max      # the range reports (the lie)
+    if attack == 'scaled' and byz is not None:
+        g_min_rep = adv_clients.scale_range(g_min, byz, attack_scale)
+        g_max_rep = adv_clients.scale_range(g_max, byz, attack_scale)
+    rdt = (torch.bfloat16 if fl.uplink_reduce_dtype == 'bfloat16'
+           else torch.float32)
+    leaves = tree.leaves(grads_tree)
+    gbar_leaves = tree.leaves(gbar_tree)
+
+    # ---- clients: quantize every leaf (and pack, on the packed wire) ----
+    qgs, sws, qws = [], [], []
+    for i, lf in enumerate(leaves):
+        flat = lf.to(torch.float32).reshape(K, -1)
+        if attack == 'signflip' and byz is not None and wire == 'packed':
+            flat = torch.where(byz[:, None], -flat, flat)
+        if wire == 'packed':
+            sw, qw = kops.quantize_pack_flat(flat.contiguous(), draws.rand[i],
+                                             g_min, g_max, bits)
+            sws.append(sw)
+            qws.append(qw)
+            continue
+        qg = stochastic_quantize(flat, bits, draws.rand[i], g_min[:, None],
+                                 g_max[:, None])
+        if attack == 'signflip' and byz is not None:
+            qg = adv_clients.flip_signs(qg, byz)
+        if attack == 'scaled' and byz is not None:
+            # the analytic dequant sees the scaled report
+            qg = qg._replace(g_min=g_min_rep[:, None],
+                             g_max=g_max_rep[:, None])
+        qgs.append(qg)
+
+    # ---- channel: packet fate (and, bit-level, payload damage) ----
+    extras = {}
+    if channel == 'bitlevel':
+        sign_frame = wire_fmt.SIGN_HEADER_WORDS + wire_fmt.CRC_WORDS
+        mod_frame = wire_fmt.MOD_HEADER_WORDS + wire_fmt.CRC_WORDS
+        ws = sum(sw.shape[-1] for sw in sws) + sign_frame
+        wm = sum(qw.shape[-1] for qw in qws) + mod_frame
+        ber_s = bitchannel.ber_for_success(q, ws)
+        ber_v = bitchannel.ber_for_success(p, wm)
+        qws, mod_ok, mod_flips = _bitlevel_tree_pass(
+            draws.seeds[0], qws, ber_v, mod_frame, K)
+        orig_sws = sws       # the pristine payloads the resends carry
+        sws, sign_ok, sign_flips = _bitlevel_tree_pass(
+            draws.seeds[1], sws, ber_s, sign_frame, K)
+        sign_crc_ok = sign_ok
+        retx_k = torch.zeros((K,), dtype=torch.int32, device=q.device)
+        for attempt in range(1, n_retx + 1):
+            failed = ~sign_ok
+            rx_a, ok_a, flips_a = _bitlevel_tree_pass(
+                draws.seeds[1 + attempt], orig_sws, ber_s, sign_frame, K)
+            rescued = failed & ok_a
+            sws = [torch.where(rescued[:, None], a, r)
+                   for a, r in zip(rx_a, sws)]
+            sign_flips = sign_flips + torch.where(failed, flips_a, 0)
+            retx_k = retx_k + failed.to(torch.int32)
+            sign_ok = sign_ok | rescued
+        retx = torch.sum(retx_k).to(torch.float32)
+        extras = dict(sign_flips=sign_flips, mod_flips=mod_flips,
+                      sign_crc_ok=sign_crc_ok, mod_crc_ok=mod_ok,
+                      retx_attempts=retx_k)
+    elif n_retx == 0:
+        sign_ok, mod_ok = chan.simulate_outcomes(draws.sign_u[0], draws.mod_u,
+                                                 q_eff, p)
+        retx = torch.zeros((), dtype=torch.float32, device=q.device)
+    else:
+        sign_ok, retx_k = chan.simulate_attempts(draws.sign_u, q, n_retx)
+        mod_ok = draws.mod_u < p
+        retx = torch.sum(retx_k).to(torch.float32)
+        extras = dict(retx_attempts=retx_k)
+
+    if active is not None:           # stragglers transmit nothing
+        sign_ok = sign_ok & active
+        mod_ok = mod_ok & active
+        extras['active'] = active
+    if min_participation > 0.0:
+        floor = int(math.ceil(min_participation * K))
+        n_mod = torch.sum(mod_ok.to(torch.int32))
+        mod_ok = torch.where(n_mod >= floor, mod_ok, torch.zeros_like(mod_ok))
+    w = _inverse_prob(sign_ok, q_eff)
+    suspect = None
+    if screen:
+        # the norm reports alone: the tree path keeps no votes
+        gate, suspect, suspicion = adv_screen.screen_gate(
+            g_max_rep, mod_ok, z_thresh=screen_z)
+        w = w * gate
+        extras['suspect'] = suspect
+        extras['suspicion'] = suspicion
+    denom = _present_denom(K, active, suspect)
+
+    # ---- PS: decode-once aggregate per leaf ----
+    out = []
+    for i, (lf, gbar_leaf) in enumerate(zip(leaves, gbar_leaves)):
+        gb = gbar_leaf.to(torch.float32)
+        per_client = tuple(gb.shape) == tuple(lf.shape)   # last_local
+        if wire == 'packed':
+            n = lf[0].numel()
+            gb = gb.reshape(K, n) if per_client else gb.reshape(n)
+            acc, _ = kops.spfl_aggregate_packed(
+                sws[i], qws[i], gb.contiguous(), g_min_rep, g_max_rep,
+                mod_ok, w, sign_ok, n, bits, with_votes=False)
+            out.append(_tree_mean(acc, K, denom).reshape(lf.shape[1:]))
+            continue
+        qg = qgs[i]
+        modulus = dequantize_modulus(qg)
+        gb = (gb.reshape(K, -1) if per_client
+              else gb.reshape(1, -1).expand(modulus.shape))
+        modulus = torch.where(mod_ok[:, None], modulus, gb)
+        contrib = (w[:, None] * (qg.sign.to(torch.float32) * modulus)
+                   ).to(rdt)
+        s = (_seq_client_sum(contrib) if rdt == torch.float32
+             else torch.sum(contrib, dim=0))
+        out.append(_tree_mean(s, K, denom).reshape(lf.shape[1:]))
+    ghat = tree.unflatten(grads_tree, out)
+
+    l = stats['dim']
+    if wire == 'packed':
+        payload_words = sum(sw.shape[-1] + qw.shape[-1]
+                            for sw, qw in zip(sws, qws))
+        framing = (wire_fmt.SIGN_HEADER_WORDS + wire_fmt.MOD_HEADER_WORDS
+                   + 2 * wire_fmt.CRC_WORDS)
+        payload = K * wire_fmt.WORD_BITS * (payload_words + framing)
+        sign_bits = wire_fmt.WORD_BITS * (
+            sum(sw.shape[-1] for sw in sws) + wire_fmt.SIGN_HEADER_WORDS
+            + wire_fmt.CRC_WORDS)
+    else:
+        sign_bits, mod_bits = packet_bits(l, bits, fl.b0_bits)
+        payload = K * (sign_bits + mod_bits)
+    diag = RoundTelemetry(sign_ok, mod_ok, sign_ok, payload + retx * sign_bits,
+                          retx, **extras)
+    return ghat, stats, diag
+
+
+def error_free_aggregate_tree(grads_tree, fl: FLConfig, draws: TreeDraws,
+                              stats: Optional[dict] = None,
+                              wire: Optional[str] = None,
+                              collective: Optional[str] = None):
+    """Quantized, lossless tree aggregation (the error-free upper bound at
+    LLM scale): every leaf quantized with the tree-wide per-client
+    ranges and averaged over the K clients; on the packed wire through
+    ``quantize_pack`` and ``spfl_accumulate`` (ḡ = 0, unit weights, no
+    votes), one launch each a leaf.  Returns (ghat tree, stats,
+    telemetry)."""
+    wire = fl.wire if wire is None else wire
+    if wire not in WIRE_KINDS:
+        raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
+    _check_gather(fl.collective if collective is None else collective)
+    if stats is None:
+        stats = tree_client_stats(grads_tree)
+    g_min, g_max = stats['g_min'], stats['g_max']
+    bits = fl.quant_bits
+    leaves = tree.leaves(grads_tree)
+    K = leaves[0].shape[0]
+    dev = leaves[0].device
+    ones = torch.ones((K,), dtype=torch.float32, device=dev)
+    out = []
+    payload_words = 0
+    for i, lf in enumerate(leaves):
+        flat = lf.to(torch.float32).reshape(K, -1)
+        n = flat.shape[1]
+        if wire == 'packed':
+            sw, qw = kops.quantize_pack_flat(flat.contiguous(), draws.rand[i],
+                                             g_min, g_max, bits)
+            payload_words += sw.shape[-1] + qw.shape[-1]
+            acc, _ = kops.spfl_aggregate_packed(
+                sw, qw, torch.zeros((n,), dtype=torch.float32, device=dev),
+                g_min, g_max, ones, ones, ones, n, bits, with_votes=False)
+            mean = true_div(acc, float(K))
+        else:
+            qg = stochastic_quantize(flat, bits, draws.rand[i],
+                                     g_min[:, None], g_max[:, None])
+            mean = _seq_client_mean(qg.sign.to(torch.float32)
+                                    * dequantize_modulus(qg))
+        out.append(mean.reshape(lf.shape[1:]))
+    if wire == 'packed':
+        payload = K * wire_fmt.WORD_BITS * (
+            payload_words + wire_fmt.SIGN_HEADER_WORDS
+            + wire_fmt.MOD_HEADER_WORDS + 2 * wire_fmt.CRC_WORDS)
+    else:
+        payload = K * (stats['dim'] * (bits + 1) + fl.b0_bits)
+    ok = torch.ones((K,), dtype=torch.bool, device=dev)
+    diag = RoundTelemetry(ok, ok, ok, _scalar(float(payload), dev),
+                          _scalar(0.0, dev))
+    return tree.unflatten(grads_tree, out), stats, diag

@@ -3,7 +3,9 @@
 ``load_image_dataset`` reads the real CIFAR-10 binary batches when present
 under ``data_dir`` and otherwise falls back to **SynthCIFAR**: a
 deterministic 10-class, 32x32x3 dataset whose classes are separable but
-noisy.  Same seed, same arrays as the reference, bit for bit.
+noisy.  ``synth_tokens`` is the LM token stream of the LLM-scale
+launcher (``launch.train``).  Same seed, same arrays as the reference,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -66,3 +68,20 @@ def load_image_dataset(n_train: int = 40_000, n_test: int = 4_000,
     xtr, ytr = synth_cifar(n_train, seed)
     xte, yte = synth_cifar(n_test, seed + 10_000)
     return (xtr, ytr), (xte, yte)
+
+
+def synth_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0
+                 ) -> np.ndarray:
+    """Zipf-ish synthetic token stream with short-range structure (so a tiny
+    LM actually has something to learn), (n_seqs, seq_len) int32."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    toks = rng.choice(vocab, size=(n_seqs, seq_len), p=probs)
+    # inject bigram structure: with prob .5, t[i+1] = (t[i]*7+3) % vocab
+    follow = rng.rand(n_seqs, seq_len) < 0.5
+    for i in range(seq_len - 1):
+        nxt = (toks[:, i] * 7 + 3) % vocab
+        toks[:, i + 1] = np.where(follow[:, i], nxt, toks[:, i + 1])
+    return toks.astype(np.int32)

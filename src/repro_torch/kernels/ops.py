@@ -292,7 +292,8 @@ def quantize_pack_flat(g: Tensor, rand: Tensor, gmin, gmax, bits: int
 
 def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
                           gbar: Tensor, gmin, gmax, mod_ok, weight,
-                          sign_ok, n: int, bits: int
+                          sign_ok, n: int, bits: int,
+                          with_votes: bool = True
                           ) -> Tuple[Tensor, Optional[Tensor]]:
     """Decode-once PS aggregation, eq. (15)-(17), from the packed domain:
 
@@ -303,7 +304,8 @@ def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
     of framed packets); ``gbar`` is (n,) shared or (K, n) per client; the
     per-client scalars are (K,).  Votes (int32, per-coordinate count of
     accepted +1 signs) are ``None`` when K exceeds the 32-client vote
-    word.  The knob step is computed here with
+    word, or when ``with_votes`` is False (the tree transports discard
+    them: the kernel then gets a null vote pointer and stores none).  The knob step is computed here with
     ``quantize.knob_step`` (IEEE division), as the reference does."""
     k = sign_payload.shape[0]
     groups = fmt.n_groups(n)
@@ -313,7 +315,7 @@ def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
     if tuple(gbar.shape) not in ((n,), (k, n)):
         raise ValueError(f'gbar: expected ({n},) or ({k}, {n}), '
                          f'got {tuple(gbar.shape)}')
-    with_votes = k <= MAX_VOTE_CLIENTS
+    with_votes = with_votes and k <= MAX_VOTE_CLIENTS
     dev = sign_payload.device
     gmin = _col(gmin, k, torch.float32, dev)
     step = knob_step(gmin, _col(gmax, k, torch.float32, dev), bits)

@@ -135,11 +135,12 @@ from repro_torch.obs.sink import JsonlSink, run_manifest
 from repro_torch.obs.trace import StageTrace
 from repro_torch.training import fused
 
-# knobs the port does not run yet -> the ROADMAP.md item that brings them
-_NOT_YET = (
-    (lambda fl: fl.collective != 'gather',
-     "collective='sharded' is ROADMAP Queue 1 item 12"),
-)
+
+
+# knobs the host loop does not run yet -> the ROADMAP.md item that brings
+# them (none now: like the reference's, the loop never reads
+# ``collective``; the LLM-scale step refuses 'sharded' itself)
+_NOT_YET = ()
 
 
 ALLOCATION_BACKENDS = ('numpy', 'jax')

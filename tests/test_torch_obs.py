@@ -301,11 +301,17 @@ def test_telemetry_and_population_left_the_unported_list(kw):
     dict(round_fusion='eager'), dict(round_fusion='scan'),
     dict(collective='sharded')])
 def test_remaining_items_still_raise(kw):
-    """Fused rounds left the unported list; the sharded collective is
-    what remains."""
-    assert len(fl_loop._NOT_YET) == 1
+    """Fused rounds left the unported list, and so did the sharded
+    collective: the host loop never reads it (the reference's does not
+    either).  'sharded' still raises on the LLM-scale step, naming its
+    ROADMAP item."""
+    assert fl_loop._NOT_YET == ()
     if 'round_fusion' in kw:
         fl_loop.check_supported(FLConfig(allocation_backend='jax', **kw))
         return
+    fl_loop.check_supported(FLConfig(**kw))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.training import distributed
     with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item'):
-        fl_loop.check_supported(FLConfig(**kw))
+        distributed.make_fl_train_step(get_arch('smollm-135m-reduced'),
+                                       FLConfig(**kw))

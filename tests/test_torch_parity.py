@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro.wire import corrupt as WC
-from repro_torch.core.transport import Draws
+from repro_torch.core.transport import Draws, TreeDraws
 from repro_torch.kernels import ops as tops
 
 
@@ -44,6 +44,13 @@ def draws_from_key(key, k, l, n_retx, channel):
                               for a in range(1, n_retx + 1)]
         # the modulus stream's pair, then one per sign attempt
         return Draws(rand, seeds=tops.seed_words([seeds(kv)] + sign, 'cpu'))
+    sign_u, mod_u = bernoulli_draws(ko, k, n_retx)
+    return Draws(rand, sign_u=sign_u, mod_u=mod_u)
+
+
+def bernoulli_draws(ko, k, n_retx):
+    """(sign_u, mod_u): the Bernoulli packet-outcome uniforms the
+    reference's spfl transports draw from their outcome key ``ko``."""
     if n_retx == 0:
         k1, k2 = jax.random.split(ko)
         sign_u = jax.random.uniform(k1, (k,))[None]
@@ -52,8 +59,7 @@ def draws_from_key(key, k, l, n_retx, channel):
         ks, km = jax.random.split(ko)
         sign_u = jax.random.uniform(ks, (n_retx + 1, k))
         mod_u = jax.random.uniform(km, (k,))
-    return Draws(rand, sign_u=torch.as_tensor(np.array(sign_u)),
-                 mod_u=torch.as_tensor(np.array(mod_u)))
+    return torch.as_tensor(np.array(sign_u)), torch.as_tensor(np.array(mod_u))
 
 
 def baseline_draws_from_key(kind, key, k, l, channel):
@@ -86,6 +92,39 @@ def baseline_draws_from_key(kind, key, k, l, channel):
     else:
         fate_u = jax.random.uniform(ko, (k,))[None]
     return Draws(rand, fate_u=t(fate_u), h2=h2)
+
+
+def tree_draws_from_key(key, sizes, k, n_retx, channel, round_idx=None,
+                        kind='spfl'):
+    """The draws ``repro.core.transport.spfl_aggregate_tree(..., key)``
+    (or, ``kind='error_free'``, ``error_free_aggregate_tree``) makes for
+    a tree whose leaves hold ``sizes`` coordinates a client, in
+    ``jax.tree.flatten`` order: the round index folded into the key, the
+    quantizer uniforms of leaf i from ``split(kq, L)[i]``, and on the bit
+    channel one seed pair a leaf a pass (``fold_in(pass key, i)``) and
+    the framing draw's (``fold_in(pass key, L)``): the modulus pass, the
+    first sign pass, then each resend under ``fold_in(ks, attempt)``."""
+    if round_idx is not None:
+        key = jax.random.fold_in(key, round_idx)
+
+    def uniforms(base):
+        keys = jax.random.split(base, len(sizes))
+        return [torch.as_tensor(np.array(jax.random.uniform(kk, (k, n))))
+                for kk, n in zip(keys, sizes)]
+
+    if kind == 'error_free':
+        return TreeDraws(uniforms(key))
+    kq, ko = jax.random.split(key)
+    rand = uniforms(kq)
+    if channel == 'bitlevel':
+        ks, kv = jax.random.split(ko)
+        passes = [kv, ks] + [jax.random.fold_in(ks, a)
+                             for a in range(1, n_retx + 1)]
+        rows = [[seeds(jax.random.fold_in(pk, i))
+                 for i in range(len(sizes) + 1)] for pk in passes]
+        return TreeDraws(rand, seeds=tops.seed_words(rows, 'cpu'))
+    sign_u, mod_u = bernoulli_draws(ko, k, n_retx)
+    return TreeDraws(rand, sign_u=sign_u, mod_u=mod_u)
 
 
 def test_words_np_keeps_the_bit_pattern():

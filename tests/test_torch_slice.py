@@ -120,13 +120,18 @@ def test_simulator_runs_on_cpu_with_measured_payload():
     dict(collective='sharded'),
     dict(telemetry_path='t.jsonl', collective='sharded')])
 def test_unsupported_knobs_raise(kw):
-    """Only ``collective='sharded'`` is still unported (it raises, naming
-    its ROADMAP item); fused rounds build, and refuse the host solver of
-    an allocating transport when they run, with the reference's
-    message."""
+    """``collective='sharded'`` builds: the host loop never reads it, as
+    the reference's does not (it raises on the LLM-scale step, naming its
+    ROADMAP item); fused rounds build, and refuse the host solver of an
+    allocating transport when they run, with the reference's message."""
     if kw.get('collective') == 'sharded':
+        sim = _tiny_simulator(FLConfig(**kw))
+        assert sim.fl.collective == 'sharded'
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.training import distributed
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            _tiny_simulator(FLConfig(**kw))
+            distributed.make_fl_train_step(get_arch('smollm-135m-reduced'),
+                                           sim.fl)
         return
     sim = _tiny_simulator(FLConfig(**kw))
     assert sim.fl.round_fusion in ('eager', 'scan')
