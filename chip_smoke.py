@@ -163,6 +163,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    transport on the card against the CPU given the same gradients and
    draws (``check_llm_transport_card_vs_cpu``).
 
+12. the sharded collective, fused LLM rounds and LLM population mode
+    (``run_sharded``, ``run_llm_fused``): the flat transports (spfl,
+    spfl_retx, error_free; packed, bit-level) at K=20, l=62,006, the tree
+    transports over the CNN's parameter tree, K=5 (ragged) and the sum
+    and votes of K=40 clients, sharded at S = 1 over NCCL in this process
+    and at S = 2 and 4 gloo ranks (``--shard-rank``: processes of this
+    script on the one card), each against the gathered call: integers
+    bit for bit, f32 within S x the FMA-wobble bound (bit for bit at S =
+    1), every rank's ĝ the same bits; at S = 2 two sharded smollm-135m
+    steps against the gathered transport on the same gradients; then
+    six fused smollm-135m rounds (segments of 4 and 2, barrier) twice
+    under 'eager' and twice under 'scan' ('scan' = 'eager' bit for bit,
+    losses, (q, p) and telemetry rows; each round's ``alloc_solve_f32`` =
+    its plain version bit for bit; the first run's warm-up and segments
+    under sync debug mode 'error'; one segment's kernels and idle share
+    under ``torch.profiler``), fused error_free against the host loop
+    bit for bit, and one population 'scan' segment (N = 10^6, cohort 4)
+    whose cohort ids are the host chain's.
+
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
 the run of its own path (``path``: 'round' is phase 4's main run, 'alloc'
@@ -184,7 +203,8 @@ unpack_dequant add ``variants``, the same for their other phase 6 calls
 (bits 1, mod_ok 0); those of quantize_pack, spfl_accumulate (no votes)
 and corrupt_fold add ``llm``, the same at phase 11's embedding leaf
 (K=4), with the launches of phase 11's run (``corrupt_fold``: its
-bit-level step).  It imports
+bit-level step); ``phase12_launches`` counts phase 12's launches on
+every rank (a graph's at its capture).  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -193,6 +213,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1778,22 +1799,47 @@ def check_grid_waits() -> list:
     return names
 
 
-def device_launches(fn, tries: int = 3) -> dict:
-    """{name: count} of the device operations (kernels, memsets, copies)
-    that ``fn()`` runs, from ``torch.profiler``'s CUDA records.  A profile
-    that holds no device record at all is taken again, up to ``tries``
-    times: the profiler has now and then delivered none for one short
-    launch (a kernel API call, PR 18's proof run), though the same call
-    showed its kernel in every other run."""
-    import collections
+PROFILE_PAD_S = 0.02
+
+
+def card_profile(cpu: bool = False):
+    """``torch.profiler`` of the card's operations (and the host's when
+    ``cpu``) over the body of a ``with``, its window held open
+    ``PROFILE_PAD_S`` with the card idle before the body and again after
+    the card has finished it.  A window that opens just before a launch
+    and closes just after the card's last operation now and then comes
+    back with no device record at all, in bursts that can take several
+    windows in a row; one padded so has not, in a probe of the same call
+    over a minute and more."""
+    import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+
+    @contextlib.contextmanager
+    def window():
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(PROFILE_PAD_S)
+            yield prof
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+    return window()
+
+
+def device_launches(fn, tries: int = 3) -> dict:
+    """{name: count} of the device operations (kernels, memsets, copies)
+    that ``fn()`` runs, from ``torch.profiler``'s CUDA records over a
+    padded window (``card_profile``).  A profile that holds no device
+    record at all is taken again, up to ``tries`` times."""
+    import collections
+    import torch
     names = {}
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             fn()
-            torch.cuda.synchronize()
         names = dict(collections.Counter(
             e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA))
@@ -2653,12 +2699,9 @@ def round_split(sim, tries: int = 3, label: str = 'main-jax',
     ``device_launches``)."""
     import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
     cpu = torch.autograd.DeviceType.CPU
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile(cpu=True) as prof:
             t0 = time.perf_counter()
             sim.run(1)
             torch.cuda.synchronize()
@@ -3136,16 +3179,12 @@ def screen_cost(screened, plain, tries: int = 3) -> dict:
     inside its device span, and each round's device operations (their
     difference is what screening adds)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     cpu = torch.autograd.DeviceType.CPU
     out = {}
     for label, sim in (('screened', screened), ('plain', plain)):
         for _ in range(tries):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with card_profile(cpu=True) as prof:
                 sim.run(1)
-                torch.cuda.synchronize()
             host = dev_span = None
             ops = []
             for e in prof.events():
@@ -3666,7 +3705,6 @@ class Watch:
     def __call__(self):
         import contextlib
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
         @contextlib.contextmanager
         def guard():
@@ -3678,8 +3716,7 @@ class Watch:
                     torch.cuda.set_sync_debug_mode('default')
                 self.launches.append({})
                 return
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with card_profile() as prof:
                 t0 = time.perf_counter()
                 yield
                 torch.cuda.synchronize()
@@ -4002,13 +4039,9 @@ def llm_profile() -> dict:
     the card ran, per step (step 0 solves nothing, step 1 once), and the
     split of step 1 (``llm_step_split``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile(cpu=True) as prof:
         train.run(LLM_ARCH, steps=2, **LLM_RUN)
-        torch.cuda.synchronize()
     names = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -4398,6 +4431,684 @@ def run_llm() -> dict:
         t * 1e3 for t in hist['step_s']], solves=solves, **profiled)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded collective, fused LLM rounds, LLM population mode
+# ---------------------------------------------------------------------------
+
+SHARD_WORLDS = (2, 4)       # gloo ranks as processes on the one card
+SHARD_TIMEOUT_S = 300
+# fused LLM rounds: six rounds in segments of 4 and 2 (the launcher's
+# sizes; barrier, 'jax')
+LLM_FUSED = dict(LLM_RUN, steps=6, scan_segment_rounds=4)
+LLM_POP = dict(population_n=10 ** 6, cohort_size=LLM_K)
+# ||g_k||^2 is a float32 row sum whose CUDA reduction splits by the
+# tensor's shape: a rank's K_local rows may round otherwise than K rows
+# (at S = 1 the shapes are the same and the sums equal bit for bit)
+G2_RTOL = 1e-5
+# the sharded smollm step against the 4-client pass's: the same clients'
+# bf16 gradient pass batched over 4 clients instead of 2, whose GEMMs
+# accumulate in another order, so a bf16 value may round to a neighbour:
+# losses, ||g_k||^2 and max |g_k| within four bf16 ulps, relative (one
+# ulp is 2^-8 to 2^-7 of the value); a pass that goes wrong by more than
+# bf16 rounding fails
+VMAP_RTOL = 4 * 2.0 ** -8
+# the kernels of the phase's paths, each of which must launch
+PHASE12_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold',
+                   'fold_words', 'alloc_solve_f32')
+
+
+def ulp_bound(weight, gmax, gbar_max: float) -> float:
+    """The FMA-wobble bound of a client sum (``tests/test_torch_parity.
+    ulp_atol``): 4 eps x sum_k w_k max(gmax_k, max |ḡ|)."""
+    import torch
+    w = torch.as_tensor(weight, dtype=torch.float64).abs().cpu()
+    g = torch.as_tensor(gmax, dtype=torch.float64).cpu()
+    scale = float(torch.sum(w * torch.clamp(g, min=gbar_max)))
+    return 4 * 2.0 ** -23 * max(scale, 1.0)
+
+
+class ShardCheck:
+    """One rank's comparisons of sharded calls with the gathered ones:
+    integers bit for bit, f32 within S x the bound (bit for bit at S =
+    1), and every rank's result the same bits."""
+
+    def __init__(self, mesh):
+        self.mesh, self.S = mesh, mesh.size
+        self.cases = {}
+
+    def same_bits(self, label, t):
+        import torch
+        mine = t.detach().reshape(1, -1).contiguous().view(torch.int32)
+        every = self.mesh.all_gather(mine)
+        if not all(torch.equal(every[r], mine[0])
+                   for r in range(self.S)):
+            raise AssertionError(f'{label}: ranks hold different bits')
+
+    def f32(self, label, got, want, atol):
+        err = float((got.double() - want.double()).abs().max())
+        bound = 0.0 if self.S == 1 else self.S * atol
+        if err > bound:
+            raise AssertionError(f'{label}: f32 {err} > bound {bound}')
+        case = self.cases.setdefault(label, {'max_err': 0.0, 'bound': 0.0})
+        case['max_err'] = max(case['max_err'], err)
+        case['bound'] = max(case['bound'], bound)
+
+    def rel(self, label, got, want, rtol, exact_at_one=True):
+        """A float32 reduction whose order follows the shape it runs on
+        (a row sum over K_local rows or over K): within ``rtol``, and bit
+        for bit at S = 1 (the same shapes) unless ``exact_at_one`` is
+        False."""
+        err = float(((got.double() - want.double()).abs()
+                     / want.double().abs().clamp(min=1e-30)).max())
+        bound = 0.0 if self.S == 1 and exact_at_one else rtol
+        if err > bound:
+            raise AssertionError(f'{label}: relative {err} > {bound}')
+        case = self.cases.setdefault(label, {'max_err': 0.0,
+                                             'bound': bound})
+        case['max_err'] = max(case['max_err'], err)
+
+    def ints(self, label, got, want):
+        import torch
+        if (got is None) != (want is None) or (
+                want is not None and not torch.equal(got, want)):
+            raise AssertionError(f'{label}: integers differ')
+
+    def telemetry(self, label, got, want):
+        for f in ('sign_ok', 'mod_ok', 'sign_flips', 'mod_flips',
+                  'sign_crc_ok', 'retx_attempts', 'sign_votes',
+                  'payload_bits', 'retransmissions'):
+            self.ints(f'{label}.{f}', getattr(got, f), getattr(want, f))
+
+
+def shard_flat(chk, kind: str, k: int, l: int, seed: int) -> dict:
+    """One flat packed bit-level transport (spfl, spfl_retx or
+    error_free) of K clients of l coordinates, gathered and sharded on
+    the same global draws."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import transport as tr
+    mesh, dev = chk.mesh, torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = torch.randn((k, l), generator=gen, device=dev) * 0.05
+    gbar = torch.rand((l,), generator=gen, device=dev) * 0.05
+    q = 0.55 + 0.44 * torch.rand((k,), generator=gen, device=dev)
+    p = 0.55 + 0.44 * torch.rand((k,), generator=gen, device=dev)
+    n_retx = 1 if kind == 'spfl_retx' else 0
+    draws = tr.make_draws(k, l, n_retx, 'bitlevel', dev, gen,
+                          torch.Generator().manual_seed(seed),
+                          kind='error_free' if kind == 'error_free'
+                          else 'spfl')
+    rows = mesh.rows(k)
+    label = f'{kind} K={k}'
+    if kind == 'error_free':
+        fl = FLConfig(n_devices=k, wire='packed')
+        want, tw = tr.error_free_aggregate(grads, fl, draws, round_idx=5)
+        got, tg = tr.error_free_aggregate(grads[rows], fl, draws,
+                                          round_idx=5, collective='sharded',
+                                          mesh=mesh, k=k)
+        atol = ulp_bound(torch.ones(k), grads.abs().amax(1), 0.0) / k
+    else:
+        kw = dict(n_retx=n_retx, wire='packed', round_idx=5,
+                  channel='bitlevel')
+        want, tw = tr.spfl_aggregate(grads, gbar, q, p, BITS, 32, draws,
+                                     **kw)
+        got, tg = tr.spfl_aggregate(grads[rows], gbar, q, p, BITS, 32,
+                                    draws, collective='sharded', mesh=mesh,
+                                    **kw)
+        q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)
+        atol = ulp_bound(1.0 / q_eff, grads.abs().amax(1),
+                         float(gbar.max())) / k
+    chk.f32(label, got, want, atol)
+    chk.telemetry(label, tg, tw)
+    chk.same_bits(label, got)
+    flips = (0 if tw.sign_flips is None
+             else int(tw.sign_flips.sum() + tw.mod_flips.sum()))
+    return {'flips': flips, 'sign_ok': int(tw.sign_ok.sum())}
+
+
+def shard_tree(chk, kind: str, k: int, seed: int) -> dict:
+    """The tree transport (spfl bit-level, or error_free) over the CNN's
+    parameter tree at K clients, gathered and sharded."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import transport as tr
+    from repro_torch.models import cnn
+    mesh, dev = chk.mesh, torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {key: cnn._LEAVES[key][1] for key in cnn.KEYS}
+    grads = {n: torch.randn((k,) + tuple(s), generator=gen, device=dev)
+             * 0.05 for n, s in shapes.items()}
+    gbar = {n: torch.rand(tuple(s), generator=gen, device=dev) * 0.05
+            for n, s in shapes.items()}
+    q = 0.55 + 0.44 * torch.rand((k,), generator=gen, device=dev)
+    p = 0.55 + 0.44 * torch.rand((k,), generator=gen, device=dev)
+    sizes = [int(x[0].numel()) for x in tree.leaves(grads)]
+    draws = tr.make_tree_draws(k, sizes, 0, 'bitlevel', dev, gen,
+                               torch.Generator().manual_seed(seed), kind=kind)
+    draws = draws._replace(rand=list(draws.rand))
+    fl = FLConfig(n_devices=k, wire='packed', channel='bitlevel')
+    mine = tree.map(lambda g: g[mesh.rows(k)], grads)
+    label = f'tree {kind} K={k}'
+    if kind == 'error_free':
+        want, sw, tw = tr.error_free_aggregate_tree(grads, fl, draws)
+        got, sg, tg = tr.error_free_aggregate_tree(
+            mine, fl, draws, collective='sharded', mesh=mesh, k=k)
+        weight, gmax_bar = torch.ones(k) / k, 0.0
+    else:
+        want, sw, tw = tr.spfl_aggregate_tree(grads, gbar, q, p, fl, draws)
+        got, sg, tg = tr.spfl_aggregate_tree(mine, gbar, q, p, fl, draws,
+                                             collective='sharded', mesh=mesh)
+        weight = 1.0 / q / k
+        gmax_bar = max(float(x.max()) for x in tree.leaves(gbar))
+    for f in ('g_min', 'g_max'):
+        chk.ints(f'{label}.{f}', sg[f], sw[f])
+    chk.rel(f'{label}.g2', sg['g2'], sw['g2'], G2_RTOL)
+    atol = ulp_bound(weight, sw['g_max'], gmax_bar)
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        chk.f32(label, a, b, atol)
+        chk.same_bits(label, a)
+    chk.telemetry(label, tg, tw)
+    return {'sign_ok': int(tw.sign_ok.sum())}
+
+
+def shard_votes(chk, k: int, n: int, seed: int) -> dict:
+    """``ops.spfl_aggregate_packed_sharded`` at K clients: the sum and,
+    where a rank's block fits a 32-client vote word, the votes (the
+    integer sum of each block's gathered votes; the gathered call over
+    K > 32 has none)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import format as fmt
+    mesh, dev = chk.mesh, torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    groups = fmt.n_groups(n)
+
+    def words(shape):
+        return fmt.to_words(torch.randint(0, 2 ** 32, shape, generator=gen,
+                                          device=dev))
+
+    sp, qp = words((k, groups)), words((k, groups * BITS))
+    gbar = torch.rand((n,), generator=gen, device=dev)
+    gmin = torch.rand((k,), generator=gen, device=dev) * 0.1
+    gmax = gmin + torch.rand((k,), generator=gen, device=dev)
+    mod_ok = torch.rand((k,), generator=gen, device=dev) < 0.7
+    w = torch.rand((k,), generator=gen, device=dev) * 2.0
+    sign_ok = torch.rand((k,), generator=gen, device=dev) < 0.8
+    want, votes = ops.spfl_aggregate_packed(sp, qp, gbar, gmin, gmax, mod_ok,
+                                            w, sign_ok, n, BITS)
+    blk = [mesh.block(x, k) for x in (sp, qp, gmin, gmax, mod_ok, w,
+                                      sign_ok)]
+    got, got_votes = ops.spfl_aggregate_packed_sharded(
+        blk[0], blk[1], gbar, *blk[2:], n, BITS, mesh=mesh)
+    label = f'votes K={k}'
+    chk.f32(label, got, want, ulp_bound(w, gmax, float(gbar.max())))
+    kb = mesh.k_local(k)
+    if kb <= ops.MAX_VOTE_CLIENTS:
+        parts = [ops.spfl_aggregate_packed(
+            sp[r * kb:(r + 1) * kb], qp[r * kb:(r + 1) * kb], gbar,
+            gmin[r * kb:(r + 1) * kb], gmax[r * kb:(r + 1) * kb],
+            mod_ok[r * kb:(r + 1) * kb], w[r * kb:(r + 1) * kb],
+            sign_ok[r * kb:(r + 1) * kb], n, BITS)[1]
+            for r in range(mesh.size) if r * kb < k]
+        votes = sum(parts)
+    chk.ints(label, got_votes, votes)
+    chk.same_bits(label, got)
+    return {'votes': got_votes is not None}
+
+
+def sharded_cases(mesh) -> dict:
+    """Phase 12's first part on this rank: the flat transports (spfl,
+    spfl_retx, error_free; packed, bit-level) at the main path's width
+    (K=20, l=62,006) and the tree transports over the CNN's parameter
+    tree, then K=5 (the ragged padding) and the sum and votes of K=40
+    clients (32 a shard), each sharded against the gathered call on the
+    same inputs.  -> {'cases': per case max f32 error and bound, 'info',
+    'counts': this rank's launches}."""
+    import torch
+    from repro_torch.kernels import ops
+    l_main = 62006
+    chk = ShardCheck(mesh)
+    info = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i, kind in enumerate(('spfl', 'spfl_retx', 'error_free')):
+        info[f'{kind} K={K}'] = shard_flat(chk, kind, K, l_main, 60 + i)
+    info['tree spfl'] = shard_tree(chk, 'spfl', K, 63)
+    info['tree error_free'] = shard_tree(chk, 'error_free', K, 64)
+    info['spfl K=5'] = shard_flat(chk, 'spfl', 5, l_main, 65)
+    info['tree spfl K=5'] = shard_tree(chk, 'spfl', 5, 66)
+    info['votes K=40'] = shard_votes(chk, 40, l_main, 67)
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    return {'cases': chk.cases, 'info': info, 'counts': counts}
+
+
+def sharded_llm_steps(mesh, steps: int = 2) -> dict:
+    """Phase 12's second part on this rank (S = 2): ``steps`` smollm-135m
+    steps at full width (K=4 clients of 8 x 256 tokens, packed,
+    bit-level) with ``collective='sharded'``, this rank's two clients
+    vmapped.  Losses and ĝ the same bits on both ranks.  On rank 0, the
+    gathered step given the same gradients (each rank's clients' pass,
+    concatenated) and draws: losses, verdicts, flips and bits equal, ĝ
+    within S x the bound; and the gathered step of the 4-client pass (a
+    batched bf16 pass over 4 clients rounds otherwise than one over 2):
+    its losses, ||g_k||^2 and max |g_k| within ``VMAP_RTOL``.  Each step
+    starts both from the sharded run's state."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import transport as tr
+    from repro_torch.data import synth_tokens
+    from repro_torch.training import distributed as dist
+    cfg = get_arch(LLM_ARCH)
+    params = llm_params(cfg, seed=21)
+    toks = torch.as_tensor(synth_tokens(LLM_K * 8, 256, cfg.vocab_size, 21)
+                           .reshape(LLM_K, 8, 256), device='cuda')
+    fl = FLConfig(n_devices=LLM_K, learning_rate=LLM_RUN['lr'],
+                  bandwidth_hz=LLM_RUN['bandwidth_hz'], wire='packed',
+                  channel='bitlevel')
+    # deterministic gradients: rank 0 recomputes rank 1's clients' pass
+    step_4 = dist.make_fl_train_step(cfg, fl, deterministic=True)
+    step_s = dist.make_fl_train_step(
+        cfg, dataclasses.replace(fl, collective='sharded'), mesh=mesh,
+        deterministic=True)
+    q = torch.tensor([0.55, 0.7, 0.85, 1.0], device='cuda')
+    p = torch.tensor([0.9, 0.6, 0.75, 0.95], device='cuda')
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+    kb = mesh.k_local(LLM_K)
+    chk = ShardCheck(mesh)
+    p_s, g_s = params, dist.init_gbar(params)
+    out = {'step_ms': []}
+
+    def draws(n):
+        return tr.make_tree_draws(
+            LLM_K, sizes, 0, 'bitlevel', 'cuda',
+            torch.Generator(device='cuda').manual_seed(70 + n),
+            torch.Generator().manual_seed(70 + n))
+
+    for n in range(steps):
+        label = f'llm step {n}'
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_n, g_n, ms = step_s(p_s, {'tokens': toks[mesh.rows(LLM_K)]}, g_s,
+                              q, p, draws(n))
+        torch.cuda.synchronize()
+        out['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        chk.same_bits(f'{label} loss', ms['loss'])
+        for leaf in tree.leaves(g_n):
+            chk.same_bits(f'{label} ghat', leaf)
+        if mesh.rank == 0:
+            parts = [dist.client_grads(p_s, cfg, toks[r * kb:(r + 1) * kb],
+                                       deterministic=True)
+                     for r in range(mesh.size)]
+            losses = torch.cat([x[0] for x in parts])
+            grads = tree.unflatten(p_s, [
+                torch.cat(ls) for ls in zip(*(tree.leaves(x[1])
+                                              for x in parts))])
+            del parts
+            ghat, sw, tw = tr.spfl_aggregate_tree(grads, g_s, q, p, fl,
+                                                  draws(n))
+            del grads
+            chk.telemetry(label, ms['telemetry'], tw)
+            chk.ints(f'{label}.losses', ms['client_losses'], losses)
+            chk.ints(f'{label}.loss', ms['loss'], torch.mean(losses))
+            for f in ('g_min', 'g_max'):
+                chk.ints(f'{label}.{f}', ms[f], sw[f])
+            chk.rel(f'{label}.g2', ms['g_norm_sq'], sw['g2'], G2_RTOL)
+            gb_max = max(float(x.max()) for x in tree.leaves(g_s))
+            atol = ulp_bound(1.0 / q / LLM_K, sw['g_max'], gb_max)
+            for a, b in zip(tree.leaves(g_n), tree.leaves(ghat)):
+                chk.f32(label, a, torch.abs(b), atol)
+            del ghat
+            # the 4-client pass's step
+            _, _, m4 = step_4(p_s, {'tokens': toks}, g_s, q, p, draws(n))
+            for f in ('client_losses', 'g_norm_sq', 'g_max'):
+                chk.rel(f'{label} vmap4.{f}', ms[f], m4[f], VMAP_RTOL,
+                        exact_at_one=False)
+            del m4
+        p_s, g_s = p_n, g_n
+    out['cases'] = chk.cases
+    return out
+
+
+def shard_rank_main(rank: int, world: int, port: int, out: str) -> int:
+    """A rank of the phase's gloo runs (``python3 chip_smoke.py
+    --shard-rank R S PORT OUT``): the sharded cases, and at S = 2 the LLM
+    steps; writes its results to OUT/rankR.json."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    build.build()
+    tdist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                             rank=rank, world_size=world)
+    try:
+        res = sharded_cases(make_host_mesh())
+        if world == 2:
+            res['llm'] = sharded_llm_steps(make_host_mesh())
+        torch.cuda.synchronize()
+        Path(out, f'rank{rank}.json').write_text(json.dumps(res))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world: int) -> list:
+    """``world`` gloo ranks of this script on the one card -> each rank's
+    results; a rank that fails fails the phase (the others are
+    stopped)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix=f'shard{world}_', dir=ROOT / 'build')
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), '--shard-rank',
+         str(r), str(world), str(port), out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errors = []
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=SHARD_TIMEOUT_S)
+            if proc.returncode:
+                errors.append(f'rank {r} exit {proc.returncode}: '
+                              f'{err[-3000:]}')
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise AssertionError(f'S={world} gloo ranks failed:\n'
+                             + '\n'.join(errors))
+    return [json.loads(Path(out, f'rank{r}.json').read_text())
+            for r in range(world)]
+
+
+def print_shard(label: str, res: dict) -> None:
+    worst = {c: f'{v["max_err"]:.3e} (bound {v["bound"]:.3e})'
+             for c, v in res['cases'].items()}
+    print(f'{label}: integers bit for bit, every rank the same bits, f32 '
+          f'{json.dumps(worst)}; {json.dumps(res["info"])}', flush=True)
+
+
+def run_sharded() -> dict:
+    """Phase 12's sharded collective: S = 1 over NCCL in this process,
+    then S = 2 and 4 gloo ranks as processes on the one card (NCCL takes
+    one rank a card), each against the gathered calls; at S = 2 also two
+    sharded smollm-135m steps.  -> launches by kernel (every rank)."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    tdist.init_process_group('nccl', init_method='tcp://127.0.0.1:'
+                             f'{free_port()}', rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        if (mesh.size, mesh.backend, mesh.capturable) != (1, 'nccl', True):
+            raise AssertionError(f'the NCCL mesh is {mesh}')
+        one = sharded_cases(mesh)
+    finally:
+        tdist.destroy_process_group()
+    print_shard(f'sharded S=1 (NCCL, {time.perf_counter() - t0:.3f} s)',
+                one)
+    counts = dict(one['counts'])
+    llm = None
+    for world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world)
+        print_shard(f'sharded S={world} (gloo on the card, '
+                    f'{time.perf_counter() - t0:.3f} s, rank 0)', ranks[0])
+        for r in ranks:
+            for name, c in r['counts'].items():
+                counts[name] = counts.get(name, 0) + c
+        if world == 2:
+            llm = ranks[0]['llm']
+    print(f'sharded smollm-135m steps (S=2 gloo, K={LLM_K} clients of 8 x '
+          f'256 tokens, packed, bit-level): step ms '
+          f'{json.dumps(llm["step_ms"])}; against the gathered step on '
+          f'the same gradients and the 4-client pass\'s step (vmap4, '
+          f'relative) {json.dumps(llm["cases"])}', flush=True)
+    return {'counts': counts, 'llm': llm}
+
+
+def stack_device_problems(probs):
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    return AJ.JaxAllocationProblem(*(
+        torch.stack([getattr(p, f) for p in probs])
+        for f in AJ.PER_CLIENT + AJ.SCALARS))
+
+
+def keep_f32_solves(kept: list):
+    """Keep each float32 ``ops.alloc_solve`` call's problem, options and
+    solution (inside a graph: the tensors its replays rewrite) by
+    wrapping the function the fused round calls.  -> the undo."""
+    import torch
+    from repro_torch.kernels import ops
+    orig = ops.alloc_solve
+
+    def wrapped(prob, method='alternating', max_iters=6, tol=1e-5,
+                n_grid=256, newton_iters=40, early_exit=True, inner_tol=0.0,
+                gate=None, trips=None):
+        sol = orig(prob, method, max_iters, tol, n_grid, newton_iters,
+                   early_exit, inner_tol, gate, trips)
+        if prob.A.dtype == torch.float32:
+            kept.append(dict(prob=prob, method=method, max_iters=max_iters,
+                             tol=tol, early_exit=early_exit, gate=gate,
+                             sol=sol))
+        return sol
+
+    ops.alloc_solve = wrapped
+    return lambda: setattr(ops, 'alloc_solve', orig)
+
+
+def check_kept_f32(kept: list, label: str) -> float:
+    """Each kept float32 solve against its plain version on the same card
+    tensors, bit for bit, as one batch (the plain solver is lane-stable:
+    a batch equals its single solves).  -> the plain solve's seconds."""
+    import torch
+    from repro_torch.core import allocation_jax as AJ
+    snap = [dict(s, prob=AJ.JaxAllocationProblem(*(
+        None if x is None else x.clone() for x in s['prob'])),
+        gate=None if s['gate'] is None else s['gate'].clone(),
+        sol=AJ.JaxAllocation(*(x.clone() for x in s['sol'])))
+        for s in kept]
+    first = snap[0]
+    if any((s['method'], s['max_iters'], s['tol'], s['early_exit'])
+           != (first['method'], first['max_iters'], first['tol'],
+               first['early_exit']) for s in snap):
+        raise AssertionError(f'{label}: the kept solves differ in options')
+    batch = stack_device_problems([s['prob'] for s in snap])
+    gate = (None if first['gate'] is None else
+            torch.stack([s['gate'].reshape(()) for s in snap]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = AJ.solve_plain(batch, first['method'],
+                           max_iters=first['max_iters'], tol=first['tol'],
+                           early_exit=first['early_exit'], gate=gate)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for i, s in enumerate(snap):
+        same_solution(s['sol'], AJ.JaxAllocation(*(x[i] for x in plain)),
+                      f'{label} solve {i}')
+    return plain_s
+
+
+def free_card() -> None:
+    """Drop what the last run left to the collector and the allocator's
+    cache: a 4-round smollm-135m graph takes ~30 GiB of its own pool,
+    which a capture cannot free memory for."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fused_llm_run(mode: str, guard=None, sink=None, **kw) -> dict:
+    """``launch.train.run`` of smollm-135m at full width in fused rounds
+    (``LLM_FUSED``: six rounds in segments of 4 and 2, barrier, 'jax')
+    -> its history, wall seconds and launch counts (a captured launch
+    counts once, at its capture)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.run(LLM_ARCH, round_fusion=mode, segment_guard=guard,
+                     telemetry_path=sink, **{**LLM_FUSED, **kw})
+    torch.cuda.synchronize()
+    return dict(hist=hist, s=time.perf_counter() - t0,
+                counts=dict(ops.launch_counts),
+                gib=(before / 2 ** 30,
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+
+
+def sink_rows(path: str) -> list:
+    from repro_torch.obs import read_jsonl
+    _, rows = read_jsonl(path)
+    return [{k: v for k, v in r.items() if k != 'step_s'} for r in rows]
+
+
+def run_llm_fused(host_step_ms) -> dict:
+    """Phase 12's fused LLM rounds and population mode: smollm-135m at
+    full width, K=4, barrier, six rounds in segments of 4 and 2 under
+    'eager' and under 'scan', each run twice (the first 'eager' run under
+    sync debug mode 'error', the first 'scan' run keeping each round's
+    float32 problem, the second 'scan' run under ``torch.profiler``):
+    'scan' = 'eager' bit for bit (losses, (q, p), telemetry rows); each
+    ``alloc_solve_f32`` = its plain version bit for bit; fused error_free
+    = the host loop (deterministic) bit for bit; then one population
+    'scan' segment (N = 10^6, cohort 4) whose cohort ids are the host
+    chain's.  ``host_step_ms``: phase 11's host-loop steps, this call."""
+    import tempfile
+    import torch
+    from repro_torch import population as pop
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import threefry
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='llm_fused_', dir=ROOT / 'build')
+    sync = Watch('sync')
+    runs = {('eager', 0): fused_llm_run('eager', sync,
+                                        f'{tmp}/eager0.jsonl')}
+    if len(sync.launches) != 3:
+        raise AssertionError('eager: the sync guard saw '
+                             f'{len(sync.launches)} launches, want the '
+                             'warm-up round and two segments')
+    runs[('eager', 1)] = fused_llm_run('eager', sink=f'{tmp}/eager1.jsonl')
+    kept = []
+    undo = keep_f32_solves(kept)
+    try:
+        runs[('scan', 0)] = fused_llm_run('scan', sink=f'{tmp}/scan0.jsonl')
+    finally:
+        undo()
+    prof = Watch('profile')
+    runs[('scan', 1)] = fused_llm_run('scan', prof, f'{tmp}/scan1.jsonl')
+    ref = runs[('eager', 0)]
+    for key, r in runs.items():
+        h = r['hist']
+        for f in ('loss', 'q', 'p'):
+            if h[f] != ref['hist'][f]:
+                raise AssertionError(f'fused llm {key}: {f} {h[f]} != '
+                                     f'{ref["hist"][f]}')
+        if sink_rows(f'{tmp}/{key[0]}{key[1]}.jsonl') != sink_rows(
+                f'{tmp}/eager0.jsonl'):
+            raise AssertionError(f'fused llm {key}: telemetry rows differ')
+        if not all(math.isfinite(x) for x in h['loss']):
+            raise AssertionError(f'fused llm {key}: loss {h["loss"]}')
+    if not any(q != 1.0 for q in ref['hist']['q'][1:]):
+        raise AssertionError('fused llm: every solve took the uniform point')
+    # the kept solves: the warm-up round's, then the graphs' six rounds
+    if len(kept) != 1 + LLM_FUSED['steps']:
+        raise AssertionError(f'fused llm: {len(kept)} float32 solves kept')
+    plain_s = check_kept_f32(kept[1:], 'fused llm alloc_solve_f32')
+    del kept
+    print(f'fused llm alloc_solve_f32 ({LLM_RUN["allocator"]}, K={LLM_K}): '
+          f'{LLM_FUSED["steps"]} rounds\' solves = their plain version bit '
+          f'for bit (one plain batch, {plain_s:.3f} s on the card)',
+          flush=True)
+    for key, r in runs.items():
+        h = r['hist']
+        steady = [(s - c) * 1e3 for s, c in zip(h['step_s'],
+                                                h['capture_s'])]
+        print(f'fused llm {key[0]} run {key[1]}: {r["s"]:.3f} s (set-up '
+              f'included); round ms {json.dumps(steady)} (less graph '
+              f'capture, {sum(h["capture_s"]):.3f} s; segment 1 holds the '
+              f'warm-up round); launches at capture '
+              f'{json.dumps({n: c for n, c in r["counts"].items() if c})}; '
+              f'GiB allocated before / peak {r["gib"][0]:.3f} / '
+              f'{r["gib"][1]:.3f}', flush=True)
+    # steady: the rounds after the first segment (its warm-up round and
+    # first draws), less their graph's capture, of the unprofiled runs
+    steady = {mode: [(s - c) * 1e3 for s, c in zip(
+        runs[run]['hist']['step_s'], runs[run]['hist']['capture_s'])][
+            LLM_FUSED['scan_segment_rounds']:]
+        for mode, run in (('eager', ('eager', 1)), ('scan', ('scan', 0)))}
+    seg = prof.launches[1]               # [0] is the warm-up round
+    kinds = op_kinds(seg['names'])
+    print(f'fused llm scan segment 1 (4 rounds, one graph; torch.profiler):'
+          f' wall {seg["wall_ms"]:.3f} ms, device busy {seg["busy_ms"]:.3f}'
+          f' ms (idle share {1 - seg["busy_ms"] / seg["wall_ms"]:.4f}); '
+          f'the card ran {json.dumps(kinds)}; top '
+          f'{json.dumps(seg["top_ms"])}', flush=True)
+    want = {'quantize_pack': 44, 'spfl_accumulate': 44,
+            'alloc_solve_f32': 4}
+    if {n: kinds.get(n, 0) for n in want} != want:
+        raise AssertionError(f'fused llm scan segment: the card ran {kinds},'
+                             f' want {want}')
+    print(f'fused llm vs host loop (phase 11, this call): fused steady '
+          f'round ms {json.dumps(steady)}; host-loop step ms '
+          f'{json.dumps(host_step_ms)}', flush=True)
+    out.update(steady=steady, idle=1 - seg['busy_ms'] / seg['wall_ms'],
+               counts=runs[('scan', 0)]['counts'], plain_s=plain_s,
+               segment=seg, kinds=kinds)
+    # fused error_free = the host loop, bit for bit
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    ef = dict(LLM_FUSED, transport_kind='error_free')
+    free_card()
+    host = train.run(LLM_ARCH, deterministic=True, **ef)
+    fused = fused_llm_run('scan', transport_kind='error_free')['hist']
+    if host['loss'] != fused['loss']:
+        raise AssertionError(f'fused error_free {fused["loss"]} != host '
+                             f'loop {host["loss"]}')
+    print(f'fused llm error_free = host loop bit for bit: losses '
+          f'{json.dumps(host["loss"])}', flush=True)
+    # one population segment: its cohorts are the host chain's
+    path = f'{tmp}/pop.jsonl'
+    pop_run = fused_llm_run('scan', sink=path, steps=4, **LLM_POP)
+    rows = sink_rows(path)
+    fl = FLConfig(n_devices=LLM_K, **LLM_POP)
+    streams = pop.stream_keys(pop.population_key(fl.seed))
+    chain = threefry.fold_in(threefry.key(fl.seed), train.CHAIN_FOLD)
+    for n, row in enumerate(rows):
+        chain, kr = threefry.split(chain)
+        want_ids = pop.draw_cohort(kr, streams, fl, n, gains=False).cohort.ids
+        if row['cohort_ids'] != want_ids.tolist():
+            raise AssertionError(f'population round {n}: cohort '
+                                 f'{row["cohort_ids"]} != {want_ids}')
+    print(f'fused llm population (N = 10^6, cohort {LLM_K}, one scan '
+          f'segment of 4): cohort ids = the host chain\'s: '
+          f'{[r["cohort_ids"] for r in rows]}; loss '
+          f'{json.dumps(pop_run["hist"]["loss"])}', flush=True)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return out
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None,
                  per_unit: dict = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
@@ -4551,6 +5262,20 @@ def main() -> int:
     t0 = time.perf_counter()
     llm = run_llm()
     print(f'phase 11: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 12. the sharded collective, fused LLM rounds and LLM population mode
+    t0 = time.perf_counter()
+    sharded = run_sharded()
+    fused_llm = run_llm_fused(llm['step_ms'])
+    launches12 = dict(sharded['counts'])
+    for name, c in fused_llm['counts'].items():
+        launches12[name] = launches12.get(name, 0) + c
+    missing = [n for n in PHASE12_KERNELS if not launches12.get(n)]
+    if missing:
+        return fail(f'phase 12 launched no {missing}')
+    print(f'phase 12 launches (every rank; graphs at capture): '
+          f'{json.dumps({n: c for n, c in launches12.items() if c})}',
+          flush=True)
+    print(f'phase 12: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -4597,7 +5322,8 @@ def main() -> int:
             'path': kern.path, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'warm_ms': r['warm_ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None}
+            'bound_by': bound_by, 'library_ms': None,
+            'phase12_launches': launches12.get(name, 0)}
         if name in llm['rows']:
             v = llm['rows'][name]
             v_bound, v_by = kernel_bound(
@@ -4629,4 +5355,11 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    # phase 12's fused LLM rounds and sharded steps run their gradient
+    # pass under torch.use_deterministic_algorithms, which needs this
+    # cuBLAS workspace setting before the process's first cuBLAS call
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    if len(sys.argv) > 1 and sys.argv[1] == '--shard-rank':
+        sys.exit(shard_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

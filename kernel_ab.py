@@ -36,6 +36,16 @@ turn and the mean of each version's two.
 calls each; its check is ``chip_smoke.check_alloc_kernel``, ~30 s of
 plain solves a turn).
 
+``--llm`` times phase 11's launcher run instead of kernels: each turn
+runs ``launch.train.run`` on smollm-135m at chip_smoke's sizes
+(``LLM_RUN``: K=4 clients of 8 x 256 tokens, packed, barrier, 'jax')
+for ``LLM_AB_STEPS`` steps with the turn's tree and prints its step
+times: ``--pairs`` pairs (default 2), each pair's first turn
+alternating between the versions (previous, new, new, previous, ...),
+then once more each (new, previous) with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the turn's environment (the
+setting ``chip_smoke.py`` makes for its deterministic passes).
+
 ``--profile`` then runs each version's cold calls again under
 ``torch.profiler`` and prints, per call, the mean in-kernel device time
 of its kernel's launches (CUPTI's kernel records) and, per call, the device
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -56,6 +67,10 @@ ROOT = Path(__file__).resolve().parent
 # device clocks (~10 ms) that each timed batch of wrapper calls queues
 # behind: a call does far more on the host than a bare launch
 CALL_SLEEP = 20_000_000
+# steps of an --llm turn (the first holds the warm-up)
+LLM_AB_STEPS = 6
+# the kernels of phase 11's launcher run
+LLM_AB_KERNELS = ('quantize_pack', 'spfl_accumulate', 'alloc_solve')
 
 
 def _import_tree(tree: Path):
@@ -326,10 +341,10 @@ def profile_turn(tree: Path, names, check: bool) -> dict:
     'ops': device operations per call, 'device_ms': their summed device
     time per call}} over three passes of cold calls (each on another
     copy of the inputs; a chain's calls each on the output of the one
-    before), from ``torch.profiler``'s CUDA records; a call whose records
-    hold no device time maps to None."""
+    before), from ``torch.profiler``'s CUDA records over a padded window
+    (``chip_smoke.card_profile``); a call whose records hold no device
+    time maps to None."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     chip_smoke = _setup(tree, names)
     out = {}
     for name, (call, inputs) in calls_for(chip_smoke, names).items():
@@ -346,10 +361,8 @@ def profile_turn(tree: Path, names, check: bool) -> dict:
                         call(*c)
         for c in copies:
             call(*c)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with chip_smoke.card_profile() as prof:
             run()
-            torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         own = [e.device_time_total for e in events
@@ -375,15 +388,31 @@ def round_turn(tree: Path, names, check: bool) -> str:
     return chip_smoke.round_launches(sim)
 
 
-TURNS = {'time': time_turn, 'profile': profile_turn, 'round': round_turn}
+def llm_turn(tree: Path, names, check: bool) -> dict:
+    """Phase 11's launcher run with the tree's port: {'step_ms', 'loss'}
+    of ``LLM_AB_STEPS`` steps (wall clock, as ``launch.train`` records
+    them)."""
+    chip_smoke, build = _import_tree(tree)
+    build.build(names)
+    from repro_torch.launch import train
+    hist = train.run(chip_smoke.LLM_ARCH, steps=LLM_AB_STEPS,
+                     **chip_smoke.LLM_RUN)
+    return {'step_ms': [t * 1e3 for t in hist['step_s']],
+            'loss': hist['loss']}
 
 
-def turn(kind: str, tree: Path, names, check: bool):
-    """Run one turn in a process of its own; -> its result."""
+TURNS = {'time': time_turn, 'profile': profile_turn, 'round': round_turn,
+         'llm': llm_turn}
+
+
+def turn(kind: str, tree: Path, names, check: bool, env=None):
+    """Run one turn in a process of its own (``env``: variables added to
+    its environment); -> its result."""
+    import os
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), '--turn', kind,
          str(tree), '--kernels', *names] + ([] if check else ['--no-check']),
-        capture_output=True, text=True)
+        capture_output=True, text=True, env={**os.environ, **(env or {})})
     if out.returncode:
         raise RuntimeError(f'{kind} turn on {tree} failed:\n{out.stderr}')
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -405,6 +434,11 @@ def main() -> int:
     parser.add_argument('--round', action='store_true',
                         help="count the device operations of one main-path "
                              "round with each version")
+    parser.add_argument('--llm', action='store_true',
+                        help="time phase 11's smollm-135m launcher steps "
+                             'with each version instead of kernels')
+    parser.add_argument('--pairs', type=int, default=2,
+                        help='--llm: pairs of turns, previous and new')
     parser.add_argument('--no-check', dest='check', action='store_false',
                         help='time without holding the kernels against '
                              'their plain versions (a diagnostic variant)')
@@ -425,6 +459,8 @@ def main() -> int:
     trees = {'previous': args.prev_root.resolve(), 'new': ROOT}
     card = chip_smoke.card_line()
     print(card, flush=True)
+    if args.llm:
+        return llm_ab(trees, card, args.pairs)
     runs = []
     for label in ('previous', 'new', 'new', 'previous'):
         ms = turn('time', trees[label], args.kernels, args.check)
@@ -452,6 +488,46 @@ def main() -> int:
                      for name in runs[0]['ms']} for label in trees}
     print(json.dumps({'card': card, 'runs': runs, 'mean_ms': means,
                       'profile': profiles, 'round': rounds}), flush=True)
+    return 0
+
+
+def turn_ms(run: dict) -> float:
+    """An --llm turn's mean step time after its first step."""
+    return statistics.mean(run['step_ms'][1:])
+
+
+def llm_ab(trees: dict, card: str, pairs: int) -> int:
+    """The --llm turns: ``pairs`` pairs (previous, new, new, previous,
+    ...), then new and previous with the cuBLAS workspace setting."""
+    cublas = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
+    order = [(label, None) for i in range(pairs)
+             for label in (('previous', 'new') if i % 2 == 0
+                           else ('new', 'previous'))]
+    order += [('new', cublas), ('previous', cublas)]
+    runs = []
+    for label, env in order:
+        r = turn('llm', trees[label], list(LLM_AB_KERNELS), True, env)
+        runs.append({'version': label, 'cublas_workspace': env is not None,
+                     **r})
+        print(f'{label}{" (cuBLAS :4096:8)" if env else ""}: step ms '
+              f'{json.dumps(r["step_ms"])}; loss {json.dumps(r["loss"])}',
+              flush=True)
+    # steps 1.. of the plain turns: their mean, each turn's mean, and
+    # the pairs whose new turn was the faster
+    plain = [r for r in runs if not r['cublas_workspace']]
+    means = {label: statistics.mean(
+        t for r in plain if r['version'] == label for t in r['step_ms'][1:])
+        for label in trees}
+    turns = {label: [turn_ms(r) for r in plain if r['version'] == label]
+             for label in trees}
+    wins = 0
+    for a, b in zip(plain[::2], plain[1::2]):
+        new, prev = (a, b) if a['version'] == 'new' else (b, a)
+        wins += turn_ms(new) < turn_ms(prev)
+    print(json.dumps({'card': card, 'runs': runs,
+                      'mean_step_ms_after_first': means,
+                      'turn_means': turns, 'new_wins': wins,
+                      'pairs': pairs}), flush=True)
     return 0
 
 

@@ -18,11 +18,13 @@ in {none, signflip, scaled, labelflip}, ``screen``, ``dropout_rate`` with
 (``population_n > 0``, ``cohort_size``, ``cohort_sampler``,
 ``population_shards``, ``availability_min``), the telemetry sink
 (``telemetry_path``, ``telemetry_flush_every``) and every
-``round_fusion``.  Like the reference's, it never reads ``collective``:
-its one-device flat round is 'gather' either way.  The LLM-scale step
-(``training.distributed``) and its launcher (``launch.train``) raise
-``NotImplementedError`` on ``collective='sharded'``, naming the
-``ROADMAP.md`` item that brings it.
+``round_fusion``.  Like the reference's, its spfl rounds never read
+``collective`` (its one-device flat round is 'gather' either way; the
+error_free transport refuses 'sharded' without a mesh, as the
+reference's does).  The LLM-scale step
+(``training.distributed``) and its launcher (``launch.train``) run
+``collective='sharded'`` over a ``core.mesh.ClientMesh`` (packed wire
+only), ``round_fusion`` 'eager' and 'scan', and population mode.
 """
 from __future__ import annotations
 

@@ -92,10 +92,15 @@ class UplinkReport(NamedTuple):
 
 def transmit_uplink(sign_words: Tensor, mod_words: Tensor, q: Tensor,
                     p: Tensor, *, n: int, bits: int, seeds: Tensor,
-                    n_retx: int = 0) -> UplinkReport:
+                    n_retx: int = 0, mesh=None) -> UplinkReport:
     """Send every client's framed packet pair through the bit channel.
     ``seeds`` (2 + n_retx, 2) int32 on the words' device: the modulus
-    packet's seed pair, then one per sign transmission attempt."""
+    packet's seed pair, then one per sign transmission attempt.
+
+    ``mesh`` (``core.mesh.ClientMesh``): the buffers, q and p are this
+    rank's block of clients; each pass runs at the block's global word
+    offset (the gathered draw's bits), and the report is the block's
+    (``retx_bits`` its resends)."""
     if tuple(seeds.shape) != (n_retx + 2, 2):
         raise ValueError(f'need {n_retx + 2} seed pairs, got seeds of shape '
                          f'{tuple(seeds.shape)}')
@@ -103,8 +108,10 @@ def transmit_uplink(sign_words: Tensor, mod_words: Tensor, q: Tensor,
     ber_s = ber_for_success(q, ws)
     ber_v = ber_for_success(p, mod_words.shape[-1])
 
-    sw, _, sign_flips = kops.corrupt_fold_words(seeds[1], sign_words, ber_s)
-    mw, _, mod_flips = kops.corrupt_fold_words(seeds[0], mod_words, ber_v)
+    sw, _, sign_flips = kops.corrupt_fold_words(seeds[1], sign_words, ber_s,
+                                                mesh=mesh)
+    mw, _, mod_flips = kops.corrupt_fold_words(seeds[0], mod_words, ber_v,
+                                               mesh=mesh)
     sign_ok = verify_sign_fold(sw, n=n)
     mod_ok = verify_mod_fold(mw, n=n, bits=bits)
     sign_crc_ok = sign_ok
@@ -114,7 +121,7 @@ def transmit_uplink(sign_words: Tensor, mod_words: Tensor, q: Tensor,
         failed = ~sign_ok
         resent = wire_packets.restamp_sign_retx(sign_words, attempt)
         rx, _, flips = kops.corrupt_fold_words(seeds[1 + attempt], resent,
-                                               ber_s)
+                                               ber_s, mesh=mesh)
         ok = verify_sign_fold(rx, n=n)
         sw = torch.where((failed & ok)[:, None], rx, sw)
         sign_flips = sign_flips + torch.where(failed, flips, 0)

@@ -65,6 +65,7 @@ from repro_torch.core.quantize import (
     QuantizedGradient, dequantize_modulus, packet_bits, stochastic_quantize,
     true_div,
 )
+from repro_torch.core.mesh import ClientMesh, pad_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.record import RoundTelemetry
 from repro_torch.wire import corrupt as wire_corrupt
@@ -76,6 +77,7 @@ Tensor = torch.Tensor
 
 KINDS = ('spfl', 'spfl_retx', 'dds', 'onebit', 'scheduling', 'error_free')
 WIRE_KINDS = ('analytic', 'packed')
+COLLECTIVE_KINDS = ('gather', 'sharded')
 _Q_FLOOR = 1e-8        # below this, 1/q unbiasing is switched off (q ~ 0)
 
 
@@ -190,6 +192,58 @@ def _scalar(x: float, device) -> Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
+def _resolve_collective(collective: Optional[str], wire: str, mesh
+                        ) -> ClientMesh:
+    """Validate the collective knob: 'sharded' needs the packed wire and
+    a mesh to shard over.  -> the mesh the transport runs on: ``mesh``,
+    or for 'gather' the one-rank mesh (every client on this rank, every
+    collective the identity)."""
+    collective = 'gather' if collective is None else collective
+    if collective not in COLLECTIVE_KINDS:
+        raise ValueError(f"collective must be 'gather' or 'sharded', got "
+                         f'{collective!r}')
+    if collective != 'sharded':
+        return ClientMesh()
+    if wire != 'packed':
+        raise ValueError("collective='sharded' requires wire='packed'")
+    if mesh is None:
+        raise ValueError("collective='sharded' requires a mesh "
+                         "(training/distributed.py passes it through)")
+    return mesh
+
+
+def check_rows(mesh, k: int, rows: int) -> None:
+    """The transports take this rank's rows of the K clients (all K on
+    the one-rank mesh)."""
+    want = mesh.rows(k)
+    if rows != want.stop - want.start:
+        raise ValueError(f'rank {mesh.rank} of {mesh.size} holds rows '
+                         f'[{want.start}, {want.stop}) of the {k} clients, '
+                         f'got {rows} rows')
+
+
+def gather_clients(mesh, k: int, *vectors: Tensor) -> list:
+    """Each rank's per-client vectors (bool, int32 or float32; its rows of
+    the K clients, or its whole block) as the global (K,) vectors, in ONE
+    ``all_gather`` (stacked as float64 columns, exact for all three
+    dtypes; the vectors themselves on the one-rank mesh)."""
+    if mesh.group is None:
+        return list(vectors)
+    kb = mesh.k_local(k)
+    cols = torch.stack([pad_rows(v.to(torch.float64), kb) for v in vectors],
+                       dim=1)
+    every = mesh.gather_rows(cols, k)
+    return [every[:, i].to(v.dtype) for i, v in enumerate(vectors)]
+
+
+def _zero_words(rows: int, n: int, bits: int, device) -> Tuple[Tensor,
+                                                               Tensor]:
+    groups = wire_fmt.n_groups(n)
+    return (torch.zeros((rows, groups), dtype=torch.int32, device=device),
+            torch.zeros((rows, groups * bits), dtype=torch.int32,
+                        device=device))
+
+
 def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0,
                 scaled: Optional[Tuple[Tensor, float]] = None
                 ) -> Tuple[Tensor, Tensor, int]:
@@ -215,10 +269,27 @@ def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0,
     return sign_words, mod_words, measured
 
 
+def _encode_block(grads: Tensor, rand: Tensor, bits: int, round_idx,
+                  scaled, rows: int) -> Tuple[Tensor, Tensor]:
+    """:func:`encode_wire` of this rank's rows, padded with zero words to
+    its block of ``rows`` (a rank whose block is all padding encodes
+    nothing)."""
+    if grads.shape[0] == 0:
+        l = grads.shape[1]
+        zeros = dict(dtype=torch.int32, device=grads.device)
+        return (torch.zeros((rows, wire_fmt.sign_packet_words(l)), **zeros),
+                torch.zeros((rows, wire_fmt.modulus_packet_words(l, bits)),
+                            **zeros))
+    sign_words, mod_words, _ = encode_wire(grads, rand, bits, round_idx,
+                                           scaled)
+    return pad_rows(sign_words, rows), pad_rows(mod_words, rows)
+
+
 def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                    bits: int, b0: int, draws: Draws, n_retx: int = 0,
                    wire: str = 'analytic', round_idx=0,
                    channel: str = 'bernoulli',
+                   collective: str = 'gather', mesh=None,
                    attack: str = 'none', byz_mask: Optional[Tensor] = None,
                    attack_scale: float = 10.0,
                    active: Optional[Tensor] = None, screen: bool = False,
@@ -231,6 +302,19 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
     ``round_idx`` stamps the packet headers; ``min_participation`` is the
     graceful-degradation floor (fewer than ceil(m K) surviving modulus
     packets -> every client falls back to ḡ).
+
+    ``collective='sharded'`` (packed wire and ``mesh``, a
+    ``core.mesh.ClientMesh``): ``grads`` (and a per-client ``gbar``)
+    hold this rank's rows of the K = len(q) clients (``mesh.rows(K)``);
+    q, p, the draws and the knobs' masks stay global.  Every (K, W) pass
+    runs on the rank's block (quantize and pack, the bit channel at the
+    block's word offset, the CRC folds, the decode-once kernel), the
+    per-client verdicts cross ranks in one ``all_gather`` of (K,)
+    vectors, the screen's disagreements and header ranges in another and
+    its vote majority as count planes, and the (l,) partial sums (and
+    votes) in one ``all_reduce``: no payload word leaves its rank.  Every
+    rank returns the same ĝ and the global telemetry.  'gather' is the
+    same path on the one-rank mesh, whose collectives are the identity.
 
     Adversarial cohort (``repro_torch.adversary``): ``attack`` in
     ``ATTACK_KINDS`` with ``byz_mask`` (K,) bool: 'signflip' forges the
@@ -248,22 +332,29 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                          f'got {channel!r}')
     if channel == 'bitlevel' and wire != 'packed':
         raise ValueError("channel='bitlevel' requires wire='packed'")
+    mesh = _resolve_collective(collective, wire, mesh)
     if attack not in adv_clients.ATTACK_KINDS:
         raise ValueError(f'attack must be one of {adv_clients.ATTACK_KINDS}'
                          f', got {attack!r}')
-    K, l = grads.shape
+    K, l = q.shape[0], grads.shape[1]
+    check_rows(mesh, K, grads.shape[0])
     q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)      # sign retransmission(s)
     lie = None if byz_mask is None else attack
 
     extras = {}
     if wire == 'packed':
-        sign_words, mod_words, measured = encode_wire(
-            grads, draws.rand, bits, round_idx,
-            scaled=(byz_mask, attack_scale) if lie == 'scaled' else None)
+        rows = mesh.rows(K)
+        scaled = ((byz_mask[rows], attack_scale) if lie == 'scaled'
+                  else None)
+        sign_words, mod_words = _encode_block(
+            grads, draws.rand[rows], bits, round_idx, scaled,
+            mesh.k_local(K))
+        measured = wire_fmt.measured_uplink_bits(l, bits, K)
         if lie == 'signflip':
             # the forged frame's CRC covers the lie: the channel and the
             # PS treat it as any other
-            sign_words = adv_clients.signflip_frames(sign_words, byz_mask, l)
+            sign_words = adv_clients.signflip_frames(
+                sign_words, mesh.block(byz_mask, K, False), l)
     else:
         qg = _per_client_quantize(grads, bits, draws.rand)
         if lie == 'scaled':
@@ -272,15 +363,21 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
             qg = adv_clients.flip_signs(qg, byz_mask)
     if channel == 'bitlevel':
         rep = bitchannel.transmit_uplink(
-            sign_words, mod_words, q, p, n=l, bits=bits, seeds=draws.seeds,
-            n_retx=n_retx)
+            sign_words, mod_words, mesh.block(q, K, 1.0),
+            mesh.block(p, K, 1.0), n=l, bits=bits, seeds=draws.seeds,
+            n_retx=n_retx, mesh=mesh)
         sign_words, mod_words = rep.sign_words, rep.mod_words
-        sign_ok, mod_ok = rep.sign_ok, rep.mod_ok
-        retx = torch.sum(rep.retx_attempts).to(torch.float32)
-        payload = float(measured) + rep.retx_bits
-        extras = dict(sign_flips=rep.sign_flips, mod_flips=rep.mod_flips,
-                      sign_crc_ok=rep.sign_crc_ok, mod_crc_ok=rep.mod_crc_ok,
-                      retx_attempts=rep.retx_attempts)
+        # every rank's verdicts, in one all_gather
+        sign_ok, mod_ok, sign_crc_ok, sign_flips, mod_flips, retx_k = (
+            gather_clients(mesh, K, rep.sign_ok, rep.mod_ok,
+                           rep.sign_crc_ok, rep.sign_flips, rep.mod_flips,
+                           rep.retx_attempts))
+        retx = torch.sum(retx_k).to(torch.float32)
+        ws = sign_words.shape[-1]
+        payload = float(measured) + retx * float(ws * wire_fmt.WORD_BITS)
+        extras = dict(sign_flips=sign_flips, mod_flips=mod_flips,
+                      sign_crc_ok=sign_crc_ok, mod_crc_ok=mod_ok,
+                      retx_attempts=retx_k)
     else:
         if wire == 'packed':
             sign_bits = wire_fmt.WORD_BITS * wire_fmt.sign_packet_words(l)
@@ -291,13 +388,15 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
         if n_retx == 0:
             sign_ok, mod_ok = chan.simulate_outcomes(draws.sign_u[0],
                                                      draws.mod_u, q_eff, p)
-            retx = torch.zeros((), dtype=torch.float32, device=grads.device)
+            retx = torch.zeros((), dtype=torch.float32, device=q.device)
         else:
             sign_ok, retx_k = chan.simulate_attempts(draws.sign_u, q, n_retx)
             mod_ok = draws.mod_u < p
             retx = torch.sum(retx_k).to(torch.float32)
             extras = dict(retx_attempts=retx_k)
         payload = payload_base + retx * sign_bits
+    if wire == 'packed':
+        g_min, g_max = wire_packets.mod_header_ranges(mod_words)
 
     if active is not None:           # stragglers transmit nothing
         sign_ok = sign_ok & active
@@ -310,17 +409,20 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
                              torch.zeros_like(mod_ok))
 
     w = _inverse_prob(sign_ok, q_eff)
-    if wire == 'packed':
-        g_min, g_max = wire_packets.mod_header_ranges(mod_words)
     suspect = None
     if screen:
         with record_function('round/screen'):
             if wire == 'packed':
-                rows = wire_packets.sign_payload(sign_words)
-                maj = wire_vote.majority_words(rows, sign_ok, l)
-                dis = wire_vote.disagreement(rows, maj, l)
+                rows_w = wire_packets.sign_payload(sign_words)
+                maj = wire_vote.majority_words(
+                    rows_w, mesh.block(sign_ok, K, False), l,
+                    torch.sum(sign_ok.to(torch.int32)), mesh)
+                # each rank's disagreements and header ranges, in one
+                # all_gather
+                dis, hdr_max = gather_clients(
+                    mesh, K, wire_vote.disagreement(rows_w, maj, l), g_max)
                 gate, suspect, suspicion = adv_screen.screen_gate(
-                    g_max, mod_ok, dis, l, sign_ok, screen_z)
+                    hdr_max, mod_ok, dis, l, sign_ok, screen_z)
             else:
                 gate, suspect, suspicion = adv_screen.screen_gate(
                     qg.g_max, mod_ok, z_thresh=screen_z)
@@ -329,10 +431,13 @@ def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
         extras['suspicion'] = suspicion
     gbar = gbar.to(torch.float32)
     if wire == 'packed':
-        acc, votes = kops.spfl_aggregate_packed(
-            wire_packets.sign_payload(sign_words),
-            wire_packets.mod_payload(mod_words), gbar, g_min, g_max, mod_ok,
-            w, sign_ok, l, bits)
+        args = (wire_packets.sign_payload(sign_words),
+                wire_packets.mod_payload(mod_words))
+        gb = gbar if gbar.dim() == 1 else pad_rows(gbar, mesh.k_local(K))
+        acc, votes = kops.spfl_aggregate_packed_sharded(
+            *args, gb, g_min, g_max, mesh.block(mod_ok, K, False),
+            mesh.block(w, K, 0.0), mesh.block(sign_ok, K, False), l, bits,
+            mesh=mesh)
         if votes is not None:
             extras['sign_votes'] = votes
     else:
@@ -440,29 +545,42 @@ def scheduling_aggregate(grads: Tensor, gains: Tensor, p_w: Tensor,
 
 
 def error_free_aggregate(grads: Tensor, fl: FLConfig, draws: Draws,
-                         wire: Optional[str] = None, round_idx=0
+                         wire: Optional[str] = None, round_idx=0,
+                         collective: Optional[str] = None, mesh=None,
+                         k: Optional[int] = None
                          ) -> Tuple[Tensor, RoundTelemetry]:
     """Quantized, lossless uplink (the upper bound).  On the packed wire
     the words go through ``quantize_pack`` and the decode-once
     ``spfl_accumulate`` with ḡ = 0, unit weights and every packet
-    received; ``payload_bits`` is then the measured size of the frames."""
+    received; ``payload_bits`` is then the measured size of the frames.
+    ``collective`` (default ``fl.collective``) 'sharded' with ``mesh``:
+    ``grads`` are this rank's rows of the ``k`` clients (as
+    :func:`spfl_aggregate`'s), one ``all_reduce`` finishes the sum."""
     wire = fl.wire if wire is None else wire
     if wire not in WIRE_KINDS:
         raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
-    K, l = grads.shape
+    mesh = _resolve_collective(
+        fl.collective if collective is None else collective, wire, mesh)
+    l = grads.shape[1]
+    K = grads.shape[0] if k is None else k
     dev = grads.device
     ok = torch.ones((K,), dtype=torch.bool, device=dev)
     extras = {}
     if wire == 'packed':
-        sign_words, mod_words, measured = encode_wire(
-            grads, draws.rand, fl.quant_bits, round_idx)
-        ones = torch.ones((K,), dtype=torch.float32, device=dev)
+        check_rows(mesh, K, grads.shape[0])
+        zero = torch.zeros((l,), dtype=torch.float32, device=dev)
+        sign_words, mod_words = _encode_block(
+            grads, draws.rand[mesh.rows(K)], fl.quant_bits, round_idx, None,
+            mesh.k_local(K))
+        measured = wire_fmt.measured_uplink_bits(l, fl.quant_bits, K)
+        # the dummy rows weigh 0 and vote no
+        ones = mesh.block(torch.ones((K,), dtype=torch.float32, device=dev),
+                          K, 0.0)
         g_min, g_max = wire_packets.mod_header_ranges(mod_words)
-        acc, votes = kops.spfl_aggregate_packed(
+        acc, votes = kops.spfl_aggregate_packed_sharded(
             wire_packets.sign_payload(sign_words),
-            wire_packets.mod_payload(mod_words),
-            torch.zeros((l,), dtype=torch.float32, device=dev), g_min, g_max,
-            ones, ones, ok, l, fl.quant_bits)
+            wire_packets.mod_payload(mod_words), zero, g_min, g_max, ones,
+            ones, mesh.block(ok, K, False), l, fl.quant_bits, mesh=mesh)
         ghat = true_div(acc, float(K))
         if votes is not None:
             extras['sign_votes'] = votes
@@ -479,10 +597,6 @@ def error_free_aggregate(grads: Tensor, fl: FLConfig, draws: Draws,
 # ---------------------------------------------------------------------------
 # pytree variants (LLM scale): one radio per client, leaf-wise math
 # ---------------------------------------------------------------------------
-
-SHARDED_LATER = ("collective='sharded' on the LLM-scale step is ROADMAP "
-                 'Queue 1 item 12')
-
 
 class TreeDraws(NamedTuple):
     """The random inputs of one round's tree transport, bound to the
@@ -517,33 +631,42 @@ class LeafUniforms(Sequence):
                           device=self.device)
 
 
+def tree_host_draws(k: int, n_leaves: int, n_retx: int, channel: str,
+                    host_generator: torch.Generator,
+                    kind: str = 'spfl') -> Dict[str, Tensor]:
+    """The host half of one round's tree draws, CPU tensors by
+    :class:`TreeDraws` field, from ``host_generator``: the bit channel's
+    seed words (int32 patterns, 'bitlevel'), or the Bernoulli outcome
+    uniforms; nothing for error_free."""
+    if kind == 'error_free':
+        return {}
+    if channel == 'bitlevel':
+        words = torch.randint(0, 2 ** 32, (n_retx + 2, n_leaves + 1, 2),
+                              generator=host_generator)
+        return {'seeds': wire_fmt.to_words(words)}
+    sign_u = torch.rand((n_retx + 1, k), generator=host_generator)
+    return {'sign_u': sign_u,
+            'mod_u': torch.rand((k,), generator=host_generator)}
+
+
 def make_tree_draws(k: int, sizes: Sequence[int], n_retx: int, channel: str,
                     device, generator: torch.Generator,
                     host_generator: torch.Generator,
                     kind: str = 'spfl') -> TreeDraws:
     """One round's tree draws: the leaves' uniforms from ``generator`` on
     ``device`` as the transport asks for them (:class:`LeafUniforms`),
-    then from ``host_generator`` the bit channel's seed words
-    ('bitlevel') or the Bernoulli uniforms, copied to ``device``
-    (error_free draws only the uniforms)."""
+    then :func:`tree_host_draws` from ``host_generator``, copied to
+    ``device``."""
     rand = LeafUniforms(k, sizes, generator, device)
-    if kind == 'error_free':
-        return TreeDraws(rand)
-    if channel == 'bitlevel':
-        words = torch.randint(0, 2 ** 32, (n_retx + 2, len(sizes) + 1, 2),
-                              generator=host_generator)
-        return TreeDraws(rand, seeds=wire_fmt.to_words(words).to(device))
-    sign_u = torch.rand((n_retx + 1, k), generator=host_generator)
-    mod_u = torch.rand((k,), generator=host_generator)
-    return TreeDraws(rand, sign_u=sign_u.to(device), mod_u=mod_u.to(device))
+    host = tree_host_draws(k, len(sizes), n_retx, channel, host_generator,
+                           kind)
+    return TreeDraws(rand, **{f: t.to(device) for f, t in host.items()})
 
 
-def _check_gather(collective: str) -> None:
-    if collective == 'sharded':
-        raise NotImplementedError(SHARDED_LATER)
-    if collective != 'gather':
-        raise ValueError(f"collective must be 'gather' or 'sharded', got "
-                         f'{collective!r}')
+def _client_rows(leaf: Tensor) -> Tensor:
+    """A (K, ...) leaf as (K, n) float32 rows (K may be 0)."""
+    return leaf.to(torch.float32).reshape(leaf.shape[0],
+                                          math.prod(leaf.shape[1:]))
 
 
 def tree_client_stats(grads_tree) -> dict:
@@ -557,12 +680,12 @@ def tree_client_stats(grads_tree) -> dict:
     g_min = torch.full((k,), math.inf, dtype=torch.float32, device=dev)
     g_max = torch.zeros((k,), dtype=torch.float32, device=dev)
     for lf in leaves:
-        a = torch.abs(lf.to(torch.float32).reshape(k, -1))
+        a = torch.abs(_client_rows(lf))
         g2 = g2 + torch.sum(a * a, dim=1)
         lo, hi = torch.aminmax(a, dim=1)
         g_min = torch.minimum(g_min, lo)
         g_max = torch.maximum(g_max, hi)
-    dim = sum(int(lf.numel()) // k for lf in leaves)
+    dim = sum(math.prod(lf.shape[1:]) for lf in leaves)
     return {'g2': g2, 'g_min': g_min, 'g_max': g_max, 'dim': dim}
 
 
@@ -574,7 +697,7 @@ def delta_sq_tree(stats: dict, bits: int) -> Tensor:
 
 
 def _bitlevel_tree_pass(seeds: Tensor, word_leaves, ber: Tensor,
-                        frame_words: int, k: int):
+                        frame_words: int, k: int, mesh: ClientMesh):
     """One transmission of every client's virtual framed packet whose
     payload words are scattered over the leaves' (K, W_i) buffers:
     ``seeds`` (L + 1, 2) holds one PRF pair a leaf (a ``corrupt_fold``
@@ -582,19 +705,25 @@ def _bitlevel_tree_pass(seeds: Tensor, word_leaves, ber: Tensor,
     (header and CRC, never materialized: their flip mask alone is drawn).
     The PS check ``fold(received) == crc`` of a contiguous packet is
     ``fold(flip mask over all its words) == 0``, so the leaves' mask
-    folds, xor-ed, verify the virtual packet.  -> (received leaf buffers,
-    verify_ok (K,), flips (K,))."""
+    folds, xor-ed, verify the virtual packet.  ``ber`` is (K,).  The leaf
+    buffers are this rank's block of ``mesh`` and each leaf's pass runs
+    at the block's word offset (the gathered draw's bits); the O(K)
+    framing draw is made whole and the block's rows kept.  -> (received
+    leaf buffers, verify_ok, flips) of the block."""
     dev = ber.device
-    fold = torch.zeros((k,), dtype=torch.int32, device=dev)
-    flips = torch.zeros((k,), dtype=torch.int32, device=dev)
+    rows = mesh.k_local(k)
+    ber_leaf = mesh.block(ber, k, 0.0)
+    fold = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    flips = torch.zeros((rows,), dtype=torch.int32, device=dev)
     rx = []
     for i, words in enumerate(word_leaves):
-        cw, f, nf = kops.corrupt_fold_words(seeds[i], words, ber)
+        cw, f, nf = kops.corrupt_fold_words(seeds[i], words, ber_leaf,
+                                            mesh=mesh)
         rx.append(cw)
         fold = fold ^ f
         flips = flips + nf
-    fmask = wire_corrupt.flip_mask(seeds[len(word_leaves)], (k, frame_words),
-                                   ber, device=dev)
+    fmask = mesh.block(wire_corrupt.flip_mask(
+        seeds[len(word_leaves)], (k, frame_words), ber, device=dev), k)
     fold = fold ^ wire_fmt.xor_fold(fmask)
     flips = flips + wire_corrupt.count_flips(fmask)
     return rx, fold == 0, flips
@@ -609,12 +738,35 @@ def _tree_mean(s: Tensor, k: int, denom) -> Tensor:
     return true_div(s, float(k)).to(torch.float32)
 
 
+def _tree_stats(grads_tree, stats: Optional[dict], mesh, k: int) -> dict:
+    """The K clients' tree stats: given, or from the gradients (this
+    rank's rows' stats brought together by one all_gather)."""
+    if stats is not None:
+        return stats
+    stats = tree_client_stats(grads_tree)
+    check_rows(mesh, k, stats['g2'].shape[0])
+    g2, g_min, g_max = gather_clients(mesh, k, stats['g2'], stats['g_min'],
+                                      stats['g_max'])
+    return {'g2': g2, 'g_min': g_min, 'g_max': g_max, 'dim': stats['dim']}
+
+
+def _pack_block(flat: Tensor, rand: Tensor, g_min: Tensor, g_max: Tensor,
+                bits: int, rows: int) -> Tuple[Tensor, Tensor]:
+    """``quantize_pack`` of this rank's rows of a leaf, padded with zero
+    words to its block of ``rows``."""
+    if flat.shape[0] == 0:
+        return _zero_words(rows, flat.shape[1], bits, flat.device)
+    sw, qw = kops.quantize_pack_flat(flat.contiguous(), rand, g_min, g_max,
+                                     bits)
+    return pad_rows(sw, rows), pad_rows(qw, rows)
+
+
 def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
                         fl: FLConfig, draws: TreeDraws,
                         stats: Optional[dict] = None, n_retx: int = 0,
                         wire: Optional[str] = None,
                         channel: Optional[str] = None,
-                        collective: Optional[str] = None,
+                        collective: Optional[str] = None, mesh=None,
                         attack: str = 'none',
                         byz_mask: Optional[Tensor] = None,
                         attack_scale: float = 10.0,
@@ -639,14 +791,21 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
     draw).  ``wire='analytic'`` sums the dequantized contributions in
     ``fl.uplink_reduce_dtype``.
 
+    ``collective`` (default ``fl.collective``) 'sharded' with ``mesh``
+    (a ``core.mesh.ClientMesh``; packed wire only): the gradient leaves
+    (and a per-client ḡ) hold this rank's rows of the K = len(q) clients,
+    ``stats`` (if given) and everything else are global.  Each leaf is
+    packed, sent and decoded on the rank's block; the verdicts cross
+    ranks in one ``all_gather`` of (K,) vectors (with the tree stats,
+    when the transport computes them) and each leaf's (n,) partial in
+    one ``all_reduce``.  The returned stats are the K clients'.
+
     Adversarial knobs as ``spfl_aggregate``'s: 'signflip' negates the
     byzantine rows' gradients before quantization (their signs flip,
     zeros stay +1, the knobs are unchanged: the reference's pre-pack
     ``flip_signs``); 'scaled' quantizes honestly and reports scaled
     ranges to the decoder; ``active`` rows transmit nothing; ``screen``
-    gates on the norm reports alone (the tree path keeps no votes).
-    ``collective='sharded'`` raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 12)."""
+    gates on the norm reports alone (the tree path keeps no votes)."""
     wire = fl.wire if wire is None else wire
     channel = fl.channel if channel is None else channel
     if wire not in WIRE_KINDS:
@@ -659,10 +818,10 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
     if attack not in adv_clients.ATTACK_KINDS:
         raise ValueError(f'attack must be one of {adv_clients.ATTACK_KINDS}'
                          f', got {attack!r}')
-    _check_gather(fl.collective if collective is None else collective)
-    if stats is None:
-        stats = tree_client_stats(grads_tree)
+    mesh = _resolve_collective(
+        fl.collective if collective is None else collective, wire, mesh)
     K = q.shape[0]
+    stats = _tree_stats(grads_tree, stats, mesh, K)
     bits = fl.quant_bits
     q_eff = 1.0 - (1.0 - q) ** (n_retx + 1)
     g_min, g_max = stats['g_min'], stats['g_max']
@@ -675,16 +834,21 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
            else torch.float32)
     leaves = tree.leaves(grads_tree)
     gbar_leaves = tree.leaves(gbar_tree)
+    # the rows this rank quantizes, and its block of the per-client inputs
+    rows, kb = mesh.rows(K), mesh.k_local(K)
+
+    def blk(x, pad=0):
+        return mesh.block(x, K, pad)
 
     # ---- clients: quantize every leaf (and pack, on the packed wire) ----
     qgs, sws, qws = [], [], []
     for i, lf in enumerate(leaves):
-        flat = lf.to(torch.float32).reshape(K, -1)
+        flat = _client_rows(lf)
         if attack == 'signflip' and byz is not None and wire == 'packed':
-            flat = torch.where(byz[:, None], -flat, flat)
+            flat = torch.where(byz[rows, None], -flat, flat)
         if wire == 'packed':
-            sw, qw = kops.quantize_pack_flat(flat.contiguous(), draws.rand[i],
-                                             g_min, g_max, bits)
+            sw, qw = _pack_block(flat, draws.rand[i][rows], g_min[rows],
+                                 g_max[rows], bits, kb)
             sws.append(sw)
             qws.append(qw)
             continue
@@ -708,22 +872,27 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
         ber_s = bitchannel.ber_for_success(q, ws)
         ber_v = bitchannel.ber_for_success(p, wm)
         qws, mod_ok, mod_flips = _bitlevel_tree_pass(
-            draws.seeds[0], qws, ber_v, mod_frame, K)
+            draws.seeds[0], qws, ber_v, mod_frame, K, mesh)
         orig_sws = sws       # the pristine payloads the resends carry
         sws, sign_ok, sign_flips = _bitlevel_tree_pass(
-            draws.seeds[1], sws, ber_s, sign_frame, K)
+            draws.seeds[1], sws, ber_s, sign_frame, K, mesh)
         sign_crc_ok = sign_ok
-        retx_k = torch.zeros((K,), dtype=torch.int32, device=q.device)
+        retx_k = torch.zeros((kb,), dtype=torch.int32, device=q.device)
         for attempt in range(1, n_retx + 1):
             failed = ~sign_ok
             rx_a, ok_a, flips_a = _bitlevel_tree_pass(
-                draws.seeds[1 + attempt], orig_sws, ber_s, sign_frame, K)
+                draws.seeds[1 + attempt], orig_sws, ber_s, sign_frame, K,
+                mesh)
             rescued = failed & ok_a
             sws = [torch.where(rescued[:, None], a, r)
                    for a, r in zip(rx_a, sws)]
             sign_flips = sign_flips + torch.where(failed, flips_a, 0)
             retx_k = retx_k + failed.to(torch.int32)
             sign_ok = sign_ok | rescued
+        # every rank's verdicts, in one all_gather
+        (sign_ok, mod_ok, sign_crc_ok, sign_flips, mod_flips,
+         retx_k) = gather_clients(mesh, K, sign_ok, mod_ok, sign_crc_ok,
+                                  sign_flips, mod_flips, retx_k)
         retx = torch.sum(retx_k).to(torch.float32)
         extras = dict(sign_flips=sign_flips, mod_flips=mod_flips,
                       sign_crc_ok=sign_crc_ok, mod_crc_ok=mod_ok,
@@ -759,15 +928,21 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
 
     # ---- PS: decode-once aggregate per leaf ----
     out = []
+    if wire == 'packed':
+        kernel_args = (blk(g_min_rep), blk(g_max_rep), blk(mod_ok, False),
+                       blk(w, 0.0), blk(sign_ok, False))
     for i, (lf, gbar_leaf) in enumerate(zip(leaves, gbar_leaves)):
         gb = gbar_leaf.to(torch.float32)
         per_client = tuple(gb.shape) == tuple(lf.shape)   # last_local
         if wire == 'packed':
-            n = lf[0].numel()
-            gb = gb.reshape(K, n) if per_client else gb.reshape(n)
-            acc, _ = kops.spfl_aggregate_packed(
-                sws[i], qws[i], gb.contiguous(), g_min_rep, g_max_rep,
-                mod_ok, w, sign_ok, n, bits, with_votes=False)
+            n = math.prod(lf.shape[1:])
+            if per_client:
+                gb = pad_rows(gb.reshape(lf.shape[0], n), kb)
+            else:
+                gb = gb.reshape(n)
+            acc, _ = kops.spfl_aggregate_packed_sharded(
+                sws[i], qws[i], gb.contiguous(), *kernel_args, n, bits,
+                mesh=mesh, with_votes=False)
             out.append(_tree_mean(acc, K, denom).reshape(lf.shape[1:]))
             continue
         qg = qgs[i]
@@ -803,37 +978,46 @@ def spfl_aggregate_tree(grads_tree, gbar_tree, q: Tensor, p: Tensor,
 def error_free_aggregate_tree(grads_tree, fl: FLConfig, draws: TreeDraws,
                               stats: Optional[dict] = None,
                               wire: Optional[str] = None,
-                              collective: Optional[str] = None):
+                              collective: Optional[str] = None, mesh=None,
+                              k: Optional[int] = None):
     """Quantized, lossless tree aggregation (the error-free upper bound at
     LLM scale): every leaf quantized with the tree-wide per-client
     ranges and averaged over the K clients; on the packed wire through
     ``quantize_pack`` and ``spfl_accumulate`` (ḡ = 0, unit weights, no
-    votes), one launch each a leaf.  Returns (ghat tree, stats,
+    votes), one launch each a leaf.  ``collective`` 'sharded' with
+    ``mesh``: the leaves hold this rank's rows of the ``k`` clients (as
+    :func:`spfl_aggregate_tree`'s), each leaf's partial is summed over
+    the ranks by one ``all_reduce``.  Returns (ghat tree, stats,
     telemetry)."""
     wire = fl.wire if wire is None else wire
     if wire not in WIRE_KINDS:
         raise ValueError(f'wire must be one of {WIRE_KINDS}, got {wire!r}')
-    _check_gather(fl.collective if collective is None else collective)
-    if stats is None:
-        stats = tree_client_stats(grads_tree)
+    mesh = _resolve_collective(
+        fl.collective if collective is None else collective, wire, mesh)
+    leaves = tree.leaves(grads_tree)
+    K = leaves[0].shape[0] if k is None else k
+    stats = _tree_stats(grads_tree, stats, mesh, K)
     g_min, g_max = stats['g_min'], stats['g_max']
     bits = fl.quant_bits
-    leaves = tree.leaves(grads_tree)
-    K = leaves[0].shape[0]
     dev = leaves[0].device
-    ones = torch.ones((K,), dtype=torch.float32, device=dev)
+    rows, kb = mesh.rows(K), mesh.k_local(K)
+    # the dummies weigh 0
+    ones = mesh.block(torch.ones((K,), dtype=torch.float32, device=dev), K,
+                      0.0)
+    g_min_b, g_max_b = mesh.block(g_min, K), mesh.block(g_max, K)
     out = []
     payload_words = 0
     for i, lf in enumerate(leaves):
-        flat = lf.to(torch.float32).reshape(K, -1)
+        flat = _client_rows(lf)
         n = flat.shape[1]
         if wire == 'packed':
-            sw, qw = kops.quantize_pack_flat(flat.contiguous(), draws.rand[i],
-                                             g_min, g_max, bits)
+            zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+            sw, qw = _pack_block(flat, draws.rand[i][rows], g_min[rows],
+                                 g_max[rows], bits, kb)
+            acc, _ = kops.spfl_aggregate_packed_sharded(
+                sw, qw, zero, g_min_b, g_max_b, ones, ones, ones, n, bits,
+                mesh=mesh, with_votes=False)
             payload_words += sw.shape[-1] + qw.shape[-1]
-            acc, _ = kops.spfl_aggregate_packed(
-                sw, qw, torch.zeros((n,), dtype=torch.float32, device=dev),
-                g_min, g_max, ones, ones, ones, n, bits, with_votes=False)
             mean = true_div(acc, float(K))
         else:
             qg = stochastic_quantize(flat, bits, draws.rand[i],

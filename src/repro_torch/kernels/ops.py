@@ -340,6 +340,35 @@ def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
     return out, votes
 
 
+def spfl_aggregate_packed_sharded(sign_payload: Tensor, qidx_payload: Tensor,
+                                  gbar: Tensor, gmin, gmax, mod_ok, weight,
+                                  sign_ok, n: int, bits: int, *, mesh,
+                                  with_votes: bool = True
+                                  ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Shard-local decode-once aggregation and one ``all_reduce``: the
+    mesh-scale form of :func:`spfl_aggregate_packed` (the reference's
+    ``spfl_aggregate_packed_sharded``).
+
+    Each rank of ``mesh`` (``core.mesh.ClientMesh``) passes its block of
+    the K clients (``mesh.block``: K_local = ceil(K / S) rows, the rows
+    past K-1 zero-weight dummies whose vote gate is off) and ``gbar``
+    (n,) shared or (K_local, n) its rows; the kernel decodes only those
+    rows, and the sum over the ranks of the (n,) f32 partial, plus that
+    of the int32 votes, finishes the client sum: no payload word leaves
+    its rank.  The integers equal the gathered call's bit for bit; the
+    f32 sum reassociates the per-rank partials (in the backend's order).
+    Votes ride per-rank vote words: the capacity is 32 clients a shard
+    (``None`` when K_local > 32 or ``with_votes`` is False)."""
+    votes_on = with_votes and sign_payload.shape[0] <= MAX_VOTE_CLIENTS
+    acc, votes = spfl_aggregate_packed(
+        sign_payload, qidx_payload, gbar, gmin, gmax, mod_ok, weight,
+        sign_ok, n, bits, with_votes=votes_on)
+    acc = mesh.all_reduce(acc)
+    if votes_on:
+        votes = mesh.all_reduce(votes)
+    return acc, votes
+
+
 # ---------------------------------------------------------------------------
 # the bit channel and the PS CRC verify
 # ---------------------------------------------------------------------------
@@ -375,8 +404,8 @@ def seed_words(seeds, device) -> Tensor:
                         & fmt.MASK32).to(device)
 
 
-def corrupt_fold_words(seeds, words: Tensor, ber,
-                       word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+def corrupt_fold_words(seeds, words: Tensor, ber, word0: int = 0,
+                       mesh=None) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused bit-channel pass over (K, W) word buffers at per-client BER
     ``ber`` (scalar or (K,)) with the counter PRF keyed by two uint32
     seed words: ``seeds`` is a (2,) int32 tensor of their patterns on the
@@ -386,11 +415,21 @@ def corrupt_fold_words(seeds, words: Tensor, ber,
     global word counter.  -> (received (K, W), per-client flip-mask
     xor-fold (K,), per-client flip count (K,)), all int32.  On the card
     it launches one kernel besides the threshold arithmetic: the kernel
-    writes every output."""
+    writes every output.
+
+    ``mesh`` (``core.mesh.ClientMesh``): ``words`` is this rank's block
+    of K_local rows and the pass runs at the rank's global word offset
+    ``row0 * W``, so its bits equal the gathered draw's rows."""
     _expect(words, 'words', torch.int32)
     if words.dim() != 2:
         raise ValueError('words: expected (K, W)')
     k, w = words.shape
+    if mesh is not None:
+        if word0 != 0:
+            raise ValueError("word0 and mesh are mutually exclusive: the "
+                             "sharded form derives each shard's offset "
+                             "from its mesh position")
+        word0 = mesh.rank * k * w
     if not isinstance(seeds, Tensor):
         seeds = seed_words(seeds, words.device)
     _expect(seeds, 'seeds', torch.int32, (2,))
@@ -413,9 +452,11 @@ def corrupt_fold_words(seeds, words: Tensor, ber,
     return rx, fold, flips
 
 
-def fold_words(words: Tensor) -> Tensor:
+def fold_words(words: Tensor, mesh=None) -> Tensor:
     """Per-client xor-fold of (K, W) word buffers -> (K,) int32: the PS
-    CRC reduction of the bit-level transport."""
+    CRC reduction of the bit-level transport.  The verdicts are per
+    client, so under a ``mesh`` each rank folds its own block and nothing
+    crosses ranks."""
     _expect(words, 'words', torch.int32)
     if words.dim() != 2:
         raise ValueError('words: expected (K, W)')

@@ -75,9 +75,13 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _frequencies_on(head_dim: int, theta: float, device: str) -> Tensor:
-    """``rope_frequencies`` on ``device``, copied there once a process (a
-    copy from pageable host memory waits for the card's queue)."""
-    return torch.as_tensor(rope_frequencies(head_dim, theta), device=device)
+    """``rope_frequencies`` on ``device``, copied there once a process,
+    from pinned memory to a card (a copy from pageable host memory would
+    wait for the card's queue)."""
+    host = torch.as_tensor(rope_frequencies(head_dim, theta))
+    if torch.device(device).type != 'cuda':
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def rope_tables(positions: Tensor, head_dim: int, theta: float):

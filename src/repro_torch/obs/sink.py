@@ -67,10 +67,12 @@ def config_hash(cfg: Any) -> Optional[str]:
 
 
 def run_manifest(fl: Any = None, extra: Optional[Dict[str, Any]] = None,
-                 device: Optional[torch.device] = None) -> Dict[str, Any]:
+                 device: Optional[torch.device] = None,
+                 mesh: Any = None) -> Dict[str, Any]:
     """The run's provenance; ``device`` is the run's (default: the first
-    CUDA card if there is one, else the CPU).  ``mesh`` is None: the port
-    has no sharded collective yet (ROADMAP Queue 1 item 12)."""
+    CUDA card if there is one, else the CPU); ``mesh`` the client mesh of
+    a sharded run (``core.mesh.ClientMesh``: its shape, ranks and
+    backend), else None."""
     if device is None:
         device = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
     device = torch.device(device)
@@ -92,7 +94,11 @@ def run_manifest(fl: Any = None, extra: Optional[Dict[str, Any]] = None,
                        if device.type == 'cuda' else device.type),
             'device_count': torch.cuda.device_count(),
         },
-        'mesh': None,
+        'mesh': None if mesh is None else {
+            'shape': {'data': int(mesh.size)},
+            'n_devices': int(mesh.size),
+            'backend': mesh.backend,
+        },
     }
     if extra:
         man.update(extra)

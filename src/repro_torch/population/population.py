@@ -375,6 +375,43 @@ def sample_cohort(round_key: Tensor, base_key: Tensor,
                        gains=False).cohort
 
 
+class CohortRound(NamedTuple):
+    """A population round's cohort on the training device."""
+    ids: Tensor                   # (K,) int64 global device ids
+    shards: Tensor                # (K,) int64 data shard of each id
+    present: Optional[Tensor]     # (K,) bool arrivals (availability
+    #                               sampler only; None = everyone)
+    p_w: Tensor                   # (K,) float64 of the f32 budgets
+    gains: Optional[Tensor]       # (K,) float64 of the f32 gains
+    byzantine: Optional[Tensor]   # (K,) bool (attack != 'none')
+
+
+def cohort_columns(draw: CohortDraw, n_shards: int) -> Tensor:
+    """A host cohort draw's per-slot arrays stacked as (K, C) float64
+    columns on the host (ids < 2^32 and the float32 budgets and gains
+    are exact there): ids, shards, presence, budgets, then the gains and
+    the byzantine flags where the draw has them — one copy moves a
+    round's cohort to the device."""
+    c = draw.cohort
+    cols = [c.ids, shard_ids(c.ids, n_shards), c.present, c.p_w]
+    if draw.gains is not None:
+        cols.append(draw.gains)
+    if draw.byzantine is not None:
+        cols.append(draw.byzantine)
+    return torch.stack([col.to(torch.float64) for col in cols], dim=1)
+
+
+def cohort_round(cols: Tensor, fl: FLConfig, gains: bool) -> CohortRound:
+    """The :class:`CohortRound` of (K, C) :func:`cohort_columns` on the
+    device (device operations only); ``gains``: the columns hold them."""
+    dev = cols.unbind(1)
+    byz = dev[-1] > 0.0 if fl.attack != 'none' else None
+    present = (dev[2] > 0.0 if fl.cohort_sampler == 'availability'
+               else None)
+    return CohortRound(dev[0].to(torch.int64), dev[1].to(torch.int64),
+                       present, dev[3], dev[4] if gains else None, byz)
+
+
 def shard_ids(ids, n_shards: int) -> Tensor:
     """Virtual device -> data shard: device ``d`` reads shard ``d mod S``."""
     return (_ids(ids) % n_shards).to(torch.int32)

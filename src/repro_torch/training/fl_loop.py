@@ -257,15 +257,7 @@ class RoundResult(NamedTuple):
     alloc_time_s: float
 
 
-class CohortRound(NamedTuple):
-    """A population round's cohort on the simulator's device."""
-    ids: torch.Tensor             # (K,) int64 global device ids
-    shards: torch.Tensor          # (K,) int64 data shard of each id
-    present: Optional[torch.Tensor]  # (K,) bool arrivals (availability
-    #                               sampler only; None = everyone)
-    p_w: torch.Tensor             # (K,) float64 of the f32 budgets
-    gains: Optional[torch.Tensor]  # (K,) float64 of the f32 gains
-    byzantine: Optional[torch.Tensor]  # (K,) bool (attack != 'none')
+CohortRound = pop.CohortRound
 
 
 class FLSimulator:
@@ -585,30 +577,15 @@ class FLSimulator:
             self.device, non_blocking=True))
 
     def cohort_columns(self, draw: pop.CohortDraw) -> torch.Tensor:
-        """A host cohort draw's per-slot arrays stacked as (K, C) float64
-        columns on the host (ids < 2^32 and the float32 budgets and gains
-        are exact there): ids, shards, presence, budgets, then the gains
-        and the byzantine flags where the draw has them."""
-        c = draw.cohort
-        n_shards = self.client_x.shape[0]
-        cols = [c.ids, pop.shard_ids(c.ids, n_shards), c.present, c.p_w]
-        if draw.gains is not None:
-            cols.append(draw.gains)
-        if draw.byzantine is not None:
-            cols.append(draw.byzantine)
-        return torch.stack([col.to(torch.float64) for col in cols], dim=1)
+        """A host cohort draw's per-slot arrays as (K, C) float64 columns
+        on the host (``population.cohort_columns``)."""
+        return pop.cohort_columns(draw, self.client_x.shape[0])
 
     def cohort_round(self, cols: torch.Tensor) -> CohortRound:
         """The :class:`CohortRound` of (K, C) :meth:`cohort_columns` on the
         device (device operations only)."""
-        fl = self.fl
-        dev = cols.unbind(1)
-        gains = dev[4] if fl.transport in ALLOCATING else None
-        byz = dev[-1] > 0.0 if fl.attack != 'none' else None
-        present = (dev[2] > 0.0 if fl.cohort_sampler == 'availability'
-                   else None)
-        return CohortRound(dev[0].to(torch.int64), dev[1].to(torch.int64),
-                           present, dev[3], gains, byz)
+        return pop.cohort_round(cols, self.fl,
+                                self.fl.transport in ALLOCATING)
 
     def step_stragglers(self, u: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:

@@ -46,15 +46,35 @@ def lane_mask_words(n: int, n_words: int, device=None) -> Tensor:
     return masks
 
 
-def majority_words(rows: Tensor, gate: Tensor, n: int) -> Tensor:
+def add_planes(a: list, b: list) -> list:
+    """Lane-wise sum of two counts held as bit-planes (full adders; the
+    sum must fit the planes)."""
+    out, carry = [], torch.zeros_like(a[0])
+    for x, y in zip(a, b):
+        half = x ^ y
+        out.append(half ^ carry)
+        carry = (x & y) | (carry & half)
+    return out
+
+
+def majority_words(rows: Tensor, gate: Tensor, n: int,
+                   n_ok: Tensor = None, mesh=None) -> Tensor:
     """Majority sign word per payload word over the gated client rows.
 
     rows: (K, W) int32 packed sign payload (a strided view is fine);
     gate: (K,) voters (bool, or 0/1).  -> (W,) int32: bit 1 where a
     strict majority of the gated rows voted +1 (count > n_ok // 2),
-    lane-masked in the tail word."""
+    lane-masked in the tail word.
+
+    ``mesh`` (a ``core.mesh.ClientMesh`` of S ranks): ``rows`` and
+    ``gate`` are this rank's block and ``n_ok`` the global count of
+    voters; each rank counts its block into the planes of S * K_local,
+    one ``all_gather`` brings every rank's planes (none on a one-rank
+    mesh) and their integer sum is compared with ``n_ok // 2``: equal to
+    the gathered majority bit for bit."""
     k, w = rows.shape
-    nb = max(1, int(k).bit_length())
+    size = 1 if mesh is None else mesh.size
+    nb = max(1, int(k * size).bit_length())
     on = gate.to(torch.bool)
     gated = torch.where(on[:, None], rows, torch.zeros((), dtype=rows.dtype,
                                                         device=rows.device))
@@ -64,7 +84,14 @@ def majority_words(rows: Tensor, gate: Tensor, n: int) -> Tensor:
         carry = gated[r]
         for j in range(nb):
             planes[j], carry = planes[j] ^ carry, planes[j] & carry
-    t = torch.sum(on.to(torch.int32)) // 2
+    if size > 1:
+        every = mesh.all_gather(torch.stack(planes)).reshape(size, nb, w)
+        planes = list(every[0].unbind(0))
+        for r in range(1, size):
+            planes = add_planes(planes, list(every[r].unbind(0)))
+    if n_ok is None:
+        n_ok = torch.sum(on.to(torch.int32))
+    t = n_ok // 2
     gt = zero
     eq = torch.full((w,), -1, dtype=torch.int32, device=rows.device)
     for j in reversed(range(nb)):

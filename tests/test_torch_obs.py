@@ -303,15 +303,18 @@ def test_telemetry_and_population_left_the_unported_list(kw):
 def test_remaining_items_still_raise(kw):
     """Fused rounds left the unported list, and so did the sharded
     collective: the host loop never reads it (the reference's does not
-    either).  'sharded' still raises on the LLM-scale step, naming its
-    ROADMAP item."""
+    either).  On the LLM-scale step 'sharded' runs with a mesh and
+    refuses only a missing one, with the reference's message."""
     assert fl_loop._NOT_YET == ()
     if 'round_fusion' in kw:
         fl_loop.check_supported(FLConfig(allocation_backend='jax', **kw))
         return
     fl_loop.check_supported(FLConfig(**kw))
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training import distributed
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item'):
-        distributed.make_fl_train_step(get_arch('smollm-135m-reduced'),
-                                       FLConfig(**kw))
+    cfg = get_arch('smollm-135m-reduced')
+    with pytest.raises(ValueError, match='needs the mesh'):
+        distributed.make_fl_train_step(cfg, FLConfig(**kw))
+    assert callable(distributed.make_fl_train_step(
+        cfg, FLConfig(**kw), mesh=make_host_mesh()))

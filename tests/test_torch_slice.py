@@ -121,15 +121,16 @@ def test_simulator_runs_on_cpu_with_measured_payload():
     dict(telemetry_path='t.jsonl', collective='sharded')])
 def test_unsupported_knobs_raise(kw):
     """``collective='sharded'`` builds: the host loop never reads it, as
-    the reference's does not (it raises on the LLM-scale step, naming its
-    ROADMAP item); fused rounds build, and refuse the host solver of an
-    allocating transport when they run, with the reference's message."""
+    the reference's does not (the LLM-scale step refuses it without a
+    mesh, with the reference's message); fused rounds build, and refuse
+    the host solver of an allocating transport when they run, with the
+    reference's message."""
     if kw.get('collective') == 'sharded':
         sim = _tiny_simulator(FLConfig(**kw))
         assert sim.fl.collective == 'sharded'
         from repro_torch.configs.registry import get_arch
         from repro_torch.training import distributed
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+        with pytest.raises(ValueError, match='needs the mesh'):
             distributed.make_fl_train_step(get_arch('smollm-135m-reduced'),
                                            sim.fl)
         return

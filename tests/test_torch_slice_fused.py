@@ -258,18 +258,26 @@ def test_refusals(data, fl_kw, run_kw, match):
 
 def test_only_the_sharded_collective_is_not_yet_ported():
     """The host loop runs every knob ('sharded' as 'gather', as the
-    reference's loop does); the sharded collective is not yet ported on
-    the LLM-scale step, which raises naming its item."""
+    reference's loop does); the sharded collective is ported on the
+    LLM-scale step too: it builds with a mesh and refuses only a missing
+    one, as the reference does, and so do its fused rounds."""
     assert fl_loop._NOT_YET == ()
     for mode in ('eager', 'scan'):
         fl_loop.check_supported(FLConfig(round_fusion=mode,
                                          allocation_backend='jax'))
     fl_loop.check_supported(FLConfig(collective='sharded'))
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training import distributed
-    with pytest.raises(NotImplementedError, match='item 12'):
-        distributed.make_fl_train_step(get_arch('smollm-135m-reduced'),
-                                       FLConfig(collective='sharded'))
+    cfg = get_arch('smollm-135m-reduced')
+    with pytest.raises(ValueError, match='needs the mesh'):
+        distributed.make_fl_train_step(cfg, FLConfig(collective='sharded'))
+    with pytest.raises(ValueError, match='needs the mesh'):
+        distributed.make_fused_fl_round(
+            cfg, FLConfig(collective='sharded', allocation_backend='jax'))
+    assert callable(distributed.make_fused_fl_round(
+        cfg, FLConfig(collective='sharded', allocation_backend='jax'),
+        mesh=make_host_mesh()))
 
 
 def test_fused_rounds_take_deterministic_cudnn(data):

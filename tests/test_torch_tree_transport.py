@@ -252,14 +252,40 @@ def test_stats_and_delta_sq():
 
 
 def test_sharded_collective_names_its_roadmap_item():
+    """The sharded collective runs (a one-rank mesh: bit for bit the
+    gathered call; more ranks in ``test_torch_sharded.py``) and refuses
+    only what the reference refuses, with its messages: the analytic
+    wire and a missing mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, fl = _cfgs(wire='packed', collective='sharded')
-    draws = TTR.TreeDraws([torch.rand(K, n) for n in _sizes()])
-    q = torch.ones(K)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
+    draws = TTR.make_tree_draws(K, _sizes(), 0, 'bernoulli', 'cpu',
+                                torch.Generator().manual_seed(0),
+                                torch.Generator().manual_seed(1))
+    draws = draws._replace(rand=list(draws.rand))
+    q = torch.full((K,), 0.7)
+    with pytest.raises(ValueError, match='requires a mesh'):
         TTR.spfl_aggregate_tree(_tt(_grads(0)), _tt(_gbar(0)), q, q, fl,
                                 draws)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
+    with pytest.raises(ValueError, match='requires a mesh'):
         TTR.error_free_aggregate_tree(_tt(_grads(0)), fl, draws)
+    _, analytic = _cfgs(collective='sharded')
+    with pytest.raises(ValueError, match="requires wire='packed'"):
+        TTR.spfl_aggregate_tree(_tt(_grads(0)), _tt(_gbar(0)), q, q,
+                                analytic, draws, mesh=make_host_mesh())
+    mesh = make_host_mesh()
+    _, gather = _cfgs(wire='packed')
+    a, _, ta = TTR.spfl_aggregate_tree(_tt(_grads(0)), _tt(_gbar(0)), q, q,
+                                       gather, draws)
+    b, _, tb = TTR.spfl_aggregate_tree(_tt(_grads(0)), _tt(_gbar(0)), q, q,
+                                       fl, draws, mesh=mesh)
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        assert torch.equal(x, y)
+    assert torch.equal(ta.sign_ok, tb.sign_ok)
+    a, _, _ = TTR.error_free_aggregate_tree(_tt(_grads(0)), gather, draws)
+    b, _, _ = TTR.error_free_aggregate_tree(_tt(_grads(0)), fl, draws,
+                                            mesh=mesh)
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        assert torch.equal(x, y)
 
 
 def test_make_tree_draws_layout():
