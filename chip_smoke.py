@@ -182,6 +182,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     bit for bit, and one population 'scan' segment (N = 10^6, cohort 4)
     whose cohort ids are the host chain's.
 
+13. the rest of the model zoo, prefill/decode and serving (``run_zoo``):
+    ``launch.train.run`` on the packed wire and the bit channel, barrier,
+    'jax', with the counters reset just before and read just after (one
+    ``quantize_pack`` and one ``spfl_accumulate`` a leaf a step, two
+    ``corrupt_fold`` a leaf a step, one ``alloc_solve`` a step from step
+    1, nothing else, a leaf counted from the configuration): mamba2-130m
+    at full width and depth (K = 4 clients of 8 x 256 tokens, 2 steps),
+    at full width cut to one group of their layer pattern (K = 2 of 2 x
+    128) mixtral-8x7b (1 layer, 1 step), zamba2-2.7b (6 layers, the
+    shared block once), paligemma-3b and musicgen-medium (1 layer; 2
+    steps each), and the reduced arctic-480b (2 steps; one full-width
+    layer is 13.4 G parameters); the reduced arctic's standard step,
+    paligemma-3b's (1 layer, full width) step given a bf16 prefix batch
+    of 256 x 1152; one fused segment of 2 rounds on mamba2-130m and
+    on the reduced mixtral under 'scan' and 'eager', bit for bit, each
+    warm-up and segment under sync debug mode 'error'; serving at full
+    width through ``launch.serve.run`` (batch 4, prompt 128, greedy):
+    smollm-135m and mamba2-130m (32 new tokens), mixtral-8x7b one layer
+    (16, with each MoE call's ``drop_frac``), each with its prefill ms,
+    decode ms a token, tokens a second, one decode step under
+    ``torch.profiler`` (device operations, busy ms, idle share) and its
+    output fed back through the full-sequence forward (``check_served``);
+    a float32 copy of smollm-135m and mamba2-130m served for 8 tokens,
+    its decode within 1e-4 of each row's largest |logit| of its float32
+    forward (``check_served_f32``); and decode = forward within 3e-3 on
+    every reduced architecture (gemma2 and mixtral past their window).
+
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
 the run of its own path (``path``: 'round' is phase 4's main run, 'alloc'
@@ -204,7 +231,7 @@ unpack_dequant add ``variants``, the same for their other phase 6 calls
 and corrupt_fold add ``llm``, the same at phase 11's embedding leaf
 (K=4), with the launches of phase 11's run (``corrupt_fold``: its
 bit-level step); ``phase12_launches`` counts phase 12's launches on
-every rank (a graph's at its capture).  It imports
+every rank (a graph's at its capture), ``phase13_launches`` phase 13's.  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -4107,8 +4134,8 @@ def llm_step(label: str, fl, kind: str, want: dict, seed: int,
     kept = []
     orig = dist.client_grads
 
-    def keep(*args):
-        kept.append(orig(*args))
+    def keep(*args, **kw):
+        kept.append(orig(*args, **kw))
         return kept[-1]
 
     step = dist.make_fl_train_step(cfg, fl, kind)
@@ -5109,6 +5136,534 @@ def run_llm_fused(host_step_ms) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the model zoo, prefill/decode and serving
+# ---------------------------------------------------------------------------
+
+# launch.train.run's knobs for the zoo's FL steps: packed, bit-level,
+# barrier, 'jax' (the launcher's other defaults, as LLM_RUN)
+ZOO_RUN = dict(LLM_RUN, channel='bitlevel')
+# the zoo run at full width, cut in depth to one group of their pattern
+ZOO_ONE_GROUP = ('zamba2-2.7b', 'paligemma-3b', 'musicgen-medium')
+ZOO_SERVE = dict(batch=4, prompt_len=128)
+# a float32 model's decode against its float32 forward: of each row's
+# largest |logit|
+F32_SERVE_RTOL = 1e-4
+# the kernels phase 13's paths launch, each of which must
+PHASE13_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold',
+                   'alloc_solve', 'alloc_solve_f32')
+
+
+def one_group(name: str):
+    """``name`` at full width with its depth cut to one group of its
+    layer pattern (mixtral-8x7b: 32 -> 1 layers, 1,713,418,240
+    parameters; zamba2-2.7b: 54 -> 6, the shared block once,
+    468,146,480; paligemma-3b: 18 -> 1, 639,244,288; musicgen-medium:
+    48 -> 1, 44,044,800)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(name)
+    return dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
+
+
+def n_leaves(cfg) -> int:
+    """The leaves of ``cfg``'s parameter tree, counted on the meta
+    device (no memory, no draws)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    return len(tree.leaves(tf.init_params(cfg, torch.Generator(),
+                                          device='meta')))
+
+
+def zoo_counts(counts: dict, launched: dict) -> None:
+    for name, c in counts.items():
+        launched[name] = launched.get(name, 0) + c
+
+
+def zoo_train(label: str, arch, steps: int, launched: dict, **kw) -> dict:
+    """``launch.train.run`` of ``arch`` in the host loop (``ZOO_RUN``),
+    counters reset just before and read just after: per step one
+    ``quantize_pack`` and one ``spfl_accumulate`` a leaf, two
+    ``corrupt_fold`` a leaf (modulus and sign passes), one
+    ``alloc_solve`` a step from step 1, nothing else, the leaves counted
+    from the configuration (``n_leaves``); finite losses, q in (0, 1],
+    p in [0, 1]."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    leaves = n_leaves(get_arch(arch) if isinstance(arch, str) else arch)
+    free_card()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.run(arch, steps=steps, **{**ZOO_RUN, **kw})
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = {n: c for n, c in ops.launch_counts.items() if c}
+    zoo_counts(counts, launched)
+    want = {'quantize_pack': leaves * steps, 'spfl_accumulate':
+            leaves * steps, 'corrupt_fold': 2 * leaves * steps}
+    if steps > 1:
+        want['alloc_solve'] = steps - 1
+    if counts != want:
+        raise AssertionError(f'{label}: launches {counts}, want {want}')
+    if not (all(math.isfinite(x) for x in hist['loss'])
+            and all(0.0 < q <= 1.0 for q in hist['q'])
+            and all(0.0 <= p <= 1.0 for p in hist['p'])):
+        raise AssertionError(f'{label}: loss {hist["loss"]}, q {hist["q"]},'
+                             f' p {hist["p"]}')
+    print(f'{label}: {s:.3f} s (set-up included), {leaves} leaves; step ms '
+          f'{json.dumps([t * 1e3 for t in hist["step_s"]])}; loss '
+          f'{json.dumps(hist["loss"])}; q̄ {json.dumps(hist["q"])}; p̄ '
+          f'{json.dumps(hist["p"])}; launches {json.dumps(counts)}',
+          flush=True)
+    return dict(hist=hist, s=s, counts=counts)
+
+
+def zoo_prefix_step(label: str, cfg, launched: dict) -> None:
+    """One bit-level ``make_fl_train_step`` step of a vision model given
+    the bf16 prefix batch ``client_batch_shapes`` makes (K = 2 clients of
+    2 x 32 tokens), with the counters reset just before and read just
+    after; then the standard and eval steps on client 0's batch."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import transport as tr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import distributed as dist
+    free_card()
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    params = tf.init_params(cfg, gen, device='cuda')
+    shapes = dist.client_batch_shapes(cfg, 2, 4, 32)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size, shapes['tokens'][0],
+                                     generator=gen, device='cuda',
+                                     dtype=torch.int32),
+             'prefix': torch.randn(shapes['prefix'][0], generator=gen,
+                                   device='cuda').to(shapes['prefix'][1])}
+    fl = FLConfig(n_devices=2, wire='packed', channel='bitlevel',
+                  learning_rate=0.05)
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+    draws = tr.make_tree_draws(2, sizes, 0, fl.channel, 'cuda', gen,
+                               torch.Generator().manual_seed(13))
+    q = torch.tensor([0.9, 1.0], device='cuda')
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    new, _, m = dist.make_fl_train_step(cfg, fl)(
+        params, batch, dist.init_gbar(params), q, torch.ones(2,
+                                                             device='cuda'),
+        draws)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts.items() if c}
+    zoo_counts(counts, launched)
+    L = len(sizes)
+    want = {'quantize_pack': L, 'spfl_accumulate': L, 'corrupt_fold': 2 * L}
+    if counts != want:
+        raise AssertionError(f'{label} prefix step: launches {counts}, want '
+                             f'{want}')
+    if not all(bool(torch.isfinite(x).all()) for x in tree.leaves(new)):
+        raise AssertionError(f'{label} prefix step: non-finite parameters')
+    one = {'tokens': batch['tokens'][0], 'prefix': batch['prefix'][0]}
+    _, sm = dist.make_standard_train_step(cfg, fl)(params, one)
+    ev = float(dist.make_eval_step(cfg)(params, one))
+    if not abs(float(sm['loss']) - ev) <= 1e-5 * abs(ev):
+        raise AssertionError(f'{label}: standard step loss {sm["loss"]} != '
+                             f'eval {ev}')
+    print(f'{label} step given a bf16 prefix batch {shapes["prefix"][0]}: '
+          f'client losses {m["client_losses"].tolist()}, launches '
+          f'{json.dumps(counts)}; standard step loss {float(sm["loss"]):.6f}'
+          f' = eval step', flush=True)
+
+
+def zoo_standard_step(name: str) -> None:
+    """The plain data-parallel step of ``name`` on the card (the
+    reference's step where per-client gradients do not exist at scale)."""
+    import torch
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import distributed as dist
+    cfg = get_arch(name)
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    params = tf.init_params(cfg, gen, device='cuda')
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                         device='cuda')
+    _, sm = dist.make_standard_train_step(cfg, FLConfig())(
+        params, {'tokens': toks})
+    if not (math.isfinite(float(sm['loss']))
+            and float(sm['g_norm_sq']) > 0):
+        raise AssertionError(f'{name} standard step: {sm}')
+    print(f'{name} standard step: loss {float(sm["loss"]):.6f}, ||g||^2 '
+          f'{float(sm["g_norm_sq"]):.6e}', flush=True)
+
+
+def zoo_fused(label: str, arch, launched: dict, **kw) -> dict:
+    """One 'scan' segment of 2 rounds and the same 2 rounds under 'eager'
+    (``launch.train.run``, ``ZOO_RUN``), each with its warm-up round and
+    segment launches under sync debug mode 'error' (``Watch('sync')``):
+    'scan' = 'eager' bit for bit (losses, q, p)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    runs = {}
+    for mode in ('eager', 'scan'):
+        free_card()
+        ops.reset_launch_counts()
+        sync = Watch('sync')
+        t0 = time.perf_counter()
+        hist = train.run(arch, steps=2, round_fusion=mode,
+                         scan_segment_rounds=2, segment_guard=sync,
+                         **{**ZOO_RUN, **kw})
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in ops.launch_counts.items() if c}
+        zoo_counts(counts, launched)
+        runs[mode] = hist
+        if len(sync.launches) != 2:
+            raise AssertionError(f'{label} {mode}: the sync guard saw '
+                                 f'{len(sync.launches)} launches')
+        if not counts.get('alloc_solve_f32'):
+            raise AssertionError(f'{label} {mode}: launches {counts}')
+        steady = [(s - c) * 1e3 for s, c in zip(hist['step_s'],
+                                                hist['capture_s'])]
+        print(f'{label} fused {mode}: {time.perf_counter() - t0:.3f} s '
+              f'(set-up included); round ms less capture '
+              f'{json.dumps(steady)}, capture '
+              f'{sum(hist["capture_s"]):.3f} s; loss '
+              f'{json.dumps(hist["loss"])}; launches at capture '
+              f'{json.dumps(counts)}', flush=True)
+    for f in ('loss', 'q', 'p'):
+        if runs['scan'][f] != runs['eager'][f]:
+            raise AssertionError(f'{label}: scan {f} {runs["scan"][f]} != '
+                                 f'eager {runs["eager"][f]}')
+    print(f'{label}: scan = eager bit for bit (losses, q, p), warm-up and '
+          'segments under sync debug mode error', flush=True)
+    return runs
+
+
+def record_drops(drops: list):
+    """Keep each MoE call's ``drop_frac`` (a device scalar) by wrapping
+    the transformer's ``moe_forward``.  -> a callable that undoes it."""
+    from repro_torch.models import transformer as tf
+    orig = tf.moe_forward
+
+    def wrapped(p, cfg, x):
+        y, aux = orig(p, cfg, x)
+        drops.append(aux['drop_frac'])
+        return y, aux
+
+    tf.moe_forward = wrapped
+    return lambda: setattr(tf, 'moe_forward', orig)
+
+
+def decode_logits(params, cfg, prompts, out, prefix=None):
+    """The served run's logits replayed: the prefill's last (B, V), then
+    one decode step a generated token but the last -> (B, n, V)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    P = 0 if prefix is None else prefix.shape[1]
+    T = prompts.shape[1]
+    n = out.shape[1]
+    with torch.no_grad():
+        logits, cache = tf.prefill(params, cfg, prompts, P + T + n + 8,
+                                   prefix_embeds=prefix,
+                                   cache_dtype=torch.float32)
+        rows = [logits[:, 0]]
+        for i in range(n - 1):
+            logits, cache = tf.decode_step(params, cfg, cache, out[:, i:i + 1],
+                                           P + T + i)
+            rows.append(logits[:, 0])
+    return torch.stack(rows, dim=1)
+
+
+def served_forward(params, cfg, prompts, out):
+    """The full-sequence logits that predict each served token (B, n, V),
+    float32: the prompt's last position from a forward of the prompt
+    alone (the prefill's tokens: an MoE drops the same ones), the decoded
+    positions from a forward of prompt and output at a capacity no token
+    exceeds (decode routes one token a row: B k assignments, never
+    dropped)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    T = prompts.shape[1]
+    full_cfg = (dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts)) if cfg.is_moe else cfg)
+    with torch.no_grad():
+        h0, _ = tf.forward(params, cfg, prompts)
+        first = tf.logits_fn(params, cfg, h0[:, -1:])
+        seq = torch.cat([prompts, out[:, :-1].to(prompts.dtype)], dim=1)
+        h1, _ = tf.forward(params, full_cfg, seq)
+        rest = tf.logits_fn(params, full_cfg, h1[:, T:])
+    return torch.cat([first, rest], dim=1).to(torch.float32)
+
+
+def check_served(label: str, params, cfg, prompts, out) -> dict:
+    """The served tokens fed back through the full-sequence ``forward``
+    (``served_forward``) and through the same forward of a float32 copy
+    of the weights: the decode logits are no farther from the float32
+    model than the bf16 forward is, plus ``VMAP_RTOL`` of each position's
+    largest |logit| (four bf16 ulps); the argmax is the forward's at
+    every position whose top-two margin exceeds the decode's distance
+    from it.  The decode-to-forward distance is printed against the four
+    ulps too: the attention stacks attend over the float32 cache in the
+    model's dtype, as the forward does; Mamba2's forward runs the bf16
+    chunked scan (decay matrices rounded to bf16, as the reference's),
+    its decode the exact recurrence on the float32 state.  The cache
+    logic apart from bf16 rounding is held by ``check_served_f32``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    dec = decode_logits(params, cfg, prompts, out).to(torch.float32)
+    full = served_forward(params, cfg, prompts, out)
+    full32 = served_forward(tree.map(lambda a: a.to(torch.float32), params),
+                            dataclasses.replace(cfg, param_dtype='float32'),
+                            prompts, out)
+    ulps = VMAP_RTOL * full.abs().amax(-1)
+    d_fwd = (dec - full).abs().amax(-1)                     # (B, n)
+    e_dec = (dec - full32).abs().amax(-1)
+    e_fwd = (full - full32).abs().amax(-1)
+    top2 = torch.topk(full, 2, dim=-1).values
+    held = top2[..., 0] - top2[..., 1] > d_fwd
+    same = torch.argmax(full, -1) == out.to(torch.int64)
+    worst = float((e_dec / (e_fwd + ulps)).max())
+    if worst > 1.0 or not bool(same[held].all()):
+        raise AssertionError(
+            f'{label}: decode vs the float32 model {worst:.4f} x the bf16 '
+            f'forward\'s distance + 4 ulps; argmax differs at '
+            f'{int((held & ~same).sum())} held positions')
+    res = dict(d_fwd=float(d_fwd.max()), ulp_ratio=float((d_fwd / ulps)
+                                                         .max()),
+               e_fwd=float(e_fwd.max()), e_dec=float(e_dec.max()),
+               worst=worst, held=int(held.sum()), positions=held.numel(),
+               same_all=int(same.sum()))
+    print(f'{label}: decode vs bf16 forward max |diff| {res["d_fwd"]:.6f} '
+          f'({res["ulp_ratio"]:.4f} x four bf16 ulps of the row); vs the '
+          f'float32 model: decode {res["e_dec"]:.6f}, bf16 forward '
+          f'{res["e_fwd"]:.6f} (decode <= forward + 4 ulps: '
+          f'{worst:.4f} of it); argmax equal at all {res["held"]} of '
+          f'{res["positions"]} positions whose margin exceeds the '
+          f'difference ({res["same_all"]} equal in all)', flush=True)
+    return res
+
+
+def check_served_f32(label: str, name: str, new_tokens: int = 8) -> dict:
+    """A float32 copy of ``name`` at full width (``param_dtype=
+    'float32'``, drawn from the same seed) served through
+    ``launch.serve.run`` (batch 4, prompt 128, greedy) with TF32 off:
+    every decode logit within ``F32_SERVE_RTOL`` of its row's largest
+    |logit| from the float32 full-sequence forward (``served_forward``),
+    and the argmax the forward's wherever the top-two margin exceeds
+    that difference.  With float32 rounding on both sides a cache slot
+    written wrong, stale or missing shows far above the bound."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    free_card()
+    cfg = dataclasses.replace(get_arch(name), param_dtype='float32')
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = serve.run(cfg, new_tokens=new_tokens, device='cuda',
+                        **ZOO_SERVE)
+        out = res['output']
+        dec = decode_logits(res['params'], cfg, res['prompts'], out)
+        full = served_forward(res['params'], cfg, res['prompts'], out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    diff = (dec.to(torch.float32) - full).abs().amax(-1)     # (B, n)
+    rel = float((diff / full.abs().amax(-1)).max())
+    top2 = torch.topk(full, 2, dim=-1).values
+    held = top2[..., 0] - top2[..., 1] > diff
+    same = torch.argmax(full, -1) == out.to(torch.int64)
+    if not (rel <= F32_SERVE_RTOL and bool(same[held].all())):
+        raise AssertionError(
+            f'{label}: float32 decode vs forward {rel:.3e} of the row\'s '
+            f'largest |logit| (bound {F32_SERVE_RTOL}); argmax differs at '
+            f'{int((held & ~same).sum())} held positions')
+    print(f'{label} float32 served ({new_tokens} tokens): decode vs '
+          f'float32 forward max |diff| {float(diff.max()):.3e}, '
+          f'{rel:.3e} of the row\'s largest |logit| (bound '
+          f'{F32_SERVE_RTOL}); argmax equal at {int(same.sum())} of '
+          f'{same.numel()} ({int(held.sum())} held)', flush=True)
+    del res
+    return dict(rel=rel, max_abs=float(diff.max()), same=int(same.sum()),
+                positions=same.numel())
+
+
+def profile_decode(label: str, params, cfg, prompts, out) -> dict:
+    """One decode step under ``torch.profiler`` (``card_profile``): its
+    device operations, busy ms (the union of their intervals), wall ms
+    and the device's idle share."""
+    import torch
+    from repro_torch.models import transformer as tf
+    T, n = prompts.shape[1], out.shape[1]
+    with torch.no_grad():
+        _, cache = tf.prefill(params, cfg, prompts, T + n + 8,
+                              cache_dtype=torch.float32)
+        tf.decode_step(params, cfg, cache, out[:, :1], T)   # warm
+        for _ in range(3):
+            with card_profile() as prof:
+                t0 = time.perf_counter()
+                tf.decode_step(params, cfg, cache, out[:, :1], T)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if spans:
+                break
+    busy = busy_ms(spans)
+    res = dict(ops=len(spans), busy_ms=busy, wall_ms=wall,
+               idle=1 - busy / wall)
+    print(f'{label}: one decode step (torch.profiler): {res["ops"]} device '
+          f'operations, busy {busy:.3f} of {wall:.3f} ms (idle share '
+          f'{res["idle"]:.4f})', flush=True)
+    return res
+
+
+def zoo_serve(label: str, arch, new_tokens: int) -> dict:
+    """``launch.serve.run`` on the card (batch 4, prompt 128, greedy):
+    prefill ms, decode ms a token, tokens a second; one decode step
+    profiled; the output held to the full forward (``check_served``);
+    an MoE model's ``drop_frac`` per call."""
+    import torch
+    from repro_torch.launch import serve
+    free_card()
+    drops = []
+    undo = record_drops(drops)
+    try:
+        res = serve.run(arch, new_tokens=new_tokens, device='cuda',
+                        **ZOO_SERVE)
+    finally:
+        undo()
+    out = res['output']
+    if tuple(out.shape) != (ZOO_SERVE['batch'], new_tokens):
+        raise AssertionError(f'{label}: output {tuple(out.shape)}')
+    print(f'{label} served: prefill {res["prefill_ms"]:.3f} ms, decode '
+          f'{res["decode_ms_per_token"]:.3f} ms a token, '
+          f'{res["tokens_per_s"]:.1f} tokens/s ({res["seconds"]:.3f} s)',
+          flush=True)
+    if drops:
+        print(f'{label}: drop_frac of the prefill '
+              f'{float(drops[0]):.6f}, of the {len(drops) - 1} decode steps '
+              f'{json.dumps(sorted({float(d) for d in drops[1:]}))}',
+              flush=True)
+    cfg = arch
+    if isinstance(arch, str):
+        from repro_torch.configs.registry import get_arch
+        cfg = get_arch(arch)
+    out_check = check_served(label, res['params'], cfg, res['prompts'], out)
+    prof = profile_decode(label, res['params'], cfg, res['prompts'], out)
+    del res['params']
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=res['prefill_ms'],
+                decode_ms=res['decode_ms_per_token'],
+                tokens_per_s=res['tokens_per_s'], check=out_check,
+                profile=prof,
+                drops=[float(d) for d in drops])
+
+
+def zoo_decode_equals_forward() -> float:
+    """Every reduced architecture on the card: prefill of T - 1 tokens
+    and one decode step == the full forward's last logits within the
+    reference's 3e-3 (MoE at capacity 8, as the reference's test);
+    gemma2 and mixtral with 80 tokens, past their 64-token window (the
+    sliding-window rings have wrapped)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES, get_arch
+    from repro_torch.models import transformer as tf
+    worst = 0.0
+    for name in sorted(ARCHITECTURES):
+        cfg = get_arch(name + '-reduced')
+        if cfg.is_moe:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        T = 80 if cfg.sliding_window else 12
+        gen = torch.Generator(device='cuda').manual_seed(15)
+        params = tf.init_params(cfg, gen, device='cuda')
+        toks = torch.randint(0, cfg.vocab_size, (2, T), generator=gen,
+                             device='cuda')
+        prefix = None
+        if cfg.n_prefix_tokens:
+            prefix = torch.randn((2, cfg.n_prefix_tokens,
+                                  cfg.frontend_embed_dim), generator=gen,
+                                 device='cuda')
+        P = 0 if prefix is None else prefix.shape[1]
+        with torch.no_grad():
+            hidden, _ = tf.forward(params, cfg, toks, prefix)
+            full = tf.logits_fn(params, cfg, hidden[:, -1:])
+            _, cache = tf.prefill(params, cfg, toks[:, :-1], T + 4,
+                                  prefix_embeds=prefix,
+                                  cache_dtype=torch.float32)
+            dec, _ = tf.decode_step(params, cfg, cache, toks[:, -1:],
+                                    P + T - 1)
+        err = float((full - dec).abs().max())
+        worst = max(worst, err)
+        if not err <= 3e-3:
+            raise AssertionError(f'{name}-reduced: decode vs forward {err}')
+        print(f'{name}-reduced decode vs forward on the card (T = {T}): max '
+              f'|diff| {err:.3e}', flush=True)
+    return worst
+
+
+def run_zoo() -> dict:
+    """Phase 13: the rest of the zoo's FL steps (bit-level, barrier,
+    'jax'): mamba2-130m at full width and depth (K = 4 clients of 8 x 256
+    tokens, 2 steps); at full width cut to one group of their pattern
+    (``one_group``; K = 2 of 2 x 128) mixtral-8x7b (1 step), zamba2-2.7b,
+    paligemma-3b (and a step given a bf16 prefix batch) and
+    musicgen-medium (2 steps each); the reduced arctic (2 steps, and its
+    standard step); one fused segment of 2 rounds, 'scan' and 'eager',
+    on mamba2-130m and mixtral-8x7b-reduced; serving smollm-135m and
+    mamba2-130m (32 new tokens) and mixtral-8x7b one layer (16) at full
+    width, and float32 copies of smollm-135m and mamba2-130m (8); decode
+    = forward on every reduced architecture.  -> the phase's launches by
+    kernel and its figures."""
+    import torch
+    launched = {}
+    out = {}
+    mamba = dict(clients=LLM_K, batch=8, seq=256)
+    out['mamba2'] = zoo_train('zoo mamba2-130m', 'mamba2-130m', 2, launched,
+                              **mamba)
+    wide = dict(clients=2, batch=2, seq=128)
+    out['mixtral'] = zoo_train('zoo mixtral-8x7b (1 layer)',
+                               one_group('mixtral-8x7b'), 1, launched, **wide)
+    for name in ZOO_ONE_GROUP:
+        cfg = one_group(name)
+        layers = f'{cfg.n_layers} layer' + 's' * (cfg.n_layers > 1)
+        out[name] = zoo_train(f'zoo {name} ({layers})', cfg, 2, launched,
+                              **wide)
+    small = dict(clients=2, batch=2, seq=32)
+    zoo_train('zoo arctic-480b-reduced', 'arctic-480b-reduced', 2, launched,
+              **small)
+    zoo_standard_step('arctic-480b-reduced')
+    zoo_prefix_step('paligemma-3b (1 layer)', one_group('paligemma-3b'),
+                    launched)
+    out['fused_mamba2'] = zoo_fused('zoo mamba2-130m', 'mamba2-130m',
+                                    launched, **mamba)
+    zoo_fused('zoo mixtral-8x7b-reduced', 'mixtral-8x7b-reduced', launched,
+              **small)
+    for key, arch, n in (('serve_smollm', 'smollm-135m', 32),
+                         ('serve_mamba2', 'mamba2-130m', 32),
+                         ('serve_mixtral', one_group('mixtral-8x7b'), 16)):
+        label = arch if isinstance(arch, str) else 'mixtral-8x7b (1 layer)'
+        out[key] = zoo_serve(f'serve {label}', arch, n)
+    for name in ('smollm-135m', 'mamba2-130m'):
+        out[f'serve_f32_{name}'] = check_served_f32(f'serve {name}', name)
+    out['decode_worst'] = zoo_decode_equals_forward()
+    missing = [n for n in PHASE13_KERNELS if not launched.get(n)]
+    if missing:
+        raise AssertionError(f'phase 13 launched no {missing}')
+    print(f'phase 13 launches (graphs at capture): {json.dumps(launched)}',
+          flush=True)
+    free_card()
+    torch.cuda.empty_cache()
+    out['launched'] = launched
+    return out
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None,
                  per_unit: dict = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
@@ -5276,6 +5831,10 @@ def main() -> int:
           f'{json.dumps({n: c for n, c in launches12.items() if c})}',
           flush=True)
     print(f'phase 12: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 13. the rest of the zoo, prefill/decode and serving
+    t0 = time.perf_counter()
+    zoo = run_zoo()
+    print(f'phase 13: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -5323,7 +5882,8 @@ def main() -> int:
             'ms': r['ms'], 'warm_ms': r['warm_ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': None,
-            'phase12_launches': launches12.get(name, 0)}
+            'phase12_launches': launches12.get(name, 0),
+            'phase13_launches': zoo['launched'].get(name, 0)}
         if name in llm['rows']:
             v = llm['rows'][name]
             v_bound, v_by = kernel_bound(

@@ -89,6 +89,19 @@ def _launch(name: str, t: Tensor, *args) -> None:
     launch_counts[name] += 1
 
 
+INT32_MAX = 2 ** 31 - 1
+
+
+def _int_args(name: str, **sizes: int) -> None:
+    """The round kernels take sizes and row strides as 32-bit C ints
+    (offsets inside are 64-bit): refuse a size that does not fit rather
+    than let the C call truncate it."""
+    for arg, v in sizes.items():
+        if not 0 <= v <= INT32_MAX:
+            raise ValueError(f'{name}: {arg} = {v} does not fit the '
+                             "kernel's 32-bit int argument")
+
+
 def _col(x, k: int, dtype, device) -> Tensor:
     """Per-client scalars (K,) as a contiguous tensor of ``dtype``."""
     return torch.as_tensor(x, device=device).to(dtype).reshape(k).contiguous()
@@ -275,6 +288,7 @@ def quantize_pack_flat(g: Tensor, rand: Tensor, gmin, gmax, bits: int
     if _on_card(g, rand, gmin, gmax):
         _contig(g, 'g'), _contig(rand, 'rand')
         groups = fmt.n_groups(n)
+        _int_args('quantize_pack', k=k, n=n, knob_words=groups * bits)
         sw = torch.empty((k, groups), dtype=torch.int32, device=g.device)
         qw = torch.empty((k, groups * bits), dtype=torch.int32,
                          device=g.device)
@@ -327,6 +341,7 @@ def spfl_aggregate_packed(sign_payload: Tensor, qidx_payload: Tensor,
                                    step, mod_ok, weight, gate, n, bits,
                                    with_votes)
     _contig(gbar, 'gbar')
+    _int_args('spfl_accumulate', k=k, n=n, knob_words=groups * bits)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     votes = (torch.empty((n,), dtype=torch.int32, device=dev)
              if with_votes else None)
@@ -442,6 +457,7 @@ def corrupt_fold_words(seeds, words: Tensor, ber, word0: int = 0,
     if not _on_card(words, thresh, seeds):
         return ref.corrupt_fold(seeds, words, thresh, allf, word0)
     _contig(words, 'words'), _contig(seeds, 'seeds')
+    _int_args('corrupt_fold', k=k, words=w)
     rx = torch.empty_like(words)
     fold = torch.empty((k,), dtype=torch.int32, device=words.device)
     flips = torch.empty((k,), dtype=torch.int32, device=words.device)

@@ -1,4 +1,4 @@
-"""LLM-scale FL training launcher — Algorithm 2 over the dense model zoo
+"""LLM-scale FL training launcher — Algorithm 2 over the model zoo
 (the port of ``repro.launch.train``).
 
 The host loop (``round_fusion='none'``), each step: per-client gradients
@@ -50,7 +50,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -59,11 +59,11 @@ from torch.profiler import record_function
 from repro_torch import adversary
 from repro_torch import population as pop
 from repro_torch import tree
-from repro_torch.configs.base import FLConfig
+from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import allocation as alloc
 from repro_torch.core import allocation_jax as alloc_jax
-from repro_torch.core import channel
+from repro_torch.core import channel as wireless
 from repro_torch.core import threefry
 from repro_torch.core import transport as tr
 from repro_torch.core.mesh import ClientMesh
@@ -96,8 +96,8 @@ def promote(population_n: int, round_fusion: str,
     return round_fusion, allocation_backend
 
 
-def run(arch: str, steps: int, clients: int, batch: int, seq: int,
-        transport_kind: str, allocator: str, lr: float,
+def run(arch: Union[str, ModelConfig], steps: int, clients: int,
+        batch: int, seq: int, transport_kind: str, allocator: str, lr: float,
         bandwidth_hz: float, tx_power_dbm: float, seed: int = 0,
         log_every: int = 1, wire: str = 'analytic',
         collective: str = 'gather', allocation_backend: str = 'numpy',
@@ -114,16 +114,19 @@ def run(arch: str, steps: int, clients: int, batch: int, seq: int,
         cohort_sampler: str = 'uniform',
         device: DeviceLike = None, scan_segment_rounds: int = 0,
         deterministic: Optional[bool] = None,
-        segment_guard=None) -> dict:
-    """``steps`` steps of ``arch`` with ``clients`` clients of ``batch``
-    sequences of ``seq`` tokens each -> history {'loss', 'q', 'p',
+        segment_guard=None, channel: str = 'bernoulli') -> dict:
+    """``steps`` steps of ``arch`` (a registry name, or a ``ModelConfig``
+    such as a registry entry cut in depth) with ``clients`` clients of
+    ``batch`` sequences of ``seq`` tokens each -> history {'loss', 'q', 'p',
     'step_s'} (a value a step: the mean loss, the mean q and p the step
     used, its wall seconds; fused rounds add 'capture_s', the seconds of
     the step's share of its segment spent capturing graphs).
     ``deterministic`` (default: under fused rounds) runs the gradient
     pass under ``torch.use_deterministic_algorithms``; ``segment_guard``
     (a context-manager factory) wraps the fused rounds' warm-up round and
-    each segment's upload and launch (a profiler, or sync debug mode)."""
+    each segment's upload and launch (a profiler, or sync debug mode).
+    ``channel``: the packet fates, 'bernoulli' (the reference launcher's,
+    which has no such knob) or 'bitlevel' (with ``wire='packed'``)."""
     round_fusion, allocation_backend = promote(population_n, round_fusion,
                                                allocation_backend)
     if deterministic is None:
@@ -132,8 +135,9 @@ def run(arch: str, steps: int, clients: int, batch: int, seq: int,
         os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG',
                               dist.CUBLAS_WORKSPACE_CONFIG)
     dev = resolve(device)
-    cfg = get_arch(arch)
-    fl = FLConfig(n_devices=clients, learning_rate=lr,
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
+    fl = FLConfig(n_devices=clients, channel=channel, learning_rate=lr,
                   bandwidth_hz=bandwidth_hz, tx_power_dbm=tx_power_dbm,
                   allocator=allocator, transport=transport_kind, seed=seed,
                   wire=wire, collective=collective,
@@ -171,12 +175,12 @@ def run(arch: str, steps: int, clients: int, batch: int, seq: int,
     gains = gain_traj = None
     if not population_n:
         # static geometry; population mode draws each cohort's gains
-        dist_m = channel.sample_distances(host_gen, clients,
-                                          fl.cell_radius_m)
-        gains = channel.path_gain(dist_m, fl.path_loss_exp)
+        dist_m = wireless.sample_distances(host_gen, clients,
+                                           fl.cell_radius_m)
+        gains = wireless.path_gain(dist_m, fl.path_loss_exp)
         if fl.allocation_cadence == 'per_round':
             fade = torch.Generator().manual_seed(seed + FADING_SEED_OFFSET)
-            gain_traj = channel.block_fading_trajectory(
+            gain_traj = wireless.block_fading_trajectory(
                 torch.randn((steps, clients), generator=fade),
                 torch.as_tensor(gains, dtype=torch.float32))
     straggler_gen = torch.Generator().manual_seed(

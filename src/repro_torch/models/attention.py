@@ -4,9 +4,14 @@ port of the training path of ``repro.models.attention``): an exact
 softmax over the causal (optionally windowed) mask, chunked over the
 queries so the logits are O(q_chunk * S) a head.
 
-The reference computes attention with plain array ops, not in a Pallas
-kernel; so does the port.  Prefill and single-token decode with a KV
-cache come with serving (ROADMAP Queue 1 item 13).
+The same attention serves training (full causal), prefill (causal, with
+the K/V handed back to seed a cache) and single-token decode (one query
+row against a ring-buffer cache).  The reference computes attention with
+plain array ops, not in a Pallas kernel; so does the port.  Its
+``decode_cache_layout='batch'`` pins decode activations to batch-only
+sharding (``_constrain_batch_only``): a GSPMD hint that has no effect in
+one process, so the port has no counterpart and both layouts run the
+same code.
 """
 from __future__ import annotations
 
@@ -103,9 +108,50 @@ def attention_forward(params, cfg: ModelConfig, x: Tensor,
                       rope=None) -> Tensor:
     """Full-sequence causal attention (the training trunk); ``rope`` as
     in ``_project_qkv``."""
+    return attention_prefill(params, cfg, x, positions, window, rope)[0]
+
+
+def attention_prefill(params, cfg: ModelConfig, x: Tensor,
+                      positions: Tensor, window: int = 0, rope=None):
+    """Like :func:`attention_forward`, but also returns the (k, v) to
+    seed a cache."""
     q, k, v = _project_qkv(params, cfg, x, positions, rope)
     out = multi_head_attention(
         q, k, v, positions, positions, window=window, cap=cfg.attn_softcap,
         q_chunk=cfg.q_chunk)
     B, T = x.shape[:2]
-    return out.reshape(B, T, -1) @ params['wo']
+    return out.reshape(B, T, -1) @ params['wo'], (k, v)
+
+
+def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
+                     cache_v: Tensor, pos: Tensor, window: int = 0,
+                     rope=None):
+    """One-token decode.  x: (B, 1, D); cache_k, cache_v: (B, S, Kv, hd);
+    ``pos``: the int32 device scalar of the new token's absolute position.
+
+    The new K/V is written at slot ``pos % S`` (a ring buffer: for
+    sliding-window caches S = window, so this is the window; for full
+    caches S >= pos + 1 in the launchers), in the cache's dtype, and the
+    step attends over the cache in the model's dtype.  A slot never
+    written holds position 2^30, which fails the causal test.  Returns
+    (y (B, 1, D) in x's dtype, new cache_k, new cache_v)."""
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    positions = pos.reshape(1)
+    q, k, v = _project_qkv(params, cfg, x, positions, rope)
+    slot = positions % S
+    cache_k = cache_k.index_copy(1, slot.long(), k.to(cache_k.dtype))
+    cache_v = cache_v.index_copy(1, slot.long(), v.to(cache_v.dtype))
+    # the absolute position each slot holds (ring-aware)
+    idx = torch.arange(S, dtype=torch.int32, device=x.device)
+    wrapped = positions - torch.remainder(slot - idx, S)
+    kv_pos = torch.where(wrapped >= 0, wrapped,
+                         torch.full_like(wrapped, 2 ** 30))
+    # the cache read back in the model's dtype: a float32 cache of a bf16
+    # model holds the bf16 K/V exactly, and the step attends as the
+    # full-sequence pass does
+    out = multi_head_attention(
+        q, cache_k.to(q.dtype), cache_v.to(q.dtype), positions, kv_pos,
+        window=window, cap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
+    y = out.reshape(B, 1, -1) @ params['wo']
+    return y, cache_k, cache_v

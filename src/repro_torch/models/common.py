@@ -57,6 +57,20 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return (x * (1.0 + scale.to(torch.float32))).to(dt)
 
 
+def gated_rms_norm(x: Tensor, z: Tensor, scale: Tensor,
+                   eps: float = 1e-6) -> Tensor:
+    """Mamba2 output norm: RMSNorm(x * silu(z)), silu taken in float32
+    and cast to x's dtype."""
+    gate = torch.nn.functional.silu(z.to(torch.float32)).to(x.dtype)
+    return rms_norm(x * gate, scale, eps)
+
+
+def softplus(x: Tensor) -> Tensor:
+    """``jax.nn.softplus`` as jax writes it (``logaddexp(x, 0)``):
+    max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def softcap(x: Tensor, cap: float) -> Tensor:
     """Gemma2 logit soft-capping: cap * tanh(x / cap)."""
     if cap <= 0.0:

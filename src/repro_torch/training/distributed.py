@@ -139,23 +139,26 @@ def client_batch_shapes(cfg: ModelConfig, n_clients: int,
 
 
 def client_grads(params, cfg: ModelConfig, tokens: Tensor,
-                 deterministic: bool = False) -> Tuple[Tensor, Any]:
-    """Each client's loss and gradient on its own (b, T) batch of the
-    (K, b, T) ``tokens`` -> (losses (K,) f32, gradient tree with (K, ...)
+                 deterministic: bool = False,
+                 prefix: Optional[Tensor] = None) -> Tuple[Tensor, Any]:
+    """Each client's loss and gradient on its own batch: (b, T) of the
+    (K, b, T) ``tokens`` and, for a vision model, (b, P, E) of the (K,
+    b, P, E) ``prefix`` -> (losses (K,) f32, gradient tree with (K, ...)
     leaves in the parameters' dtypes): ``torch.func.vmap`` of
     ``grad_and_value`` over the client axis, the reference's
-    ``jax.vmap(jax.value_and_grad)``: one batched pass for all K clients
-    (fewer, larger launches than a loop over the clients; all K clients'
-    activations at once).  ``deterministic``: under
-    :func:`deterministic_algorithms`."""
+    ``jax.vmap(jax.value_and_grad)`` over the batch dict: one batched
+    pass for all K clients (fewer, larger launches than a loop over the
+    clients; all K clients' activations at once).  ``deterministic``:
+    under :func:`deterministic_algorithms`."""
     leaves = [p.detach() for p in tree.leaves(params)]
 
-    def loss(ls, toks):
-        return tf.loss_fn(tree.unflatten(params, ls), cfg, toks)
+    def loss(ls, toks, pre):
+        return tf.loss_fn(tree.unflatten(params, ls), cfg, toks, pre)
 
     with deterministic_algorithms(deterministic):
-        grads, losses = vmap(grad_and_value(loss), in_dims=(None, 0))(
-            leaves, tokens)
+        grads, losses = vmap(grad_and_value(loss),
+                             in_dims=(None, 0, None if prefix is None
+                                      else 0))(leaves, tokens, prefix)
     return losses, tree.unflatten(params, list(grads))
 
 
@@ -193,7 +196,8 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
                        deterministic: bool = False):
     """Returns ``train_step(params, batch, gbar, q, p, draws,
     active_u=None) -> (new_params, new_gbar, metrics)``: ``batch`` holds
-    (K, b, T) int ``tokens``, ``draws`` the step's ``TreeDraws``,
+    (K, b, T) int ``tokens`` and, for a vision model, the (K, b, P, E)
+    ``prefix`` embeddings, ``draws`` the step's ``TreeDraws``,
     ``active_u`` the (K,) straggler uniforms (``fl.dropout_rate > 0``).
     The metrics are the reference's: the mean and per-client losses, the
     per-client stats (``g_norm_sq``, ``g_min``, ``g_max``) the launcher's
@@ -209,7 +213,6 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
     if transport_kind not in TRANSPORTS:
         raise ValueError(f'LLM-scale transport must be spfl|error_free, '
                          f'got {transport_kind!r}')
-    tf.check_supported(cfg)
     lr = fl.learning_rate
     byz_cpu, draw_active = _adversary_closures(fl)
 
@@ -219,7 +222,8 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
         _check_block(mesh, k, batch['tokens'].shape[0])
         with record_function('step/gradients'):
             losses, grads = client_grads(params, cfg, batch['tokens'],
-                                         deterministic)
+                                         deterministic,
+                                         prefix=batch.get('prefix'))
         with record_function('step/stats'):
             stats = tr.tree_client_stats(grads)
             losses, stats, _ = _gather_report(mesh, k, losses, stats)
@@ -316,7 +320,6 @@ def make_fused_fl_round(cfg: ModelConfig, fl: FLConfig,
     if transport_kind == 'spfl' and fl.allocation_backend != 'jax':
         raise ValueError("fused rounds require allocation_backend='jax' "
                          "(eq. (28) must solve in-trace)")
-    tf.check_supported(cfg)
     opt = optimizer if optimizer is not None else sgd(fl.learning_rate)
     population = fl.population_n > 0
     k = pop.cohort_size(fl) if population else fl.n_devices
@@ -347,7 +350,8 @@ def make_fused_fl_round(cfg: ModelConfig, fl: FLConfig,
         _check_block(mesh, k, batch['tokens'].shape[0])
         with record_function('round/gradients'):
             losses, grads = client_grads(params, cfg, batch['tokens'],
-                                         deterministic)
+                                         deterministic,
+                                         prefix=batch.get('prefix'))
         if cohort is not None:
             p_w, byz = cohort.p_w, cohort.byzantine
             present = cohort.present if ragged else None
@@ -616,15 +620,17 @@ def make_fused_fl_scan(cfg: ModelConfig, fl: FLConfig, base_gains,
 def make_standard_train_step(cfg: ModelConfig, fl: FLConfig):
     """Plain data-parallel step (batch (B, T), one global gradient, the
     update of :func:`make_fl_train_step` without a transport): returns
-    ``train_step(params, batch) -> (new_params, {'loss', 'g_norm_sq'})``."""
-    tf.check_supported(cfg)
+    ``train_step(params, batch) -> (new_params, {'loss', 'g_norm_sq'})``:
+    ``batch`` holds (B, T) ``tokens`` [and a (B, P, E) ``prefix``].  The
+    reference uses it where per-client gradients do not exist at scale
+    (arctic-480b's experts sharded over the client axes)."""
     lr = fl.learning_rate
 
     def train_step(params, batch):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree.leaves(params)]
         loss = tf.loss_fn(tree.unflatten(params, leaves), cfg,
-                          batch['tokens'])
+                          batch['tokens'], batch.get('prefix'))
         grads = torch.autograd.grad(loss, leaves)
         new_params = tree.unflatten(params, [
             (p.detach().to(torch.float32) - lr * g.to(torch.float32)
@@ -639,5 +645,6 @@ def make_standard_train_step(cfg: ModelConfig, fl: FLConfig):
 def make_eval_step(cfg: ModelConfig):
     def eval_step(params, batch):
         with torch.no_grad():
-            return tf.loss_fn(params, cfg, batch['tokens'])
+            return tf.loss_fn(params, cfg, batch['tokens'],
+                              batch.get('prefix'))
     return eval_step

@@ -51,3 +51,10 @@ def test_chip_smoke_imports_nothing_of_jax_or_reference():
 def test_kernel_ab_imports_nothing_of_jax_or_reference():
     text = (SRC.parent / 'kernel_ab.py').read_text()
     assert not FORBIDDEN.search(text)
+
+
+def test_the_zoo_and_serving_modules_are_under_the_guard():
+    for name in ('repro_torch.models.moe', 'repro_torch.models.ssm',
+                 'repro_torch.serving', 'repro_torch.serving.engine',
+                 'repro_torch.launch.serve'):
+        assert name in MODULES, name

@@ -63,11 +63,27 @@ def test_unknown_arch_and_shapes():
 @pytest.mark.parametrize('name', ['mixtral-8x7b', 'mamba2-130m',
                                   'zamba2-2.7b', 'paligemma-3b'])
 def test_non_dense_archs_name_their_roadmap_item(name):
+    """The four non-dense families (ROADMAP Queue 1 item 13 (a)-(c)) build
+    and take one FL step: no block kind or frontend is refused."""
+    from repro_torch.core import transport as TTR
     cfg = TR.get_arch(name + '-reduced')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 13'):
-        TT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 13'):
-        TD.make_fl_train_step(cfg, TD.FLConfig())
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    fl = TD.FLConfig(n_devices=2, wire='packed')
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+    draws = TTR.make_tree_draws(2, sizes, 0, fl.channel, 'cpu',
+                                torch.Generator().manual_seed(1),
+                                torch.Generator().manual_seed(2))
+    batch = {'tokens': torch.as_tensor(_tokens(cfg, (2, 1, 9), 3))}
+    if cfg.n_prefix_tokens:
+        batch['prefix'] = torch.randn(
+            (2, 1, cfg.n_prefix_tokens, cfg.frontend_embed_dim),
+            generator=torch.Generator().manual_seed(4))
+    new_params, _, m = TD.make_fl_train_step(cfg, fl)(
+        params, batch, TD.init_gbar(params), torch.ones(2), torch.ones(2),
+        draws)
+    assert bool(torch.isfinite(m['client_losses']).all())
+    assert [x.shape for x in tree.leaves(new_params)] == \
+        [x.shape for x in tree.leaves(params)]
 
 
 # ---------------------------------------------------------------------------
@@ -201,12 +217,14 @@ def test_reduced_smollm_loss_and_client_grads(smollm):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize('name', ['gemma2-9b-reduced', 'qwen2.5-32b-reduced'])
+@pytest.mark.parametrize('name', ['gemma2-9b-reduced', 'qwen2.5-32b-reduced',
+                                  'musicgen-medium-reduced'])
 def test_reduced_dense_variants_loss(name):
     """gemma2: alternating sliding-window/global layers, attention and
     logit soft-capping, post-norms, embedding scale, tied head (the
     sequence longer than its 64-token window); qwen2.5: QKV bias, an
-    untied head, rope theta 1e6."""
+    untied head, rope theta 1e6; musicgen: the audio frontend, which has
+    no projector and no prefix (a dense decoder over the EnCodec codes)."""
     cfg = RR.get_arch(name)
     params = RT.init_params(cfg, jax.random.PRNGKey(1))
     # non-zero norm scales and biases, so their layout counts too
