@@ -209,6 +209,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     forward (``check_served_f32``); and decode = forward within 3e-3 on
     every reduced architecture (gemma2 and mixtral past their window).
 
+14. ``launch/env.py``, the 'model' axis, the dry run and the drivers
+    (``run_phase14``): ``env.configure()`` and a 2-step
+    ``launch.train.run`` whose telemetry manifest's ``'env'`` block is
+    printed (the card, the cuBLAS workspace, deterministic algorithms,
+    TF32, threads); the 'model' axis (``training/model_axis.py``) at
+    (data=1, model=2), two gloo ranks of this script on the one card
+    (``--model-rank``), and at (data=1, model=1) over NCCL in this
+    process: smollm-135m at full width, K = 4 clients of 4 x 256 tokens,
+    packed wire, bit channel, deterministic, 3 and 2 steps beside the
+    unsharded step on the same draws (``model_axis_steps``: every
+    per-client gradient block its slice of the unsharded pass bit for
+    bit; ``sign_ok``, ``mod_ok``, flips, CRC verdicts, ``g_min`` and
+    ``g_max`` exactly; the parameters and ḡ within 9.9e-8 of each leaf's
+    largest magnitude, ||g_k||^2 within ``model_axis.g2_rtol``), each
+    step's ms and a rank's bytes of parameters, gradient stack and ḡ
+    (``launch.shardings``' blocks) against the unsharded step's;
+    ``examples.fl_train_lm --full --seq 256`` for 3 steps and
+    ``examples.serve_batched`` on smollm-135m; and, in a process of its
+    own beside that card work (``--dryrun``), the dry run of
+    smollm-135m and mamba2-130m x the four shapes x both production
+    meshes (``build/dryrun/``), each record's bytes a rank against 80
+    GB, FLOPs and collectives printed.
+
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
 the run of its own path (``path``: 'round' is phase 4's main run, 'alloc'
@@ -231,7 +254,8 @@ unpack_dequant add ``variants``, the same for their other phase 6 calls
 and corrupt_fold add ``llm``, the same at phase 11's embedding leaf
 (K=4), with the launches of phase 11's run (``corrupt_fold``: its
 bit-level step); ``phase12_launches`` counts phase 12's launches on
-every rank (a graph's at its capture), ``phase13_launches`` phase 13's.  It imports
+every rank (a graph's at its capture), ``phase13_launches`` phase 13's,
+``phase14_launches`` phase 14's (every rank, the sharded steps).  It imports
 nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries are built under
 ``build/torch_kernels/``.
 """
@@ -4831,15 +4855,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(world: int) -> list:
-    """``world`` gloo ranks of this script on the one card -> each rank's
-    results; a rank that fails fails the phase (the others are
+def spawn_ranks(world: int, flag: str = '--shard-rank') -> list:
+    """``world`` gloo ranks of this script on the one card (``flag``:
+    phase 12's ``--shard-rank`` or phase 14's ``--model-rank``) -> each
+    rank's results; a rank that fails fails the phase (the others are
     stopped)."""
     import tempfile
-    out = tempfile.mkdtemp(prefix=f'shard{world}_', dir=ROOT / 'build')
+    out = tempfile.mkdtemp(prefix=f'{flag[2:]}{world}_', dir=ROOT / 'build')
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), '--shard-rank',
+        [sys.executable, str(Path(__file__).resolve()), flag,
          str(r), str(world), str(port), out],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
@@ -4856,7 +4881,7 @@ def spawn_ranks(world: int) -> list:
                 proc.kill()
                 proc.wait()
     if errors:
-        raise AssertionError(f'S={world} gloo ranks failed:\n'
+        raise AssertionError(f'{world} gloo ranks ({flag}) failed:\n'
                              + '\n'.join(errors))
     return [json.loads(Path(out, f'rank{r}.json').read_text())
             for r in range(world)]
@@ -5664,6 +5689,367 @@ def run_zoo() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: launch/env.py, the 'model' axis, the dry run, the drivers
+# ---------------------------------------------------------------------------
+
+# two gloo ranks share the card (NCCL takes one rank a card)
+MODEL_AXIS_MESH = ((1, 2), ('data', 'model'))
+MODEL_AXIS_NCCL = ((1, 1), ('data', 'model'))
+MODEL_AXIS_STEPS = 3
+# smollm-135m at full width: K = 4 clients of 4 x 256 tokens (each of the
+# two ranks on the card holds a step and the unsharded step beside it:
+# at 8 x 256 a rank took 32.2 GiB, and beside the script's own leftovers
+# the two ran out of the card)
+MODEL_AXIS_RUN = dict(k=LLM_K, b=4, t=256)
+# the new parameters and ḡ against the unsharded step's, of each leaf's
+# largest magnitude (the sharded collective's bound for reordered float32
+# sums)
+MODEL_AXIS_RTOL = 9.9e-8
+PHASE14_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold')
+DRYRUN_ARCHS = ('smollm-135m', 'mamba2-130m')
+DRYRUN_TIMEOUT_S = 400
+DRIVER_STEPS = 3
+# fl_train_lm --full's 4 clients of 8 x 1024 tokens do not fit the card
+# (its docstring); 8 x 256 a client is phase 11's step
+DRIVER_SEQ = 256
+
+
+def model_axis_bytes(layout, k_local: int, k: int) -> dict:
+    """A rank's bytes at rest from ``launch.shardings``' block shapes
+    (parameters, its clients' gradient stack, ḡ) beside the unsharded
+    step's (K clients' stack on one rank)."""
+    from repro_torch.training import model_axis as MA
+    return {'rank': MA.rank_bytes(layout, k_local),
+            'unsharded': MA.rank_bytes(layout, k, whole=True)}
+
+
+def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
+                     steps: int = MODEL_AXIS_STEPS, seed: int = 14,
+                     **run) -> dict:
+    """``steps`` FL steps of ``arch`` on the production ``mesh``
+    (``make_fl_train_step(mesh=)``: the rank's blocks, gathered at use;
+    packed wire, bit channel, deterministic algorithms) beside the
+    unsharded step on the same tokens, (q, p) and draws, each from its
+    own state: before the first, every per-client gradient block against
+    the same slice of the unsharded pass bit for bit; each step, the
+    integers (``sign_ok``, ``mod_ok``, flips, CRC verdicts, ``g_min``,
+    ``g_max``) exactly, the parameters and ḡ within ``MODEL_AXIS_RTOL``
+    of each leaf's largest magnitude and ||g_k||^2 within
+    ``model_axis.g2_rtol`` relative.  -> step ms (sharded and unsharded), the
+    worst errors, the rank's bytes and the sharded steps' launches."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import transport as tr
+    from repro_torch.data import synth_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import distributed as D
+    from repro_torch.training import model_axis as MA
+    run = {**MODEL_AXIS_RUN, **run}
+    k, b, t = run['k'], run['b'], run['t']
+    cfg = get_arch(arch)
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    params = tree.map(lambda x: x.to(dev), tf.init_params(
+        cfg, torch.Generator().manual_seed(seed)))
+    layout = MA.Layout(cfg, mesh)
+    blocks = tree.map(torch.clone, MA.shard_params(params, layout))
+    gbar = D.init_gbar(params)
+    gbar_blocks = tree.map(torch.clone, MA.shard_params(gbar, layout))
+    fl = FLConfig(n_devices=k, wire='packed', channel='bitlevel')
+    sharded = D.make_fl_train_step(cfg, fl, mesh=mesh, deterministic=True)
+    plain = D.make_fl_train_step(cfg, fl, deterministic=True)
+    toks = torch.as_tensor(synth_tokens(k * b, t, cfg.vocab_size, seed)
+                           .reshape(k, b, t), device=dev)
+    rows = mesh.clients.rows(k)
+    q = torch.full((k,), 0.95, device=dev)
+    p = torch.full((k,), 0.9, device=dev)
+    # the per-client gradient blocks, before the first step
+    _, got = MA.client_grads(blocks, cfg, toks[rows], layout, True)
+    _, want = D.client_grads(params, cfg, toks[rows], True)
+    for i, (g, w) in enumerate(zip(got, tree.leaves(want))):
+        if not torch.equal(g, layout.block_of(i, w, 1)):
+            raise AssertionError(f'{arch} {mesh.shape}: the gradient block '
+                                 f'of {layout.paths[i]} differs')
+    del got, want
+    host = torch.Generator().manual_seed(seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    sizes = [x.numel() for x in tree.leaves(params)]
+    out = {'step_ms': [], 'plain_ms': [], 'params': 0.0, 'gbar': 0.0,
+           'g2': 0.0, 'flips': 0, 'counts': {}}
+    ints = ('sign_flips', 'mod_flips', 'sign_crc_ok', 'mod_crc_ok')
+    for _ in range(steps):
+        rand = [torch.rand((k, n), generator=gen, device=dev) for n in sizes]
+        draws = tr.TreeDraws(rand, **{f: x.to(dev) for f, x in
+                                      tr.tree_host_draws(
+                                          k, len(sizes), 0, 'bitlevel',
+                                          host).items()})
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        blocks, gbar_blocks, m = sharded(blocks, {'tokens': toks[rows]},
+                                         gbar_blocks, q, p, draws)
+        sync()
+        out['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        for name, c in ops.launch_counts.items():
+            if c:
+                out['counts'][name] = out['counts'].get(name, 0) + c
+        t0 = time.perf_counter()
+        params, gbar, rm = plain(params, {'tokens': toks}, gbar, q, p,
+                                 draws)
+        sync()
+        out['plain_ms'].append((time.perf_counter() - t0) * 1e3)
+        del rand, draws
+        bad = [f for f in ('sign_ok', 'mod_ok', 'g_min', 'g_max')
+               if not torch.equal(m[f], rm[f])]
+        bad += [f for f in ints if not torch.equal(
+            getattr(m['telemetry'], f), getattr(rm['telemetry'], f))]
+        if bad:
+            raise AssertionError(f'{arch} {mesh.shape}: {bad} differ from '
+                                 'the unsharded step')
+        out['flips'] += int(rm['telemetry'].sign_flips.sum()
+                            + rm['telemetry'].mod_flips.sum())
+        for key, mine, whole in (('params', blocks, params),
+                                 ('gbar', gbar_blocks, gbar)):
+            for i, (x, y) in enumerate(zip(tree.leaves(mine),
+                                           tree.leaves(whole))):
+                y = layout.block_of(i, y)
+                scale = max(float(y.abs().max()), 1e-30)
+                out[key] = max(out[key], float(
+                    (x.double() - y.double()).abs().max()) / scale)
+        out['g2'] = max(out['g2'], float(
+            ((m['g_norm_sq'] - rm['g_norm_sq']) / rm['g_norm_sq'])
+            .abs().max()))
+    out['g2_bound'] = MA.g2_rtol(len(sizes))
+    if not (out['params'] <= MODEL_AXIS_RTOL and out['gbar']
+            <= MODEL_AXIS_RTOL and out['g2'] <= out['g2_bound']):
+        raise AssertionError(f'{arch} {mesh.shape}: against the unsharded '
+                             f'step {out}')
+    out['bytes'] = model_axis_bytes(layout, mesh.clients.k_local(k), k)
+    out['coords'] = mesh.coords
+    return out
+
+
+def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
+    """A rank of phase 14's gloo run (``python3 chip_smoke.py
+    --model-rank R S PORT OUT``): ``model_axis_steps`` on the
+    (data=1, model=2) mesh; writes its results to OUT/rankR.json."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ProductionMesh
+    build.build()
+    tdist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                             rank=rank, world_size=world)
+    try:
+        res = model_axis_steps(ProductionMesh(*MODEL_AXIS_MESH),
+                               torch.device('cuda'))
+        Path(out, f'rank{rank}.json').write_text(json.dumps(res))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def print_model_axis(label: str, res: dict) -> None:
+    gb = {side: {key: v / 1e9 for key, v in b.items()}
+          for side, b in res['bytes'].items()}
+    print(f'{label}: step ms {json.dumps(res["step_ms"])} (unsharded '
+          f'{json.dumps(res["plain_ms"])}); gradient blocks and integers '
+          f'bit for bit, bit flips {res["flips"]}; params {res["params"]:.3e}'
+          f', gbar {res["gbar"]:.3e} (bound {MODEL_AXIS_RTOL}), g2 '
+          f'{res["g2"]:.3e} (bound {res["g2_bound"]:.3e}); GB at rest '
+          f'{json.dumps(gb)}; launches {json.dumps(res["counts"])}',
+          flush=True)
+
+
+def phase14_env() -> dict:
+    """``env.configure()`` and a short launcher run whose telemetry
+    manifest holds the 'env' block (printed)."""
+    import torch
+    from repro_torch.launch import env, train
+    from repro_torch.obs import read_jsonl
+    state = env.configure()
+    if state['platform'] != 'gpu':
+        raise AssertionError(f'env.configure() resolved {state}')
+    path = str(ROOT / 'build' / 'phase14_env.jsonl')
+    train.run('smollm-135m-reduced', steps=2, clients=2, batch=2, seq=64,
+              transport_kind='spfl', allocator='uniform', lr=0.05,
+              bandwidth_hz=10e9, tx_power_dbm=-4.0, wire='packed',
+              channel='bitlevel', telemetry_path=path)
+    man, _ = read_jsonl(path)
+    block = man['env']
+    if not (block['configured'] and block['platform'] == 'gpu'
+            and block['device_name'] == torch.cuda.get_device_name(0)
+            and block['cublas_workspace_config']
+            == os.environ.get('CUBLAS_WORKSPACE_CONFIG')):
+        raise AssertionError(f'the manifest\'s env block {block}')
+    print(f'env: configure() -> {json.dumps(state)}; the manifest\'s env '
+          f'block {json.dumps(block)}', flush=True)
+    return block
+
+
+def phase14_dryrun() -> dict:
+    """The dry run of ``DRYRUN_ARCHS`` x the four shapes x both meshes
+    (``build/dryrun/``), each record's line printed; every applicable
+    record traced, every other one a skip."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import applicable, get_arch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = {}
+    for arch in DRYRUN_ARCHS:
+        for shape in INPUT_SHAPES:
+            for mp in (False, True):
+                rec = dryrun.run_one(arch, shape, mp)
+                ok, _ = applicable(get_arch(arch), INPUT_SHAPES[shape])
+                if rec['applicable'] != ok or (ok and 'cost' not in rec):
+                    raise AssertionError(f'dry run {arch} {shape}: {rec}')
+                print(f'dry run {arch} x {shape} x {rec["mesh"]}: '
+                      f'{dryrun.summary(rec)}', flush=True)
+                recs[(arch, shape, rec['mesh'])] = rec
+    s = time.perf_counter() - t0
+    print(f'dry run: {len(recs)} records in {s:.3f} s of host (--all is '
+          'not run here: 8 min of host on the CPU of the sandbox)',
+          flush=True)
+    return {'s': s, 'n': len(recs)}
+
+
+def dryrun_main() -> int:
+    """Phase 14's dry run in a process of its own (``python3
+    chip_smoke.py --dryrun``): host work on the meta device, beside the
+    phase's card work."""
+    sys.path.insert(0, str(SRC))
+    phase14_dryrun()
+    return 0
+
+
+def start_dryrun() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), '--dryrun'],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(proc: subprocess.Popen) -> None:
+    """Wait for the dry run's process (stopped if it outlives its time),
+    print its lines; a failure fails the phase."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(out, end='', flush=True)
+    if proc.returncode:
+        raise AssertionError(f'the dry run failed ({proc.returncode}): '
+                             f'{err[-3000:]}')
+
+
+def phase14_drivers() -> dict:
+    """``examples.fl_train_lm --full --seq DRIVER_SEQ`` for
+    ``DRIVER_STEPS`` steps and
+    ``examples.serve_batched`` on smollm-135m, on the card (counters
+    reset just before, read just after)."""
+    import torch
+    from repro_torch.examples import fl_train_lm, serve_batched
+    from repro_torch.kernels import ops
+    free_card()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = fl_train_lm.main(['--full', '--steps', str(DRIVER_STEPS), '--seq',
+                          str(DRIVER_SEQ)])
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    if len(h['loss']) != DRIVER_STEPS or not all(
+            math.isfinite(x) for x in h['loss']):
+        raise AssertionError(f'fl_train_lm --full: {h}')
+    served = serve_batched.main(['--arch', 'smollm-135m'])
+    out = served['output']
+    if tuple(out.shape) != (4, 16) or out.device.type != 'cuda':
+        raise AssertionError(f'serve_batched: {out.shape} {out.device}')
+    counts = {n: c for n, c in ops.launch_counts.items() if c}
+    print(f'drivers: fl_train_lm --full --seq {DRIVER_SEQ}, {DRIVER_STEPS} '
+          f'steps {lm_s:.3f} s '
+          f'(step ms {json.dumps([x * 1e3 for x in h["step_s"]])}, loss '
+          f'{json.dumps(h["loss"])}); serve_batched smollm-135m '
+          f'{served["tokens_per_s"]:.1f} tokens/s (prefill '
+          f'{served["prefill_ms"]:.3f} ms, decode '
+          f'{served["decode_ms_per_token"]:.3f} ms a token); launches '
+          f'{json.dumps(counts)}', flush=True)
+    return counts
+
+
+def run_phase14() -> dict:
+    """Phase 14: ``launch.env``, the 'model' axis on the card (two gloo
+    ranks at (data=1, model=2) on smollm-135m at full width, and
+    (data=1, model=1) over NCCL in this process), the dry run and the
+    drivers (the dry run in a process of its own beside the card work).
+    -> the phase's launches by kernel (every rank)."""
+    import torch
+    t0 = time.perf_counter()
+    phase14_env()
+    print(f'phase 14 env: {time.perf_counter() - t0:.3f} s', flush=True)
+    free_card()
+    print(f'phase 14: this process holds '
+          f'{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB of the card '
+          f'({torch.cuda.memory_reserved() / 2 ** 30:.3f} reserved)',
+          flush=True)
+    t_dry = time.perf_counter()
+    dry = start_dryrun()          # host work, beside the card work below
+    try:
+        launched = phase14_card()
+    finally:
+        finish_dryrun(dry)
+    print(f'phase 14 dry run: {time.perf_counter() - t_dry:.3f} s (its '
+          'process, beside the model axis and the drivers)', flush=True)
+    missing = [n for n in PHASE14_KERNELS if not launched.get(n)]
+    if missing:
+        raise AssertionError(f'phase 14 launched no {missing}')
+    free_card()
+    return launched
+
+
+def phase14_card() -> dict:
+    """Phase 14's card work: the model axis over gloo and NCCL, then the
+    drivers.  -> launches by kernel (every rank)."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import ProductionMesh
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, '--model-rank')
+    launched = {}
+    for r, res in enumerate(ranks):
+        print_model_axis(f'model axis (data=1, model=2; gloo rank {r}, '
+                         f'coords {res["coords"]})', res)
+        for name, c in res['counts'].items():
+            launched[name] = launched.get(name, 0) + c
+    print(f'phase 14 model axis (gloo): {time.perf_counter() - t0:.3f} s',
+          flush=True)
+    t0 = time.perf_counter()
+    tdist.init_process_group('nccl', init_method='tcp://127.0.0.1:'
+                             f'{free_port()}', rank=0, world_size=1)
+    try:
+        mesh = ProductionMesh(*MODEL_AXIS_NCCL)
+        if mesh.backend != 'nccl':
+            raise AssertionError(f'the NCCL mesh is {mesh}')
+        one = model_axis_steps(mesh, torch.device('cuda'), steps=2)
+    finally:
+        tdist.destroy_process_group()
+    print_model_axis('model axis (data=1, model=1; NCCL)', one)
+    for name, c in one['counts'].items():
+        launched[name] = launched.get(name, 0) + c
+    print(f'phase 14 model axis (NCCL): {time.perf_counter() - t0:.3f} s',
+          flush=True)
+    free_card()
+    t0 = time.perf_counter()
+    for name, c in phase14_drivers().items():
+        launched[name] = launched.get(name, 0) + c
+    print(f'phase 14 drivers: {time.perf_counter() - t0:.3f} s', flush=True)
+    return launched
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None,
                  per_unit: dict = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
@@ -5835,6 +6221,12 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = run_zoo()
     print(f'phase 13: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 14. launch/env.py, the 'model' axis, the dry run, the drivers
+    t0 = time.perf_counter()
+    launches14 = run_phase14()
+    print(f'phase 14 launches (every rank): {json.dumps(launches14)}',
+          flush=True)
+    print(f'phase 14: {time.perf_counter() - t0:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))
@@ -5883,7 +6275,8 @@ def main() -> int:
             'plain_ms': r['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': None,
             'phase12_launches': launches12.get(name, 0),
-            'phase13_launches': zoo['launched'].get(name, 0)}
+            'phase13_launches': zoo['launched'].get(name, 0),
+            'phase14_launches': launches14.get(name, 0)}
         if name in llm['rows']:
             v = llm['rows'][name]
             v_bound, v_by = kernel_bound(
@@ -5919,6 +6312,11 @@ if __name__ == '__main__':
     # pass under torch.use_deterministic_algorithms, which needs this
     # cuBLAS workspace setting before the process's first cuBLAS call
     os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    if len(sys.argv) > 1 and sys.argv[1] == '--dryrun':
+        sys.exit(dryrun_main())
+    if len(sys.argv) > 1 and sys.argv[1] == '--model-rank':
+        sys.exit(model_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) > 1 and sys.argv[1] == '--shard-rank':
         sys.exit(shard_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                  int(sys.argv[4]), sys.argv[5]))

@@ -71,16 +71,18 @@ class ClientMesh:
     def _host(self, t: Tensor) -> bool:
         return self.backend == 'gloo' and t.device.type == 'cuda'
 
-    def all_reduce(self, t: Tensor) -> Tensor:
-        """The sum of ``t`` over the ranks (a new tensor where the group
-        moves it through the host, else ``t`` reduced in place)."""
+    def all_reduce(self, t: Tensor, op=None) -> Tensor:
+        """The sum (or ``op``, a ``dist.ReduceOp``) of ``t`` over the ranks
+        (a new tensor where the group moves it through the host, else
+        ``t`` reduced in place)."""
         if self.group is None:
             return t
+        op = dist.ReduceOp.SUM if op is None else op
         if self._host(t):
             h = t.cpu()
-            dist.all_reduce(h, group=self.group)
+            dist.all_reduce(h, op=op, group=self.group)
             return h.to(t.device)
-        dist.all_reduce(t, group=self.group)
+        dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_gather(self, t: Tensor) -> Tensor:

@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import synth_tokens
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.launch import env
 from repro_torch.models import transformer as tf
 from repro_torch.serving import generate
 
@@ -77,6 +78,7 @@ def main(argv=None):
                     help="'cpu' for the plain PyTorch path (default: the "
                          'CUDA card)')
     args = ap.parse_args(argv)
+    env.configure_driver(args)
     return run(args.arch, args.batch, args.prompt_len, args.new_tokens,
                args.temperature, device=args.device)
 

@@ -69,6 +69,7 @@ from repro_torch.core import transport as tr
 from repro_torch.core.mesh import ClientMesh
 from repro_torch.data import synth_tokens
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.launch import env
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.obs import JsonlSink, run_manifest, to_row
@@ -132,8 +133,7 @@ def run(arch: Union[str, ModelConfig], steps: int, clients: int,
     if deterministic is None:
         deterministic = round_fusion != 'none'
     if deterministic:
-        os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG',
-                              dist.CUBLAS_WORKSPACE_CONFIG)
+        env.pin_cublas_workspace()
     dev = resolve(device)
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     arch = cfg.name
@@ -462,6 +462,7 @@ def main(argv=None):
                     help="'cpu' for the plain PyTorch path (default: the "
                          'CUDA card)')
     args = ap.parse_args(argv)
+    env.configure_driver(args)
     _init_group(args)
     return run(args.arch, args.steps, args.clients, args.batch, args.seq,
                args.transport, args.allocator, args.lr, args.bandwidth_hz,

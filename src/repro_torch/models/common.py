@@ -91,11 +91,14 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
 def _frequencies_on(head_dim: int, theta: float, device: str) -> Tensor:
     """``rope_frequencies`` on ``device``, copied there once a process,
     from pinned memory to a card (a copy from pageable host memory would
-    wait for the card's queue)."""
+    wait for the card's queue); on 'meta' its shape alone."""
     host = torch.as_tensor(rope_frequencies(head_dim, theta))
-    if torch.device(device).type != 'cuda':
+    kind = torch.device(device).type
+    if kind == 'cpu':
         return host
-    return host.pin_memory().to(device, non_blocking=True)
+    if kind == 'cuda':
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def rope_tables(positions: Tensor, head_dim: int, theta: float):

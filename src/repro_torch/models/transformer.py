@@ -193,8 +193,8 @@ def embed_tokens(params, cfg: ModelConfig, tokens: Tensor,
                  prefix_embeds: Optional[Tensor] = None) -> Tensor:
     x = F.embedding(tokens.to(torch.int64), params['embed'])
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     if prefix_embeds is not None:
         prefix = prefix_embeds.to(x.dtype)
         if 'frontend_proj' in params:

@@ -2,7 +2,9 @@
 ``repro.obs.sink``).
 
 Every emitter stamps its output with :func:`run_manifest` (git SHA,
-config hash, platform, PyTorch and CUDA versions, the device), so a
+config hash, platform, PyTorch and CUDA versions, the device, and under
+``'env'`` the process-wide settings ``launch.env.resolved_state``
+reads), so a
 telemetry file can be joined with another measurement taken under the
 same knobs.  :func:`config_hash` of a port ``FLConfig`` equals the
 reference's for the same values.
@@ -29,6 +31,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as _np
 import torch
+
+from repro_torch.launch import env
 
 
 def _json_safe(x: Any) -> Any:
@@ -100,13 +104,14 @@ def run_manifest(fl: Any = None, extra: Optional[Dict[str, Any]] = None,
             'backend': mesh.backend,
         },
     }
+    man['env'] = env.resolved_state()
     if extra:
         man.update(extra)
     return man
 
 
 MANIFEST_KEYS = ('date', 'git_sha', 'config_hash', 'platform', 'torch',
-                 'mesh')
+                 'mesh', 'env')
 
 
 class JsonlSink:

@@ -18,7 +18,7 @@ gradients (vmapped over its rows), and runs the tree transport sharded:
 the per-client report crosses ranks in one ``all_gather`` of (K,)
 vectors, each leaf's partial sum in one ``all_reduce``, and every rank
 applies the same ĝ.  The reference's 'model' axis (tensor parallelism)
-is not here (ROADMAP Queue 1 item 13, ``launch/shardings.py``).
+takes ``training.model_axis``'s step (a ``launch.mesh.ProductionMesh``).
 
 The host step (:func:`make_fl_train_step`) takes the channel's (q, p) as
 inputs: the launcher (``launch.train``) solves eq. (28) between steps on
@@ -60,6 +60,7 @@ from repro_torch.core import allocation_jax as alloc_jax
 from repro_torch.core import transport as tr
 from repro_torch.core.mesh import ClientMesh
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import ProductionMesh
 from repro_torch.models import transformer as tf
 from repro_torch.obs import ringbuf as obs_ring
 from repro_torch.obs.record import round_scalars
@@ -68,9 +69,6 @@ from repro_torch.training.optimizer import Optimizer, sgd
 
 Tensor = torch.Tensor
 TRANSPORTS = ('spfl', 'error_free')
-# the cuBLAS workspace setting torch.use_deterministic_algorithms asks for
-# (set in the environment before the first cuBLAS call of the process)
-CUBLAS_WORKSPACE_CONFIG = ':4096:8'
 
 
 @contextlib.contextmanager
@@ -191,6 +189,45 @@ def _gather_report(mesh, k: int, losses: Tensor, stats: dict,
     return losses, dict(stats, g2=g2, g_min=g_min, g_max=g_max), more
 
 
+def tree_transport(transport_kind: str, grads, gbar, q: Tensor, p: Tensor,
+                   fl: FLConfig, draws: tr.TreeDraws, stats: dict, mesh,
+                   adversary_closures, active_u: Optional[Tensor] = None):
+    """The step's tree transport: ``spfl_aggregate_tree`` with the
+    adversarial knobs of ``fl`` (``adversary_closures``, from
+    :func:`_adversary_closures`), or ``error_free_aggregate_tree``.  ->
+    (ĝ, stats, telemetry)."""
+    with record_function('step/transport'):
+        if transport_kind == 'spfl':
+            byz_cpu, draw_active = adversary_closures
+            byz = None if byz_cpu is None else byz_cpu.to(q.device)
+            return tr.spfl_aggregate_tree(
+                grads, gbar, q, p, fl, draws, stats=stats, mesh=mesh,
+                attack=fl.attack, byz_mask=byz,
+                attack_scale=fl.attack_scale,
+                active=draw_active(active_u), screen=fl.screen,
+                screen_z=fl.screen_z,
+                min_participation=fl.min_participation)
+        return tr.error_free_aggregate_tree(grads, fl, draws, stats=stats,
+                                            mesh=mesh, k=q.shape[0])
+
+
+def step_metrics(losses: Tensor, stats: dict, diag, q: Tensor, p: Tensor
+                 ) -> dict:
+    """The host step's metrics (the reference's)."""
+    diag = diag.with_allocation(q, p)
+    return {
+        'loss': torch.mean(losses),
+        'client_losses': losses,
+        'g_norm_sq': stats['g2'],            # -> the host allocator
+        'g_min': stats['g_min'],
+        'g_max': stats['g_max'],
+        'sign_ok': diag.sign_ok,
+        'mod_ok': diag.mod_ok,
+        'telemetry': diag,
+        **round_scalars(diag),
+    }
+
+
 def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
                        transport_kind: str = 'spfl', mesh=None,
                        deterministic: bool = False):
@@ -207,14 +244,21 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
     ``mesh`` is required when ``fl.collective='sharded'``: ``tokens``
     are then this rank's rows of the K = len(q) clients
     (``mesh.rows(K)``, at least one), everything else is global, and the
-    metrics are the K clients' on every rank.  ``deterministic`` runs the
-    gradient pass under :func:`deterministic_algorithms`."""
-    mesh = _step_mesh(fl, mesh, 'make_fl_train_step')
+    metrics are the K clients' on every rank.  A production mesh
+    (``launch.mesh.ProductionMesh``, with a 'model' axis) takes the step
+    of ``training.model_axis``: the parameters and ḡ are then the rank's
+    blocks.  ``deterministic`` runs the gradient pass under
+    :func:`deterministic_algorithms`."""
     if transport_kind not in TRANSPORTS:
         raise ValueError(f'LLM-scale transport must be spfl|error_free, '
                          f'got {transport_kind!r}')
+    if isinstance(mesh, ProductionMesh):
+        from repro_torch.training import model_axis
+        return model_axis.make_fl_train_step(cfg, fl, transport_kind, mesh,
+                                             deterministic)
+    mesh = _step_mesh(fl, mesh, 'make_fl_train_step')
     lr = fl.learning_rate
-    byz_cpu, draw_active = _adversary_closures(fl)
+    adversary_closures = _adversary_closures(fl)
 
     def train_step(params, batch, gbar, q, p, draws: tr.TreeDraws,
                    active_u: Optional[Tensor] = None):
@@ -227,38 +271,16 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig,
         with record_function('step/stats'):
             stats = tr.tree_client_stats(grads)
             losses, stats, _ = _gather_report(mesh, k, losses, stats)
-        with record_function('step/transport'):
-            if transport_kind == 'spfl':
-                byz = None if byz_cpu is None else byz_cpu.to(q.device)
-                ghat, stats, diag = tr.spfl_aggregate_tree(
-                    grads, gbar, q, p, fl, draws, stats=stats, mesh=mesh,
-                    attack=fl.attack, byz_mask=byz,
-                    attack_scale=fl.attack_scale,
-                    active=draw_active(active_u), screen=fl.screen,
-                    screen_z=fl.screen_z,
-                    min_participation=fl.min_participation)
-            else:
-                ghat, stats, diag = tr.error_free_aggregate_tree(
-                    grads, fl, draws, stats=stats, mesh=mesh, k=k)
+        ghat, stats, diag = tree_transport(transport_kind, grads, gbar, q, p,
+                                           fl, draws, stats, mesh,
+                                           adversary_closures, active_u)
         del grads
         with record_function('step/update'):
             new_params = tree.map(
                 lambda pp, g: (pp.to(torch.float32) - lr * g).to(pp.dtype),
                 params, ghat)
             new_gbar = tree.map(torch.abs, ghat)
-        diag = diag.with_allocation(q, p)
-        metrics = {
-            'loss': torch.mean(losses),
-            'client_losses': losses,
-            'g_norm_sq': stats['g2'],            # -> the host allocator
-            'g_min': stats['g_min'],
-            'g_max': stats['g_max'],
-            'sign_ok': diag.sign_ok,
-            'mod_ok': diag.mod_ok,
-            'telemetry': diag,
-            **round_scalars(diag),
-        }
-        return new_params, new_gbar, metrics
+        return new_params, new_gbar, step_metrics(losses, stats, diag, q, p)
 
     return train_step
 
@@ -617,13 +639,18 @@ def make_fused_fl_scan(cfg: ModelConfig, fl: FLConfig, base_gains,
     return segment, init_carry
 
 
-def make_standard_train_step(cfg: ModelConfig, fl: FLConfig):
+def make_standard_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None):
     """Plain data-parallel step (batch (B, T), one global gradient, the
     update of :func:`make_fl_train_step` without a transport): returns
     ``train_step(params, batch) -> (new_params, {'loss', 'g_norm_sq'})``:
     ``batch`` holds (B, T) ``tokens`` [and a (B, P, E) ``prefix``].  The
     reference uses it where per-client gradients do not exist at scale
-    (arctic-480b's experts sharded over the client axes)."""
+    (arctic-480b's experts sharded over the client axes).  On a
+    production mesh (``mesh``) it is ``training.model_axis``'s: the
+    parameters are the rank's blocks, ``batch`` the rank's rows."""
+    if mesh is not None:
+        from repro_torch.training import model_axis
+        return model_axis.make_standard_train_step(cfg, fl, mesh)
     lr = fl.learning_rate
 
     def train_step(params, batch):

@@ -136,13 +136,6 @@ from repro_torch.obs.trace import StageTrace
 from repro_torch.training import fused
 
 
-
-# knobs the host loop does not run yet -> the ROADMAP.md item that brings
-# them (none now: like the reference's, the loop never reads
-# ``collective``; the LLM-scale step refuses 'sharded' itself)
-_NOT_YET = ()
-
-
 ALLOCATION_BACKENDS = ('numpy', 'jax')
 CADENCES = ('static', 'per_round')
 ALLOCATING = ('spfl', 'spfl_retx')       # the transports that solve eq. (28)
@@ -152,11 +145,9 @@ FADING_SEED_OFFSET = 0x0FAD
 
 
 def check_supported(fl: FLConfig) -> None:
-    """Raise on configurations the port cannot run (yet) or that the
-    reference refuses."""
-    for unsupported, message in _NOT_YET:
-        if unsupported(fl):
-            raise NotImplementedError(message.format(fl=fl))
+    """Raise on configurations the reference refuses (the port runs every
+    knob the reference's loop does; like the reference's, the loop never
+    reads ``collective``)."""
     if fl.transport not in transport.KINDS:
         raise ValueError(f'transport must be one of {transport.KINDS}')
     if fl.attack not in adversary.ATTACK_KINDS:
