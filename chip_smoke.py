@@ -2651,18 +2651,29 @@ def check_host_problems(kept: list, max_iters: int,
                          f'problems (max_iters={max_iters}) vs the host solve')
 
 
-def spine_only(trips: dict, nodes: int) -> bool:
-    """Whether every dual search of a solve walked the spine (the
-    bisection's rounds down the infeasible side, which the kernel takes
-    while the bracket's top is infeasible; ``csrc/alloc_solve.cu``), read
-    from its trip counts: a spine round of L =
-    (nodes + 1) / 2 levels leaves L - 1 speculative sections, so a dual
-    on the spine throughout leaves BISECT_STEPS minus its rounds, and one
-    full round of the tree of 6 levels alone leaves 57."""
+def spine_only(trips: dict) -> bool:
+    """Whether every dual search of a solve kept to its predicted walk
+    (the bisection's path rounds, which the kernel takes while the walk
+    follows the previous search's, or every midpoint infeasible where the
+    bracket's top is; ``csrc/alloc_solve.cu``), read from its trip
+    counts: path rounds of a search leave unread only the midpoints past
+    its last level in its last round, at most BISECT_STEPS less its
+    levels, while a round off the prediction (a full subtree of 6 levels
+    reads 6 of 63) leaves more."""
     from repro_torch.core.allocation_jax import BISECT_STEPS
-    levels = (nodes + 1) // 2
-    rounds = -(-BISECT_STEPS // levels)
-    return trips['spec_golden'] <= trips['dual'] * (BISECT_STEPS - rounds)
+    return trips['spec_golden'] <= (trips['dual'] * BISECT_STEPS
+                                    - trips['bisect'])
+
+
+def fading_draws(prob, n: int = 16, seed: int = 1):
+    """``prob`` over ``n`` fading draws of its gains in one batch
+    (``allocation_jax.batch_over_gains``): each client's gain times a
+    unit-mean exponential power factor, made with NumPy from ``seed``."""
+    import numpy as np
+    from repro_torch.core import allocation_jax as AJ
+    rng = np.random.RandomState(seed)
+    fading = rng.exponential(1.0, (n, prob.gains.shape[-1]))
+    return AJ.batch_over_gains(prob, prob.gains.cpu().numpy() * fading)
 
 
 def time_device_solves(sim, kept: list, label: str = 'main-jax') -> list:
@@ -2695,10 +2706,9 @@ def timed_solve(prob, method: str, max_iters: int, tol: float,
                 early_exit: bool, gate=None) -> dict:
     """One solve again, alone: its kernel ms (CUDA events, median of 5),
     trip counts (``ops.ALLOC_TRIPS`` names), effort and whether its dual
-    searches kept to the spine."""
+    searches kept to their predicted walks (``spine_only``)."""
     import torch
     from repro_torch.kernels import ops
-    nodes = ops.alloc_layout(1, prob.A.shape[-1], method)['nodes']
     trips = torch.zeros((1, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
                         device='cuda')
 
@@ -2711,7 +2721,7 @@ def timed_solve(prob, method: str, max_iters: int, tol: float,
     torch.cuda.synchronize()
     named = dict(zip(ops.ALLOC_TRIPS, trips[0].tolist()))
     return dict(ms=ms, iters=int(sol.iters), exit_reason=int(sol.exit_reason),
-                trips=named, spine=spine_only(named, nodes), sol=sol)
+                trips=named, spine=spine_only(named), sol=sol)
 
 
 def check_no_sync(sim, label: str = 'main-jax', gains=None) -> None:
@@ -3822,9 +3832,11 @@ def run_fused(data) -> dict:
     population cell (pop-uniform, 3 rounds) fused; a whole 'scan' segment
     and an 'eager' replay under ``set_sync_debug_mode('error')``; the
     device operations of one replayed round and one segment's idle share
-    (``torch.profiler``); the last round's f32 solve held to its plain
-    version bit for bit.  -> the row of the f32 solver, the round times
-    and the solves."""
+    (``torch.profiler``); round 1's f32 solve (the problem it prints, kept
+    in ``tests/data/fused_f32_problem_k20.json``) and 16 fading draws of
+    it in one launch held to their plain versions bit for bit.  -> the
+    row of the f32 solver (round 1's solve), the round times and the
+    solves."""
     import dataclasses
     import torch
     from repro_torch.configs.base import FLConfig
@@ -3879,8 +3891,9 @@ def run_fused(data) -> dict:
     record = {f: getattr(one['prob'], f).tolist()
               for f in one['prob']._fields
               if getattr(one['prob'], f) is not None}
-    record.update(method=fl.allocator, max_iters=fl.allocation_max_iters
-                  or 6, iters=one['iters'], exit_reason=one['exit_reason'],
+    one_iters = fl.allocation_max_iters or 6
+    record.update(method=fl.allocator, max_iters=one_iters,
+                  iters=one['iters'], exit_reason=one['exit_reason'],
                   trips=dict(zip(ops.ALLOC_TRIPS, one['trips'])))
     print(f'fused-f32 round 1 problem: {json.dumps(record)}', flush=True)
     # what deterministic cuDNN costs the host loop (the fused rounds' one)
@@ -3989,25 +4002,38 @@ def run_fused(data) -> dict:
           f"{sum(seg['names'].values())} device operations "
           f"{json.dumps(op_kinds(seg['names']))}, most time first "
           f"{json.dumps(seg['top_ms'])} ms", flush=True)
-    # the last fused round's float32 solve: timed alone above, held to its
-    # plain version on the same card tensors
-    last = solves[-1]
-    max_iters = fl.allocation_max_iters or 6
+    # round 1's float32 solve (the kept problem, timed alone above) and
+    # 16 fading draws of its gains in one launch, each held to its plain
+    # version on the same card tensors
+    kw = dict(max_iters=one_iters, tol=fl.allocation_tol or 1e-5,
+              early_exit=fl.allocation_early_exit, gate=one['gate'])
+    draws = fading_draws(one['prob'])
+    draw_trips = torch.zeros((16, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
+                             device='cuda')
+    batch = ops.alloc_solve(draws, fl.allocator, trips=draw_trips, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = AJ.solve_plain(last['prob'], fl.allocator, max_iters=max_iters,
-                           gate=last['gate'])
+    plain = AJ.solve_plain(one['prob'], fl.allocator, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    same_solution(last['sol'], plain, 'alloc_solve_f32 on the last fused '
-                  'round')
-    print(f'alloc_solve_f32 on the last fused round (K={K}): kernel '
-          f'{last["ms"]:.4f} ms, plain {plain_ms:.1f} ms on the card, bit '
-          'for bit', flush=True)
-    row = {'ms': last['ms'], 'warm_ms': last['ms'], 'plain_ms': plain_ms,
+    same_solution(one['sol'], plain, 'alloc_solve_f32 on the fused-f32 '
+                  'round 1 problem')
+    t0 = time.perf_counter()
+    same_solution(batch, AJ.solve_plain(draws, fl.allocator, **kw),
+                  'alloc_solve_f32 on 16 fading draws of that problem')
+    batch_s = time.perf_counter() - t0
+    print(f'alloc_solve_f32 on the fused-f32 round 1 problem (K={K}): '
+          f'kernel {one["ms"]:.4f} ms, plain {plain_ms:.1f} ms on the card, '
+          'bit for bit; 16 fading draws of it in one launch (layout '
+          f'{json.dumps(ops.alloc_layout(16, K, fl.allocator, torch.float32))}'
+          f'): bit for bit with their plain batch ({batch_s:.1f} s), trips '
+          'summed '
+          f'{json.dumps(dict(zip(ops.ALLOC_TRIPS, draw_trips.sum(0).tolist())))}',
+          flush=True)
+    row = {'ms': one['ms'], 'warm_ms': one['ms'], 'plain_ms': plain_ms,
            'max_abs_err': 0.0,
-           'bytes': alloc_bytes(1, K, max_iters, real=4),
-           'units': alloc_units(last['trips'], K)}
+           'bytes': alloc_bytes(1, K, one_iters, real=4),
+           'units': alloc_units(one['trips'], K)}
     print(card_line(), flush=True)
     times.update({f'signflip-screen-{m}': t for m, t in adv.items()})
     return {'row': row, 'counts': ran['scan'], 'times': times,

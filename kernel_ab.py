@@ -32,9 +32,10 @@ limit, each turn's times, and as its last line a JSON object with every
 turn and the mean of each version's two.
 
 ``--kernels alloc_solve`` times the eq. (28) solver kernel
-(``alloc_calls``: the main path's solve and one batched call, five timed
-calls each; its check is ``chip_smoke.check_alloc_kernel``, ~30 s of
-plain solves a turn).
+(``alloc_calls``: the main path's solve and one batched call, and the
+same two of its float32 instantiation on the fused rounds' kept problem,
+five timed calls each; its checks are ``chip_smoke.check_alloc_kernel``
+and ``check_alloc_f32``, ~1 min of plain solves a turn).
 
 ``--llm`` times phase 11's launcher run instead of kernels: each turn
 runs ``launch.train.run`` on smollm-135m at chip_smoke's sizes
@@ -84,9 +85,11 @@ def _import_tree(tree: Path):
 
 
 def _setup(tree: Path, names):
-    """Import the turn's tree and build the named kernels."""
+    """Import the turn's tree and build the named kernels ('alloc_solve'
+    with its float32 instantiation, whose calls it times too)."""
     chip_smoke, build = _import_tree(tree)
-    build.build(names)
+    build.build(list(names) + (['alloc_solve_f32'] if 'alloc_solve' in names
+                               else []))
     return chip_smoke
 
 
@@ -255,8 +258,11 @@ def alloc_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     rounds of the 'jax'-backend simulator (phase 4's, whose round 1
     does not depend on the solver: round 0 takes the uniform point);
     'alloc_solve:batch', that problem over 16 fading draws of its gains
-    (``batch_over_gains``, one block or cluster a draw) in one call."""
-    import numpy as np
+    (``chip_smoke.fading_draws``, one block or cluster a draw) in one
+    call; 'alloc_solve:f32' and 'alloc_solve:f32_batch', the same two of
+    the float32 instantiation on the fused rounds' round 1 problem that
+    phase 10 keeps (``tests/data/fused_f32_problem_k20.json``; its gate
+    was > 0, so none is passed)."""
     import torch
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import allocation_jax as AJ
@@ -268,17 +274,27 @@ def alloc_calls(chip_smoke, seed: int = 1, device: str = 'cuda') -> dict:
     chip_smoke.keep_device_problems(sim, kept)
     sim.run(2)
     prob, gate = kept[1]['prob'], torch.amax(kept[1]['gb2'])
-    rng = np.random.RandomState(seed)
-    fading = rng.exponential(1.0, (16, prob.gains.shape[0]))
-    draws = AJ.batch_over_gains(prob, prob.gains.cpu().numpy() * fading)
+    draws = chip_smoke.fading_draws(prob, seed=seed)
     kw = dict(max_iters=fl.allocation_max_iters or 6,
               tol=fl.allocation_tol or 1e-5,
               early_exit=fl.allocation_early_exit, gate=gate)
+    rec = json.loads((ROOT / 'tests' / 'data'
+                      / 'fused_f32_problem_k20.json').read_text())
+    f32 = AJ.JaxAllocationProblem(**{
+        f: torch.tensor(rec[f], dtype=torch.float32, device=device)
+        for f in AJ.JaxAllocationProblem._fields if f in rec})
+    f32_draws = chip_smoke.fading_draws(f32, seed=seed)
+    kw32 = dict(max_iters=rec['max_iters'], tol=kw['tol'],
+                early_exit=kw['early_exit'])
     return {
         'alloc_solve': (lambda: ops.alloc_solve(prob, fl.allocator, **kw),
                         ()),
         'alloc_solve:batch': (lambda: ops.alloc_solve(draws, fl.allocator,
                                                       **kw), ()),
+        'alloc_solve:f32': (lambda: ops.alloc_solve(f32, rec['method'],
+                                                    **kw32), ()),
+        'alloc_solve:f32_batch': (lambda: ops.alloc_solve(
+            f32_draws, rec['method'], **kw32), ()),
     }
 
 
@@ -310,6 +326,7 @@ def _check(chip_smoke, names) -> None:
                                      seed=5)
     if 'alloc_solve' in names:
         chip_smoke.check_alloc_kernel(seed=13)
+        chip_smoke.check_alloc_f32(seed=15)
 
 
 def time_turn(tree: Path, names, check: bool) -> dict:

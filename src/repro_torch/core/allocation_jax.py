@@ -42,8 +42,8 @@ loop of single solves bit for bit.
 Precision: the closed forms (``core.alloc_common``) need float64 — the
 guards ``EXP_CAP=600``, ``POW_CAP=500`` and ``H_FLOOR=-1e150`` overflow
 float32 — so the problems are float64 by default.  A float32 problem
-takes the reference's f32-safe caps (``_caps``); only the plain version
-runs it (the kernel is float64).
+takes the reference's f32-safe caps (``_caps``); on the card the kernel's
+float32 instantiation (``alloc_solve_f32``) runs it.
 """
 from __future__ import annotations
 
@@ -458,7 +458,13 @@ def _dual(P, beta_of_lambda, like: Tensor, early_exit: bool,
     """The bandwidth at the dual price that meets sum(beta) <= 1: the
     upper bracket grows x10 from 1.0 (at most 30 steps, up to 1e30), 60
     bisection steps follow, and the result is rescaled onto the
-    simplex."""
+    simplex.
+
+    With ``early_exit`` a problem's bisection also stops at the first
+    step that leaves its bracket (lo, hi) as it was: every later step
+    would test the same midpoint, get the same verdict and leave it so
+    again, whether or not sum(beta(lam)) is monotone, so the stop changes
+    no bit (the frozen trips of the module docstring)."""
     def grow(_, carry):
         hi, cont = carry
         need = (cont & (_msum(P, beta_of_lambda(hi)) > 1.0) & (hi < 1e30))
@@ -469,17 +475,23 @@ def _dual(P, beta_of_lambda, like: Tensor, early_exit: bool,
                           (one, torch.ones_like(one, dtype=torch.bool)),
                           lambda c: ~c[1], early_exit)
 
-    def bis(_, lh):
-        lo, hi = lh
+    def bis(_, carry):
+        lo, hi, _ = carry
         mid = 0.5 * (lo + hi)
         infeas = _msum(P, beta_of_lambda(mid)) > 1.0
-        return torch.where(infeas, mid, lo), torch.where(infeas, hi, mid)
+        lo2, hi2 = torch.where(infeas, mid, lo), torch.where(infeas, hi, mid)
+        return lo2, hi2, (lo2 == lo) & (hi2 == hi)
 
-    def bis_stop(lh):
-        return (lh[1] - lh[0]) <= inner_tol * lh[1]
+    def bis_stop(carry):
+        lo, hi, frozen = carry
+        if inner_tol > 0.0:
+            return frozen | ((hi - lo) <= inner_tol * hi)
+        return frozen
 
-    _, hi = _bounded_fori(BISECT_STEPS, bis, (torch.zeros_like(one), hi),
-                          bis_stop, early_exit and inner_tol > 0.0)
+    _, hi, _ = _bounded_fori(BISECT_STEPS, bis,
+                             (torch.zeros_like(one), hi,
+                              torch.zeros_like(one, dtype=torch.bool)),
+                             bis_stop, early_exit)
     b = beta_of_lambda(hi)
     scale = (1.0 / _msum(P, b).clamp(min=1e-12)).clamp(max=1.0)
     return b * scale.reshape(-1, 1)

@@ -108,11 +108,21 @@ def bits(keys: Tensor, shape: Sequence[int] = ()) -> Tensor:
 
 
 def _fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
-    """fma(a, b, c) in float32: the product is exact in float64, one
-    rounding of the sum (a double rounding to float32 only where the
-    float64 sum sits on a float32 midpoint)."""
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
+    """fma(a, b, c) in float32, rounded once: the product is exact in
+    float64; the float64 sum is rounded to odd (where it is inexact and
+    its last bit even, it steps one float64 ulp toward the exact sum,
+    whose error TwoSum gives), so the one rounding to float32 that
+    follows is the exact sum's (float64 carries 29 more bits).  Rounded
+    to nearest instead, a sum just off a float32 midpoint (a tiny c)
+    would round twice, to the wrong side."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    q = c.to(torch.float64)
+    s = p + q
+    r = s - p
+    err = (p - (s - r)) + (q - r)
+    odd = torch.isfinite(s) & (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s)
+    return torch.where(odd, torch.nextafter(s, toward), s).to(torch.float32)
 
 
 def uniform_from_bits(words: Tensor, minval: float = 0.0,

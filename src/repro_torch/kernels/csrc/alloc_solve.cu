@@ -16,14 +16,20 @@
 // the body is written T(...), so the f32 instantiation rounds it to float
 // as PyTorch rounds a Python scalar against a float32 tensor.
 //
-// Bound: latency.  A solve is a chain of dependent float64 steps: ~70,000
+// Bound: latency.  A solve is a chain of dependent steps: ~70,000
 // golden-section steps on the main path (K = 20; each two surrogate
 // evaluations of two pow and up to four exp), each bisection step
 // waiting for the sum over the clients of the golden section before it,
 // and 40 dependent Newton steps a bracket.  The arithmetic is ~0.01 ms
 // of the card's float64 rate; the time is the chain's length times the
 // latency of a step.  The design shortens both and spends idle lanes
-// and idle SMs to do it.
+// and idle SMs to do it.  What is left of a dual search's chain is its
+// rounds (spec_rounds: one 48-step golden section and one cluster
+// barrier each): one a search on both main paths once a solve's walk
+// repeats (the float32 solve's first search takes 5), so a solve's
+// chain is ~16 rounds of golden sections beside optimize_alpha's Newton
+// steps and the SCA's bookkeeping (objectives, surrogates, ordered sums
+// and barriers).
 //
 // Design:
 // - Layout (block_layout, alloc_solve_layout): blocks of BLOCK = 256
@@ -50,17 +56,35 @@
 //   price.  The first round takes
 //   lam = 0 (whether the dual runs at all) and the grow loop's prices
 //   (1, x10 by the same multiply) up to p_30, where its 30 steps end,
-//   `nodes` at a time; the bisection evaluates a subtree of midpoints
-//   below its bracket, each made by the same mul(0.5, add(lo, hi)) at
-//   every node, and then walks it as the sequential loop would, with
-//   its tolerance exit at every level.  The subtree is the full one of
-//   `depth` levels, or, while the walk keeps to the infeasible side
-//   (where the bracket's top is infeasible too), a spine of up to 32
-//   nodes down that side with the other child of each: the main path's
-//   60 levels, all infeasible, take 2 rounds instead of 10.
-//   Every price evaluated is the sequential loop's own computation and
-//   the walk reads a superset of its path, so the result is the
-//   sequential one whether or not sum(beta(lam)) is monotone.  The
+//   `nodes` at a time; the bisection evaluates midpoints below its
+//   bracket, each made by the same mul(0.5, add(lo, hi)) at every node,
+//   and then walks them as the sequential loop would, with its
+//   tolerance exit at every level.  A round evaluates the midpoints
+//   down a predicted walk (up to `nodes` levels; path rounds), or, once
+//   the walk has left the prediction or where there is none, the full
+//   subtree of `depth` levels.  The prediction is the walk of the
+//   problem's previous dual search where that started from the same
+//   bracket (Memo: the SCA rounds of a solve see nearly the same
+//   sum(beta(lam)) near the cap of the grow loop), else, where the
+//   bracket's top is infeasible, every midpoint infeasible.  The round
+//   that prices the grow loop's last positions gives its spare groups
+//   the predicted walk's first midpoints (ahead), from the bracket the
+//   prediction starts at (the memo's, else the grow loop's last price),
+//   and the bisection's first round is that one where the growth ends
+//   there.  So with 92 groups (K = 20, one problem) the float64 main
+//   path's duals (each 53 levels, all infeasible) take one round,
+//   growth and bisection, where full subtrees take 10; the float32 ones
+//   (24 levels that turn feasible at some midpoints: at float32(1e29)
+//   lam beta dwarfs the surrogate's rounding) take 5 for the solve's
+//   first dual search and one for each later one that walks as it did.
+//   The bisection ends at the first level that leaves (lo, hi) as it
+//   was (frozen): every later level would test the same midpoint, get
+//   the same verdict and leave it so again, whether or not
+//   sum(beta(lam)) is monotone (the plain version's _dual has the same
+//   exit); a float32 bracket freezes after ~24 levels, a float64 one
+//   after ~53.  Every price evaluated is the sequential loop's own
+//   computation and the walk reads a superset of its path, so the
+//   result is the sequential one whatever the prediction.  The
 //   groups' sums and betas go to the cluster through distributed shared
 //   memory (two buffers, one cluster barrier a round); the final
 //   section at hi is the round's that evaluated hi where one did
@@ -70,8 +94,11 @@
 //   same branches, since it computes the same values.
 // - trips counts the sequential function's work (the bound counts what
 //   the function needs; a final section fetched counts as the one the
-//   sequential function runs) and, apart, the speculative golden
-//   sections that its path did not need (T_SPEC).
+//   sequential function runs; the bisection's levels are those up to
+//   and including the frozen one, which the plain version's exit runs
+//   too, and those after it, which no version runs, count nowhere) and,
+//   apart, the dual search's rounds (T_ROUNDS) and the speculative
+//   golden sections that its path did not need (T_SPEC).
 // - Ordered sums: a group's clients write their terms to shared memory
 //   and one lane adds them left to right (pads multiplied by the mask),
 //   as the plain version's _ordered_sum does; the block reads the
@@ -105,23 +132,26 @@ constexpr int MAX_K = 1024;        // clients per problem: one thread each
 constexpr int MAX_ITERS = 64;      // outer iterations of one solve
 constexpr int BLOCK = 256;         // threads a block, clients a block
 constexpr int MAX_CLUSTER = 16;    // blocks a problem (a non-portable size)
-constexpr int MAX_DEPTH = 6;       // bisection levels a speculative round
-constexpr int MAX_NODES = 63;      // 2^MAX_DEPTH - 1 groups take a price
+constexpr int MAX_DEPTH = 6;       // levels of a full subtree round
+// groups that take a price: the grow loop's 32 positions and a predicted
+// walk's 60 midpoints in one round (a full subtree takes 2^MAX_DEPTH - 1)
+constexpr int MAX_NODES = 92;
 constexpr int GROW_STEPS = 30;
 constexpr int BISECT_STEPS = 60;
 constexpr int GOLDEN_STEPS = 48;
 constexpr int N_CONSTS = 16;
-constexpr int N_TRIPS = 14;
+constexpr int N_TRIPS = 15;
 constexpr int N_LAYOUT = 7;
 
 enum { UNIFORM = 0, ALTERNATING = 1, BARRIER = 2 };
 enum { EXIT_CONVERGED = 0, EXIT_ITER_CAP = 1, EXIT_NONFINITE = 2,
        EXIT_UNIFORM_FALLBACK = 3 };
-// trip counters, per problem: the sequential function's, then the
-// speculative golden sections
+// trip counters, per problem: the sequential function's, then the dual
+// search's rounds (each a cluster barrier) and its speculative golden
+// sections
 enum { T_OUTER, T_ALPHA, T_CHAINS, T_NEWTON, T_SCA, T_DUAL, T_GROW,
        T_BISECT, T_GOLDEN, T_EVAL, T_BARRIER, T_BACKTRACK, T_OBJECTIVE,
-       T_SPEC };
+       T_ROUNDS, T_SPEC };
 // the solver's constants, in the order the wrapper passes them
 enum { C_EXP_CAP, C_POW_CAP, C_H_FLOOR, C_LOG_FLOOR, C_NEWTON_EPS, C_A_EPS,
        C_ONE_M_A_EPS, C_BETA_MIN, C_BETA_MAX, C_GR, C_LN2, C_LN10, C_TOL,
@@ -151,7 +181,7 @@ struct Args {
   int k, method, max_iters, n_grid, newton_iters, early_exit;
   // the layout (Layout): lanes a client, groups a block, blocks a
   // replica of the problem, blocks a problem, groups that take a price,
-  // bisection levels a round
+  // levels of a full subtree round
   int lanes, groups, parts, cluster, nodes, depth;
 };
 
@@ -849,10 +879,34 @@ __device__ void fetch(Shared<T>& sh, const Args<T>& a, const Ctx<T>& x,
   }
 }
 
+// The midpoint g levels down a predicted walk from (l, h), level `step`
+// of the bisection at (l, h): bit step + i of `path` set, the walk's
+// level step + i infeasible (lo moves)
+template <typename T>
+__device__ __forceinline__ T path_mid(T l, T h, unsigned long long path,
+                                      int step, int g) {
+  for (int i = 0; i < g; ++i) {
+    T m = mul(T(0.5), add(l, h));
+    if ((path >> (step + i)) & 1ULL) l = m; else h = m;
+  }
+  return mul(T(0.5), add(l, h));
+}
+
+// The walk of a problem's last dual search (every thread of its cluster
+// holds the same): the top of its bracket after the growth, and its
+// verdicts, bit l set where level l's midpoint was infeasible (and for
+// the levels it did not walk); valid once a search has bisected.
+template <typename T>
+struct Memo {
+  T hi;
+  unsigned long long path;
+  bool valid;
+};
+
 template <typename T>
 __device__ T sca(Shared<T>& sh, const Ctx<T>& x, const Ctx<T>& y,
                  const Lane& ln, const Args<T>& a, T alpha, T beta0,
-                 int* trips, int& par) {
+                 int* trips, int& par, Memo<T>& memo) {
   const int t = threadIdx.x;
   const bool tol_exit = a.early_exit && x.c[C_INNER_TOL] > T(0);
   const T inner_tol = x.c[C_INNER_TOL];
@@ -874,18 +928,46 @@ __device__ T sca(Shared<T>& sh, const Ctx<T>& x, const Ctx<T>& y,
     T hi = T(1), lo = T(0), total = T(0);
     bool have = false, pending = false, dual = true;
     int hevals = 0;
+    // The prediction: the walk of the previous dual search from its
+    // bracket, else every midpoint infeasible below the grow loop's last
+    // price (where 30 infeasible steps, or 1e30, end it).  The round that
+    // prices the grow loop's last positions gives its other groups the
+    // first `ahead` midpoints of that walk (group base + i the i-th).
+    T pred_hi = memo.hi;
+    unsigned long long pred_path = memo.path;
+    if (!memo.valid) {
+      pred_hi = T(1);
+      pred_path = ~0ULL;
+      for (int j = 0; j < GROW_STEPS && pred_hi < T(1e30); ++j) {
+        pred_hi = mul(pred_hi, T(10));
+      }
+    }
+    int ahead = 0, ahead_base = 0, ahead_buf = 0;
     // Position 0 is lam = 0 (the section that decides whether the dual
     // runs), position 1 + i the grow loop's price p_i (1, x10 by the same
     // multiply; p_30, where 30 steps end, is evaluated only to be the
     // final section): `nodes` positions a round, group j the j-th.
     for (int pos = 0; pos <= GROW_STEPS + 1;) {
       const int n = min(a.nodes, GROW_STEPS + 2 - pos);
+      const int extra = pos + n == GROW_STEPS + 2
+          ? min(a.nodes - n, BISECT_STEPS) : 0;
       T lam = T(0);
-      if (ln.gid >= 0 && pos + ln.gid >= 1) {
+      if (ln.gid >= n) {
+        if (ln.gid < n + extra) {
+          lam = path_mid(T(0), pred_hi, pred_path, 0, ln.gid - n);
+        }
+      } else if (ln.gid >= 0 && pos + ln.gid >= 1) {
         lam = T(1);
         for (int j = 1; j < pos + ln.gid; ++j) lam = mul(lam, T(10));
       }
-      const int buf = spec_round(sh, y, s, ln, a, lam, n, tol_exit, par);
+      const int buf = spec_round(sh, y, s, ln, a, lam, n + extra, tol_exit,
+                                 par);
+      if (counts) ++trips[T_ROUNDS];
+      if (extra > 0) {
+        ahead = extra;
+        ahead_base = n;
+        ahead_buf = buf;
+      }
       int j = 0, used = 0;
       bool stop = false;
       for (; j < n && !stop; ++j) {
@@ -938,43 +1020,66 @@ __device__ T sca(Shared<T>& sh, const Ctx<T>& x, const Ctx<T>& y,
     T b = T(0);
     if (!dual) {
       b = x.client ? sh.vec[t] : T(0);
+      if (counts) trips[T_SPEC] += ahead;
     } else {
-      // bisect on the sum constraint, a subtree of midpoints below (lo,
-      // hi) a round.  Full: `depth` levels, group j node j + 1 of the
-      // heap whose children 2n and 2n + 1 are the brackets after an
-      // infeasible (lo = mid) and a feasible (hi = mid) midpoint.  Spine,
-      // while the bracket's top is infeasible too and the walk keeps to
-      // the infeasible side: L nodes down that side (group i the i-th)
-      // and the feasible child of each but the last (group L + i that of
-      // node i), 2L - 1 nodes, L levels if the walk keeps to it.
-      bool spine = have && total > T(1);
+      // bisect on the sum constraint, a round evaluating the midpoints
+      // below (lo, hi) that the walk may read next.  A path round
+      // (follow): min(nodes, levels left) midpoints down the predicted
+      // walk, group i the i-th; the prediction is the walk of the
+      // solve's previous dual search where that started from the same
+      // bracket (memo), else, where the bracket's top is infeasible,
+      // every midpoint infeasible.  Once the walk leaves the prediction,
+      // or with none: the full subtree of `depth` levels, group j node
+      // j + 1 of the heap whose children 2n and 2n + 1 are the brackets
+      // after an infeasible (lo = mid) and a feasible (hi = mid)
+      // midpoint.  The search ends at the first level that leaves
+      // (lo, hi) as it was: every later level would test that midpoint
+      // again, get the same verdict and leave it so (_dual's frozen
+      // exit), so it ends with the sequential bracket.  The first path
+      // round is the growth's `ahead` where the prediction it took is
+      // this search's.
+      const T start = hi;
+      unsigned long long path = ~0ULL, walked = ~0ULL;
+      bool follow = have && total > T(1);
+      if (memo.valid && memo.hi == hi) {
+        path = memo.path;
+        follow = true;
+      }
+      if (ahead > 0 && !(follow && hi == pred_hi && path == pred_path)) {
+        if (counts) trips[T_SPEC] += ahead;
+        ahead = 0;
+      }
       for (int step = 0; step < BISECT_STEPS;) {
         if (tol_exit && sub(hi, lo) <= mul(inner_tol, hi)) break;
         const int rem = BISECT_STEPS - step;
-        const int levels = spine ? min((a.nodes + 1) / 2, rem)
-                                 : min(a.depth, rem);
-        const int n = spine ? 2 * levels - 1 : (1 << levels) - 1;
-        T l = lo, h = hi;
-        if (ln.gid >= 0 && ln.gid < n) {
-          if (spine) {
-            const bool side = ln.gid >= levels;
-            for (int i = side ? ln.gid - levels : ln.gid; i > 0; --i) {
-              l = mul(T(0.5), add(l, h));
-            }
-            if (side) h = mul(T(0.5), add(l, h));
-          } else {
-            int node = ln.gid + 1;
-            for (int bit = 30 - __clz(node); bit >= 0; --bit) {
-              T m = mul(T(0.5), add(l, h));
-              if ((node >> bit) & 1) h = m; else l = m;
+        int levels, n, base = 0, buf;
+        if (ahead > 0) {
+          levels = n = ahead;
+          base = ahead_base;
+          buf = ahead_buf;
+          ahead = 0;
+        } else {
+          levels = min(follow ? a.nodes : a.depth, rem);
+          n = follow ? levels : (1 << levels) - 1;
+          T l = lo, h = hi, lam = T(0);
+          if (ln.gid >= 0 && ln.gid < n) {
+            if (follow) {
+              lam = path_mid(l, h, path, step, ln.gid);
+            } else {
+              int node = ln.gid + 1;
+              for (int bit = 30 - __clz(node); bit >= 0; --bit) {
+                T m = mul(T(0.5), add(l, h));
+                if ((node >> bit) & 1) h = m; else l = m;
+              }
+              lam = mul(T(0.5), add(l, h));
             }
           }
+          buf = spec_round(sh, y, s, ln, a, lam, n, tol_exit, par);
+          if (counts) ++trips[T_ROUNDS];
         }
-        const int buf = spec_round(sh, y, s, ln, a, mul(T(0.5), add(l, h)),
-                                   n, tol_exit, par);
         int g = 0, lev = 0, last = -1;
         bool stop = false;
-        for (; lev < levels && g >= 0; ++lev) {
+        while (lev < levels && g >= 0) {
           if (lev > 0 && tol_exit && sub(hi, lo) <= mul(inner_tol, hi)) {
             stop = true;
             break;
@@ -982,36 +1087,52 @@ __device__ T sca(Shared<T>& sh, const Ctx<T>& x, const Ctx<T>& y,
           if (counts) {
             ++trips[T_BISECT];
             ++trips[T_GOLDEN];
-            trips[T_EVAL] += sh.all_evals[g];
+            trips[T_EVAL] += sh.all_evals[base + g];
           }
-          T mid = mul(T(0.5), add(lo, hi));
-          const bool infeasible = sh.all[g] > T(1);
-          if (infeasible) lo = mid; else hi = mid;
-          if (!infeasible) last = g;
-          if (!spine) {
-            g = 2 * g + (infeasible ? 1 : 2);
-          } else if (g + 1 >= levels) {
-            g = -1;      // a feasible child or the spine's end: a leaf
+          const T mid = mul(T(0.5), add(lo, hi));
+          const T lo0 = lo, hi0 = hi;
+          const bool infeasible = sh.all[base + g] > T(1);
+          const bool predicted = (path >> (step + lev)) & 1ULL;
+          if (infeasible) {
+            lo = mid;
           } else {
-            g = infeasible ? g + 1 : levels + g;
+            hi = mid;
+            last = g;
+            walked &= ~(1ULL << (step + lev));
           }
+          ++lev;
+          if (lo == lo0 && hi == hi0) {
+            stop = true;       // frozen
+          } else if (!follow) {
+            g = 2 * g + (infeasible ? 1 : 2);
+          } else if (infeasible == predicted) {
+            ++g;
+          } else {
+            follow = false;    // off the prediction: a leaf
+            g = -1;
+          }
+          if (stop) break;
         }
         if (last >= 0) {
           // hi moved to node last's price
-          fetch(sh, a, x, last, buf);
+          fetch(sh, a, x, base + last, buf);
           if (counts && pending) ++trips[T_SPEC];
           have = true;
           pending = false;
-          total = sh.all[last];
-          hevals = sh.all_evals[last];
+          total = sh.all[base + last];
+          hevals = sh.all_evals[base + last];
         }
         if (counts) trips[T_SPEC] += n - lev;
         step += lev;
         if (stop) break;
-        spine = last < 0 && lev == levels;
       }
+      if (counts) trips[T_SPEC] += ahead;   // the walk never came to it
+      memo.hi = start;
+      memo.path = walked;
+      memo.valid = true;
       if (!have) {
         section(sh, y, s, ln, a, hi, ln.g == 0, 2, tol_exit);
+        if (counts) ++trips[T_ROUNDS];
         total = group_sum(sh, a);
         hevals = sh.gevals[2][0];
       }
@@ -1161,6 +1282,7 @@ __global__ void __launch_bounds__(BLOCK, 1)
   T alpha = alpha_u, beta = beta_u, prev = INFINITY;
   bool done = false, bad_seen = false;
   int iters = 0, ran = 0, par = 0;
+  Memo<T> memo{T(0), ~0ULL, false};
   T* objs = a.objectives + (long long)b * a.max_iters;
   if (method != UNIFORM) {
     for (int i = 0; i < a.max_iters && !done; ++i, ++ran) {
@@ -1181,7 +1303,7 @@ __global__ void __launch_bounds__(BLOCK, 1)
       }
       T beta_n = method == BARRIER
           ? barrier(sh, x, a, alpha_n, beta, trips)
-          : sca(sh, x, y, ln, a, alpha_n, beta, trips, par);
+          : sca(sh, x, y, ln, a, alpha_n, beta, trips, par, memo);
       T obj = objective(sh, a, x, alpha_n, beta_n, trips);
       // a non-finite iterate must not poison the carry
       bool bad = !isfinite(obj);

@@ -489,11 +489,12 @@ def fold_words(words: Tensor, mesh=None) -> Tensor:
 # the on-device eq. (28) solver
 # ---------------------------------------------------------------------------
 
-# the sequential function's trips, then the speculative golden sections
-# of the dual search that its walk did not take
+# the sequential function's trips, then the dual search's speculative
+# rounds (one cluster barrier each) and the golden sections they ran that
+# its walk did not take
 ALLOC_TRIPS = ('outer', 'alpha', 'chains', 'newton', 'sca', 'dual', 'grow',
                'bisect', 'golden', 'eval', 'barrier', 'backtrack',
-               'objective', 'spec_golden')
+               'objective', 'spec_rounds', 'spec_golden')
 ALLOC_LAYOUT = ('threads', 'lanes', 'groups', 'parts', 'cluster', 'nodes',
                 'depth')
 
@@ -519,7 +520,7 @@ def alloc_layout(nb: int, k: int, method: str = 'alternating',
     clients (``ALLOC_LAYOUT``) in ``dtype``: threads a block, lanes a
     client in a golden section, groups of lanes a block, blocks that hold
     the clients once (parts), blocks a problem (a cluster of replicas x
-    parts), groups that take a dual price, bisection levels a round.
+    parts), groups that take a dual price, levels of a full subtree round.
     Needs the card."""
     from repro_torch.core import allocation_jax as AJ
     AJ._check_method(method)

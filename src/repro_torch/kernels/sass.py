@@ -434,7 +434,7 @@ MAIN_PATHS = {
         'coordinate': (),
         'plane': (),
     }),
-    'alloc_solve': ('19171ec8d61a8167', {
+    'alloc_solve': ('a7ae398911689dfa', {
         # alloc_solve_kernel (float64, blocks of 256 threads): one trip of
         # each loop by one client's thread, read from the loop structure
         # (sass.regions) and the branches of the build's SASS: the grid
@@ -450,20 +450,20 @@ MAIN_PATHS = {
         # trip.  The float64 divisions' slow path, pow's and exp's
         # subroutines are CALLs outside the spans (a division on its fast
         # path is inline).  The other units have no span of their own.
-        'grid_point': ((0x06b30, 0x08480),),
-        'newton_step': ((0x095d0, 0x0c0e0),),
-        'golden_step': ((0x34fa0, 0x34fd0), (0x37970, 0x37ae0),
-                        (0x3d170, 0x3fe70)),
+        'grid_point': ((0x06ba0, 0x08510),),
+        'newton_step': ((0x09660, 0x0c130),),
+        'golden_step': ((0x362f0, 0x36320), (0x38c40, 0x38db0),
+                        (0x3e3f0, 0x410d0)),
         'golden_pair': (),
-        'barrier_step': ((0x5c730, 0x62490), (0x64e00, 0x662b0)),
-        'backtrack': ((0x624a0, 0x64df0),),
+        'barrier_step': ((0x5dbd0, 0x63930), (0x662c0, 0x67770)),
+        'backtrack': ((0x63940, 0x662b0),),
         'bracket': (),
         'alpha_client': (),
         'golden_call': (),
         'sca_round': (),
         'objective': (),
     }),
-    'alloc_solve_f32': ('ddd8e5afa6a30eb8', {
+    'alloc_solve_f32': ('f2de47abcf7775ba', {
         # alloc_solve_kernel<float>, the same units as alloc_solve's (its
         # float64 twin's build has alloc_solve's fingerprint: the template
         # left its SASS as it was).  The two functions have the same loop
@@ -476,13 +476,13 @@ MAIN_PATHS = {
         # step around the backtracking loop, and that loop.  The f32
         # divisions' slow path and powf's and expf's subroutines are CALLs
         # outside the spans.
-        'grid_point': ((0x05fe0, 0x06e20),),
-        'newton_step': ((0x07ed0, 0x09360),),
-        'golden_step': ((0x25a60, 0x25a90), (0x28470, 0x28580),
-                        (0x2bc00, 0x2d940)),
+        'grid_point': ((0x06140, 0x06f90),),
+        'newton_step': ((0x08020, 0x094a0),),
+        'golden_step': ((0x269c0, 0x269f0), (0x293e0, 0x29500),
+                        (0x2cb70, 0x2e8b0)),
         'golden_pair': (),
-        'barrier_step': ((0x42b70, 0x47520), (0x49f20, 0x4b3c0)),
-        'backtrack': ((0x47530, 0x49f10),),
+        'barrier_step': ((0x43cd0, 0x48670), (0x4b070, 0x4c510)),
+        'backtrack': ((0x48680, 0x4b060),),
         'bracket': (),
         'alpha_client': (),
         'golden_call': (),

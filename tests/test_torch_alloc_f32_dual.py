@@ -17,21 +17,26 @@ imports the module (the float32 solve never enters it) and takes both
 back after this file's tests, so no other test sees them.
 
 First test: the same iterations and exit reason as each other and as the
-kernel on the card, and every carry of all 16 dual searches bit for bit;
-the constraint sums within rtol ``SUM_RTOL`` (1e-3: the two sides' float32
+kernel on the card, and every carry of all 16 dual searches bit for bit
+up to the first bisection step that leaves its bracket as it was: there
+the port's bisection stops (``_dual``'s frozen exit), while the
+reference's runs its 60 steps, each of them that same carry again; the
+constraint sums within rtol ``SUM_RTOL`` (1e-3: the two sides' float32
 golden sections round apart, never across the test); the solutions
 within the f32 contract (objective rtol 1e-4, q/p atol 5e-3,
 ``tests/test_torch_allocation_jax_f32.py``).
 
-Second test: why the float32 solve leaves the kernel's spine.  On this
-problem the constraint is not met at any price in float64: each growth
-runs to the 1e30 cap and every bisection midpoint is infeasible (the
-spine), its bracket frozen only once float64 runs out of bits.  In
-float32 each growth stops a decade early, at float32(1e29), where the
+Second test: why the float32 solve leaves the kernel's all-infeasible
+prediction.  On this problem the constraint is not met at any price in
+float64: each growth runs to the 1e30 cap and every bisection midpoint
+is infeasible, its bracket frozen only once float64 runs out of bits.
+In float32 each growth stops a decade early, at float32(1e29), where the
 rounded objective is dominated by lambda * beta; its bisection then
-turns feasible at some midpoints (off the spine) and its bracket stops
-moving within ``F32_FROZEN`` (24) steps: every later step of the 60
-tests the same price again.
+turns feasible at some midpoints and its bracket stops moving within
+``F32_FROZEN`` (24) steps, where the exit ends it.
+
+Third test: with the exit the port's solve of the problem equals, in
+every output bit, its solve with the bisection's fixed 60 trips.
 """
 import importlib
 import json
@@ -84,8 +89,19 @@ def kept():
     return rec, AJ.JaxAllocationProblem(**fields)
 
 
-def _port(prob, method, max_iters):
-    """The port's plain solve with its dual search recorded."""
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """Small tensors: one intra-op thread (the suite runs in several
+    workers, and more threads only contend), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port(prob, method, max_iters, fixed: bool = False):
+    """The port's plain solve with its dual search recorded; ``fixed``:
+    its bisection runs the fixed 60 trips (no frozen exit)."""
     rec = []
     fori, msum = AJ._bounded_fori, AJ._msum
 
@@ -103,7 +119,8 @@ def _port(prob, method, max_iters):
             rec.append((n, float(new[0].reshape(-1)[0]),
                         float(new[1].reshape(-1)[0])))
             return new
-        return fori(n, step, init, stop, early_exit)
+        return fori(n, step, init, stop,
+                    early_exit and not (fixed and n == AJ.BISECT_STEPS))
 
     AJ._bounded_fori, AJ._msum = loop, sums
     try:
@@ -178,19 +195,44 @@ def _brackets(steps):
     return [s[:3] for s in steps]
 
 
+def _frozen_prefix(mine, theirs):
+    """The port's steps of each dual search against the reference's: the
+    same growth, and the port's bisection a prefix of the reference's
+    that ends at the first step leaving its bracket as it was, after
+    which every step of the reference's has that bracket.  -> the
+    reference's steps that the port's match, in order."""
+    kinds_m, kinds_t = [s[0] for s in mine], [s[0] for s in theirs]
+    duals_m, duals_t = _duals(kinds_m), _duals(kinds_t)
+    assert len(duals_m) == len(duals_t)
+    matched = []
+    for (a0, a1), (b0, b1) in zip(duals_m, duals_t):
+        ours, ref = mine[a0:a1], theirs[b0:b1]
+        assert _brackets(ours) == _brackets(ref[:len(ours)])
+        bis = [s for s in ours if s[0] == AJ.BISECT_STEPS]
+        prev = bis[-2][1:3] if len(bis) > 1 else (0.0, [
+            s for s in ours if s[0] == AJ.GROW_STEPS][-1][1])
+        assert bis[-1][1:3] == prev            # frozen where it stopped
+        assert all(s[1:3] == prev for s in ref[len(ours):])
+        matched += ref[:len(ours)]
+    return matched
+
+
 def test_f32_dual_search_is_the_references(RAJ, kept, port_f32):
     """Iterations, exit reason and every carry of the dual searches bit
-    for bit; constraint sums within ``SUM_RTOL``; the solutions within
-    the f32 contract."""
+    for bit up to the frozen exit (the reference's later steps repeat the
+    frozen carry); constraint sums within ``SUM_RTOL``; the solutions
+    within the f32 contract."""
     rec, prob = kept
     got, got_rec = port_f32
     ref, ref_rec = _reference(RAJ, prob, rec['method'], rec['max_iters'])
     assert int(got.iters) == int(ref.iters) == rec['iters']
     assert int(got.exit_reason) == int(ref.exit_reason) == rec['exit_reason']
     mine, theirs = _steps(got_rec), _steps(ref_rec)
-    assert _brackets(mine) == _brackets(theirs)
+    matched = _frozen_prefix(mine, theirs)
     assert len(_duals([s[0] for s in mine])) == rec['trips']['dual']
-    np.testing.assert_allclose([s[3] for s in mine], [s[3] for s in theirs],
+    assert sum(s[0] == AJ.BISECT_STEPS for s in mine) == rec['trips']['bisect']
+    np.testing.assert_allclose([s[3] for s in mine],
+                               [s[3] for s in matched],
                                rtol=SUM_RTOL, atol=0)
     assert float(got.objective) == pytest.approx(float(ref.objective),
                                                  rel=F32['obj_rtol'])
@@ -223,7 +265,8 @@ def test_f32_dual_search_leaves_the_spine_where_f64_keeps_it(kept,
     """The float64 solve of the same problem grows every bracket to the
     1e30 cap and keeps every midpoint infeasible; the float32 one stops
     growing at float32(1e29), turns feasible at some midpoints and
-    freezes its bracket within ``F32_FROZEN`` steps."""
+    freezes its bracket within ``F32_FROZEN`` steps.  Each bisection ends
+    at its first frozen step."""
     rec, prob = kept
     p64 = prob._replace(**{f: getattr(prob, f).double()
                            for f in prob._fields
@@ -237,5 +280,24 @@ def test_f32_dual_search_leaves_the_spine_where_f64_keeps_it(kept,
         assert set(m64.rstrip('=')) == {'I'}
         assert g32 == AJ.GROW_STEPS and hi32 == cap32
         assert 'F' in m32 and m32.index('=') <= F32_FROZEN
-        assert set(m32[m32.index('='):]) == {'='}
+        assert m32.count('=') == m64.count('=') == 1
+        assert m32.endswith('=') and m64.endswith('=')
     print(f'float32: {f32[0]}; float64: {f64[0]}')
+
+
+def test_f32_exit_outputs_equal_the_fixed_trip_form(kept, port_f32):
+    """The port's solve of the kept problem with the frozen exit equals,
+    in every output bit, its solve whose bisections run their fixed 60
+    trips; every carry of the fixed form after an exit is the frozen one
+    (and, with the first test, the reference's)."""
+    rec, prob = kept
+    got, got_rec = port_f32
+    fixed, fixed_rec = _port(prob, rec['method'], rec['max_iters'],
+                             fixed=True)
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(fixed, name)
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), name
+    mine, theirs = _steps(got_rec), _steps(fixed_rec)
+    _frozen_prefix(mine, theirs)
+    assert sum(s[0] == AJ.BISECT_STEPS for s in theirs) == (
+        AJ.BISECT_STEPS * rec['trips']['dual'])

@@ -1,7 +1,9 @@
 """The port's eq. (28) engine as an engine, on the CPU through the plain
 version: a batched solve equals a loop of single solves bit for bit, a
 ragged padded batch equals the unpadded solves bit for bit, the early
-exit equals the fixed-trip loops bit for bit, and the simulator runs
+exit equals the fixed-trip loops bit for bit (and the dual bisection's
+frozen exit its fixed 60 trips, in float64 and float32), and the
+simulator runs
 with ``allocation_backend='jax'`` (its round against the 'numpy'
 backend's is in ``test_torch_allocation_jax_exits.py``, for time)."""
 import dataclasses
@@ -17,6 +19,16 @@ from repro_torch.training import fl_loop
 from repro_torch.training.fl_loop import build_simulator
 
 K, PER_DEVICE = 4, 16
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """Small tensors: one intra-op thread (the suite runs in several
+    workers, and more threads only contend), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_same(got, want, k=None):
@@ -75,6 +87,57 @@ def test_early_exit_equals_the_fixed_trip_loops(method, max_iters):
     fixed = AJ.solve_traceable(prob, method, max_iters=max_iters,
                                early_exit=False)
     assert_same(early, fixed)
+
+
+@pytest.fixture
+def bisections(monkeypatch):
+    """Count the trips of every dual bisection loop of the plain version
+    (``_dual``'s ``_bounded_fori`` of BISECT_STEPS), and with ``fixed``
+    set run them as their fixed-trip form: no frozen exit, every frozen
+    trip run.  -> a dict: 'trips' (one entry a loop), 'fixed'."""
+    fori = AJ._bounded_fori
+    out = {'trips': [], 'fixed': False}
+
+    def loop(n, body, init, stop, early_exit):
+        if n != AJ.BISECT_STEPS:
+            return fori(n, body, init, stop, early_exit)
+        out['trips'].append(0)
+
+        def counted(i, carry):
+            out['trips'][-1] += 1
+            return body(i, carry)
+        return fori(n, counted, init, stop, early_exit and not out['fixed'])
+
+    monkeypatch.setattr(AJ, '_bounded_fori', loop)
+    return out
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('method', AJ.METHODS)
+def test_frozen_bisection_exit_changes_no_output_bit(bisections, method,
+                                                     dtype):
+    """A ragged batch (K = 4 and 6, zero-padded; the eq. (27)
+    coefficients scaled by 1e6, which puts the dual price within a
+    decade of the bracket's top, so that a float64 bracket freezes
+    within the 60 trips too): every output of the solve with the dual
+    bisection's frozen exit equals that of its fixed-trip form bit for
+    bit; on the alternating method the exit leaves every bisection
+    before its 60th trip (float32 brackets within ~28, float64 ones
+    within ~57)."""
+    probs = [problems(4, -10.0, 5)[1], problems(6, -22.0, 6)[1]]
+    batch = AJ.stack_problems(probs, dtype=dtype, device='cpu')
+    batch = batch._replace(**{f: getattr(batch, f) * 1e6 for f in 'ABCD'})
+    early = AJ.solve_batched(batch, method, max_iters=1)
+    bisections['fixed'] = True
+    fixed = AJ.solve_batched(batch, method, max_iters=1)
+    assert_same(early, fixed)
+    n = len(bisections['trips']) // 2
+    if method == 'alternating':
+        assert n > 0 and bisections['trips'][n:] == [AJ.BISECT_STEPS] * n
+        assert max(bisections['trips'][:n]) < (
+            30 if dtype == torch.float32 else AJ.BISECT_STEPS)
+    else:
+        assert n == 0
 
 
 # ---------------------------------------------------------------------------

@@ -131,6 +131,19 @@ def test_uniform_matches_jax(seed, lo, span):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize('lo', [-1.1754943508222875e-38, -2.0 ** -100,
+                                -1e-30])
+def test_uniform_matches_jax_at_a_tiny_minval(lo):
+    """A minval far below the draws' ulp: XLA's fused multiply-add rounds
+    the scaled draw plus minval once, so a product on a float32 midpoint
+    goes to the side of minval's sign (``_fma32`` rounds once too)."""
+    hi = float(np.float32(lo + 1.5))
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (257,),
+                                         minval=lo, maxval=hi))
+    got = TF.uniform(TF.key(0), (257,), lo, hi).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_per_id_scalar_uniforms_match_vmapped_jax():
     """The population's per-device pattern: uniform(fold_in(k, id), ())
     over ids up to 999,999, and past 2^31."""
