@@ -45,7 +45,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    its plain solve (``check_alloc_layouts``);
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
-   2000 test images) for 5 rounds, with every kernel launch counter reset
+   2000 test images) for 3 rounds, with every kernel launch counter reset
    just before and read just after; then the device operations of one
    more round under ``torch.profiler``; the solver kernel on that run's
    own host problems against the host solutions
@@ -72,8 +72,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    a round on that round's row of the fading trajectory, the four round
    kernels 5, 5, 10 and 10 times, rows that differ, ``check_no_sync`` on
    a trajectory row, each solve timed alone with its trips and whether
-   its dual searches kept to the spine, and rounds 1 and 4's problems
-   solved by the host solver and the kernel within the contract,
+   its dual searches kept to the spine, and round 4's problem solved by
+   the host solver and the kernel within the contract,
    ``check_host_problems``); the same with the 'numpy' backend for 2
    rounds (2 host solves); dds, onebit and scheduling for 3 rounds each
    on the bit channel's calibration and on Bernoulli draws (analytic
@@ -159,9 +159,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    step against their plain versions on the bit-level step's gradients
    at the embedding (n = 28,311,552) and final_norm (n = 576) leaves,
    ``corrupt_fold`` at the step's BER and at BER 0 and 1, timed at the
-   embedding leaf (``llm_leaf_kernels``); and the reduced model's tree
+   embedding leaf (``llm_leaf_kernels``); the reduced model's tree
    transport on the card against the CPU given the same gradients and
-   draws (``check_llm_transport_card_vs_cpu``).
+   draws (``check_llm_transport_card_vs_cpu``); and one step from one
+   state under each ``remat_policy`` ('none', 'dots', 'full'): losses,
+   per-client gradients, parameters and ḡ bit for bit, each policy's
+   step ms and peak bytes (``llm_remat``).  Phases 11-14 run each
+   configuration's ``remat_policy``, 'full' (the reference's default).
 
 12. the sharded collective, fused LLM rounds and LLM population mode
     (``run_sharded``, ``run_llm_fused``): the flat transports (spfl,
@@ -216,19 +220,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     TF32, threads); the 'model' axis (``training/model_axis.py``) at
     (data=1, model=2), two gloo ranks of this script on the one card
     (``--model-rank``), and at (data=1, model=1) over NCCL in this
-    process: smollm-135m at full width, K = 4 clients of 4 x 256 tokens,
-    packed wire, bit channel, deterministic, 3 and 2 steps beside the
-    unsharded step on the same draws (``model_axis_steps``: every
-    per-client gradient block its slice of the unsharded pass bit for
-    bit; ``sign_ok``, ``mod_ok``, flips, CRC verdicts, ``g_min`` and
-    ``g_max`` exactly; the parameters and ḡ within 9.9e-8 of each leaf's
-    largest magnitude, ||g_k||^2 within ``model_axis.g2_rtol``), each
-    step's ms and a rank's bytes of parameters, gradient stack and ḡ
-    (``launch.shardings``' blocks) against the unsharded step's;
+    process: K = 4 clients of 4 x 256 tokens, packed wire, bit channel,
+    deterministic, 1 step each beside the unsharded step on the same
+    draws, every leaf gathered at use (mamba2-130m at full width on the
+    gloo ranks, which takes no tensor parallelism; smollm-135m on the
+    one NCCL rank) (``model_axis_steps``: every per-client gradient
+    block its slice of the unsharded pass bit for bit; ``sign_ok``,
+    ``mod_ok``, flips, CRC verdicts, ``g_min`` and ``g_max`` exactly; the
+    parameters and ḡ within 9.9e-8 of each leaf's largest magnitude,
+    ||g_k||^2 within ``model_axis.g2_rtol``); then on the two gloo ranks
+    tensor parallel (``models.parallel``, float32 partial products) on
+    smollm-135m (1 step) and on one full-width group of granite-8b
+    (K = 2 of 4 x 256, 1 step): each gradient block within
+    ``VMAP_RTOL`` of the leaf's largest |g| of the unsharded pass (each
+    one's distance from the float32 pass of the same weights printed
+    beside), and the same integers, parameters, ḡ and ||g_k||^2 given
+    the same gradients; each step's ms, a rank's FLOPs (``FlopCounterMode``)
+    and bytes of parameters, gradient stack and ḡ (``launch.shardings``'
+    blocks) against the unsharded step's;
     ``examples.fl_train_lm --full --seq 256`` for 3 steps and
     ``examples.serve_batched`` on smollm-135m; and, in a process of its
     own beside that card work (``--dryrun``), the dry run of
-    smollm-135m and mamba2-130m x the four shapes x both production
+    smollm-135m x the four shapes x both production
     meshes (``build/dryrun/``), each record's bytes a rank against 80
     GB, FLOPs and collectives printed.
 
@@ -261,6 +274,7 @@ nothing of JAX and nothing of the reference package ``repro``.  Kernel libraries
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -2922,7 +2936,7 @@ def run_fading_and_baselines(main_sim) -> dict:
       one ``alloc_solve`` a round on that round's gains and the four round
       kernels; the trajectory's rows differ; nothing from the gradients
       to (q, p) waits for the card; each solve timed alone, with its
-      trips and whether it kept to the spine; rounds 1 and 4's problems
+      trips and whether it kept to the spine; round 4's problem
       solved by the host solver and by the kernel, within the contract;
     * per-round cadence, 'numpy' backend (2 rounds): two host solves;
     * dds, onebit and scheduling (3 rounds each) on the bit channel's
@@ -2964,8 +2978,8 @@ def run_fading_and_baselines(main_sim) -> dict:
           flush=True)
     solves = time_device_solves(sim, kept, 'fading-jax')
     check_no_sync(sim, 'fading-jax', gains=traj[-1])
-    check_host_problems(host_problems(sim, kept, (1, 4), 2), 2,
-                        'fading-jax rounds 1 and 4\'s')
+    check_host_problems(host_problems(sim, kept, (4,), 2), 2,
+                        'fading-jax round 4\'s')
 
     fl_n = FLConfig(wire='packed', channel='bitlevel',
                     allocation_cadence='per_round')
@@ -4219,6 +4233,103 @@ def llm_step(label: str, fl, kind: str, want: dict, seed: int,
                 telemetry=tel, stats=tr.tree_client_stats(grads))
 
 
+REMAT_POLICIES = ('none', 'dots', 'full')
+
+
+def llm_remat(seed: int = 11) -> dict:
+    """One ``make_fl_train_step`` step of smollm-135m at full width (K=4
+    clients of 8 x 256 tokens, packed wire, Bernoulli channel,
+    deterministic algorithms) from the same state under each
+    ``remat_policy``: the losses, the per-client gradients (``client_grads``
+    kept), the new parameters and ḡ of 'dots' and 'full' equal 'none'
+    bit for bit.  Each policy's step is timed after one untimed step of
+    its own (the allocator's cache released before the untimed one, so
+    the timed step reuses what that one allocated); its peak is
+    ``torch.cuda.max_memory_allocated`` over the timed step, from the
+    allocated bytes before it.  -> {policy: {'ms',
+    'peak_gib', 'base_gib'}}."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import transport as tr
+    from repro_torch.data import synth_tokens
+    from repro_torch.training import distributed as dist
+    base = get_arch(LLM_ARCH)
+    params = llm_params(base, seed)
+    toks = torch.as_tensor(synth_tokens(LLM_K * 8, 256, base.vocab_size,
+                                        seed).reshape(LLM_K, 8, 256),
+                           device='cuda')
+    gbar = dist.init_gbar(params)
+    q = torch.tensor([0.55, 0.7, 0.85, 1.0], device='cuda')
+    p = torch.tensor([0.9, 0.6, 0.75, 0.95], device='cuda')
+    fl = FLConfig(n_devices=LLM_K, learning_rate=LLM_RUN['lr'],
+                  wire='packed')
+    sizes = [int(x.numel()) for x in tree.leaves(params)]
+
+    def draws():
+        """The step's draws, the same for every policy (the uniforms
+        are drawn as the transport asks for them)."""
+        return tr.make_tree_draws(
+            LLM_K, sizes, 0, fl.channel, 'cuda',
+            torch.Generator(device='cuda').manual_seed(seed),
+            torch.Generator().manual_seed(seed))
+
+    orig = dist.client_grads
+    out, first = {}, None
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        step = dist.make_fl_train_step(cfg, fl, deterministic=True)
+        kept = []
+
+        def keep(*args, **kw):
+            kept.append(orig(*args, **kw))
+            return kept[-1]
+
+        dist.client_grads = keep
+        try:
+            free_card()
+            step(params, {'tokens': toks}, gbar, q, p, draws())
+            kept.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            step_draws = draws()
+            t0 = time.perf_counter()
+            new_p, new_g, m = step(params, {'tokens': toks}, gbar, q, p,
+                                   step_draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            dist.client_grads = orig
+        losses, grads = kept[0]
+        got = [losses] + tree.leaves(grads) + tree.leaves(new_p) + \
+            tree.leaves(new_g)
+        if first is None:
+            first = got
+        else:
+            bad = [i for i, (a, b) in enumerate(zip(got, first))
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f'llm remat {policy}: outputs {bad} '
+                                     "differ from 'none' (losses, "
+                                     'gradients, parameters, gbar)')
+        out[policy] = dict(ms=ms, peak_gib=(peak - before) / 2 ** 30,
+                           base_gib=before / 2 ** 30)
+        print(f'llm remat {policy}: step {ms:.3f} ms, peak '
+              f'{out[policy]["peak_gib"]:.3f} GiB above the '
+              f'{out[policy]["base_gib"]:.3f} GiB held before it; loss '
+              f'{float(m["loss"]):.6f}', flush=True)
+        del kept, grads, losses, new_p, new_g, m, got, step_draws
+    print("llm remat: 'dots' and 'full' equal 'none' bit for bit (losses, "
+          'per-client gradients, new parameters, gbar)', flush=True)
+    del first
+    free_card()
+    return out
+
+
 def llm_leaf_kernels(bit: dict, timed_leaf: str = 'embed') -> dict:
     """The three kernels of the tree step against their plain versions on
     the bit-level step's own gradients at the embedding and final_norm
@@ -4436,8 +4547,11 @@ def run_llm() -> dict:
     step 1, the idle share); one bit-level step (22 ``corrupt_fold``),
     one error_free step; the three kernels at the embedding and
     final_norm leaves (``llm_leaf_kernels``); the reduced model's
-    transport on the card against the CPU.  -> {'rows': the three
-    kernels' timed leaf results, 'launches': the counts of the run}."""
+    transport on the card against the CPU; one step under each
+    ``remat_policy`` from one state, bit for bit (``llm_remat``).  The
+    steps run the configuration's ``remat_policy`` ('full', as the
+    reference).  -> {'rows': the three kernels' timed leaf results,
+    'launches': the counts of the run, 'remat': each policy's step}."""
     import torch
     from repro_torch.configs.base import FLConfig
     from repro_torch.kernels import ops
@@ -4501,11 +4615,13 @@ def run_llm() -> dict:
              {'quantize_pack': 11, 'spfl_accumulate': 11}, seed=4)
     torch.cuda.empty_cache()
     check_llm_transport_card_vs_cpu()
+    remat = llm_remat()
     launches = {'quantize_pack': counts['quantize_pack'],
                 'spfl_accumulate': counts['spfl_accumulate'],
                 'corrupt_fold': 22}
     return dict(rows=rows, launches=launches, step_ms=[
-        t * 1e3 for t in hist['step_s']], solves=solves, **profiled)
+        t * 1e3 for t in hist['step_s']], solves=solves, remat=remat,
+        **profiled)
 
 
 # ---------------------------------------------------------------------------
@@ -5398,8 +5514,8 @@ def record_drops(drops: list):
     from repro_torch.models import transformer as tf
     orig = tf.moe_forward
 
-    def wrapped(p, cfg, x):
-        y, aux = orig(p, cfg, x)
+    def wrapped(p, cfg, x, tp=None):
+        y, aux = orig(p, cfg, x, tp)
         drops.append(aux['drop_frac'])
         return y, aux
 
@@ -5722,7 +5838,7 @@ def run_zoo() -> dict:
 # two gloo ranks share the card (NCCL takes one rank a card)
 MODEL_AXIS_MESH = ((1, 2), ('data', 'model'))
 MODEL_AXIS_NCCL = ((1, 1), ('data', 'model'))
-MODEL_AXIS_STEPS = 3
+MODEL_AXIS_STEPS = 1
 # smollm-135m at full width: K = 4 clients of 4 x 256 tokens (each of the
 # two ranks on the card holds a step and the unsharded step beside it:
 # at 8 x 256 a rank took 32.2 GiB, and beside the script's own leftovers
@@ -5732,8 +5848,25 @@ MODEL_AXIS_RUN = dict(k=LLM_K, b=4, t=256)
 # largest magnitude (the sharded collective's bound for reordered float32
 # sums)
 MODEL_AXIS_RTOL = 9.9e-8
+# a tensor-parallel gradient block in float32 against the unsharded
+# float32 pass, of the leaf's largest |g| (tests/test_torch_model_axis.py's
+# GRAD_ATOL)
+MODEL_AXIS_F32_ATOL = 1e-5
+# every leaf gathered at use on the same two ranks: an attention-free
+# model takes no tensor parallelism
+MODEL_AXIS_GATHERED = 'mamba2-130m'
+# tensor parallelism on the same two ranks: (arch, steps, run) by label;
+# smollm-135m (9 heads: attention gathered; MLP and vocabulary split) and
+# one full-width group of granite-8b (32 heads, 8 kv heads, d_ff 14,336,
+# vocab 49,152: every kind of parallel layer), K = 2 clients of 4 x 256
+# there (each rank holds its step and the unsharded step: the K x dim x
+# 4-byte uniforms alone are 5 GB a rank at K = 2)
+MODEL_AXIS_TP = {
+    'tp_smollm': (LLM_ARCH, 1, {}),
+    'tp_granite_group': ('granite-8b', 1, dict(k=2, b=4, t=256)),
+}
 PHASE14_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold')
-DRYRUN_ARCHS = ('smollm-135m', 'mamba2-130m')
+DRYRUN_ARCHS = ('smollm-135m',)
 DRYRUN_TIMEOUT_S = 400
 DRIVER_STEPS = 3
 # fl_train_lm --full's 4 clients of 8 x 1024 tokens do not fit the card
@@ -5750,20 +5883,108 @@ def model_axis_bytes(layout, k_local: int, k: int) -> dict:
             'unsharded': MA.rank_bytes(layout, k, whole=True)}
 
 
+def step_flops(step, *args) -> float:
+    """FLOPs of one call ``step(*args)`` (``FlopCounterMode``: matmuls,
+    convolutions, attention)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(*args)
+    return float(counter.get_total_flops())
+
+
+def rounded_once(x, w):
+    """``x @ w`` as a float32 GEMM rounded to x's dtype once (the
+    control of :func:`tp_gradient_errors`)."""
+    import torch
+    return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+
+
+def tp_gradient_errors(cfg, mesh, layout, params, blocks, toks, got,
+                       want) -> dict:
+    """A tensor-parallel rank's per-client gradient blocks ``got`` (bf16
+    weights) against the unsharded pass's ``want``, each leaf's largest
+    distance over its largest |g|, beside two others of the same leaf:
+    'control', the unsharded pass again with every ``common.dot``
+    product of the attention and the MLP taken as a float32 GEMM rounded
+    once (the float32 partial products' rounding, with no split and no
+    collective) against the unsharded pass ('tp_vs_control': the
+    tensor-parallel pass against the control); 'f32', the tensor-parallel
+    pass against the unsharded one with both in float32 (the same
+    weights cast up).  Holds 'f32' within ``MODEL_AXIS_F32_ATOL`` (the
+    CPU tests' bound) and the bf16 distance within the control's plus
+    ``VMAP_RTOL``.  -> {path: {'tp', 'control', 'tp_vs_control', 'f32'}}."""
+    from unittest import mock
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import attention, mlp
+    from repro_torch.training import distributed as D
+    from repro_torch.training import model_axis as MA
+
+    def dist(a, b, whole) -> float:
+        scale = max(float(whole.abs().max()), 1e-30)
+        return float((a.double() - b.double()).abs().max()) / scale
+
+    with mock.patch.object(attention, 'dot', rounded_once), \
+            mock.patch.object(mlp, 'dot', rounded_once):
+        ctl = tree.leaves(D.client_grads(params, cfg, toks, True)[1])
+    errs = {}
+    for i, (g, w, c) in enumerate(zip(got, want, ctl)):
+        errs[layout.paths[i]] = {
+            'tp': dist(g, layout.block_of(i, w, 1), w),
+            'control': dist(c, w, w),
+            'tp_vs_control': dist(g, layout.block_of(i, c, 1), c)}
+    del ctl
+
+    def f32(t):
+        return tree.map(lambda x: x.to(torch.float32), t)
+
+    exact = tree.leaves(D.client_grads(f32(params), cfg, toks, True)[1])
+    _, got32 = MA.client_grads(f32(blocks), cfg, toks, layout, True)
+    for i, (g, e) in enumerate(zip(got32, exact)):
+        errs[layout.paths[i]]['f32'] = dist(g, layout.block_of(i, e, 1), e)
+    del exact, got32
+    worst = sorted(errs, key=lambda p: errs[p]['tp'], reverse=True)[:6]
+    print(f'{cfg.name} {mesh.coords}: gradient blocks / leaf max |g| '
+          '(tensor parallel against the unsharded pass; control; float32 '
+          'tensor parallel against float32 unsharded): ' + '; '.join(
+              f'{p} {errs[p]["tp"]:.3e} ({errs[p]["control"]:.3e}; '
+              f'{errs[p]["f32"]:.3e})' for p in worst),
+          file=sys.stderr, flush=True)
+    bad = {p: e for p, e in errs.items()
+           if not (e['f32'] <= MODEL_AXIS_F32_ATOL
+                   and e['tp'] <= e['control'] + VMAP_RTOL)}
+    if bad:
+        raise AssertionError(f'{cfg.name} {mesh.shape}: tensor-parallel '
+                             'gradient blocks past their bounds (float32 '
+                             f'{MODEL_AXIS_F32_ATOL}; bf16 the control + '
+                             f'{VMAP_RTOL}): {bad}')
+    return errs
+
+
 def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
                      steps: int = MODEL_AXIS_STEPS, seed: int = 14,
-                     **run) -> dict:
-    """``steps`` FL steps of ``arch`` on the production ``mesh``
-    (``make_fl_train_step(mesh=)``: the rank's blocks, gathered at use;
-    packed wire, bit channel, deterministic algorithms) beside the
-    unsharded step on the same tokens, (q, p) and draws, each from its
-    own state: before the first, every per-client gradient block against
-    the same slice of the unsharded pass bit for bit; each step, the
-    integers (``sign_ok``, ``mod_ok``, flips, CRC verdicts, ``g_min``,
-    ``g_max``) exactly, the parameters and ḡ within ``MODEL_AXIS_RTOL``
-    of each leaf's largest magnitude and ||g_k||^2 within
-    ``model_axis.g2_rtol`` relative.  -> step ms (sharded and unsharded), the
-    worst errors, the rank's bytes and the sharded steps' launches."""
+                     cfg=None, **run) -> dict:
+    """``steps`` FL steps of ``arch`` (or ``cfg``) on the production
+    ``mesh`` (``model_axis.make_fl_train_step``: the rank's blocks; packed
+    wire, bit channel, deterministic algorithms) beside the unsharded
+    step on the same tokens, (q, p) and draws, each from its own state.
+
+    Every leaf gathered at use (a model that takes no tensor parallelism,
+    or one model rank): before the first step every per-client gradient
+    block against the same slice of the unsharded pass bit for bit; each
+    step, the integers (``sign_ok``, ``mod_ok``, flips, CRC verdicts,
+    ``g_min``, ``g_max``) exactly, the parameters and ḡ within
+    ``MODEL_AXIS_RTOL`` of each leaf's largest magnitude and ||g_k||^2
+    within ``model_axis.g2_rtol`` relative.  Tensor parallel
+    (``models.parallel``): each gradient block against the unsharded
+    pass as :func:`tp_gradient_errors` holds it.  Each
+    step the unsharded step is handed the sharded step's gradients
+    (gathered over 'model'), so the same integers, parameters, ḡ and
+    ||g_k||^2 are held given the same gradients, and after the timed
+    steps one more step of each under ``FlopCounterMode``.  -> step ms (sharded and unsharded), the worst
+    errors, FLOPs, the rank's bytes and the sharded steps' launches."""
+    from unittest import mock
     import torch
     from repro_torch import tree
     from repro_torch.configs.base import FLConfig
@@ -5776,36 +5997,60 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
     from repro_torch.training import model_axis as MA
     run = {**MODEL_AXIS_RUN, **run}
     k, b, t = run['k'], run['b'], run['t']
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if cfg is None else cfg
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
     params = tree.map(lambda x: x.to(dev), tf.init_params(
         cfg, torch.Generator().manual_seed(seed)))
     layout = MA.Layout(cfg, mesh)
+    tensor_parallel = 'block' in layout.uses
     blocks = tree.map(torch.clone, MA.shard_params(params, layout))
     gbar = D.init_gbar(params)
     gbar_blocks = tree.map(torch.clone, MA.shard_params(gbar, layout))
     fl = FLConfig(n_devices=k, wire='packed', channel='bitlevel')
-    sharded = D.make_fl_train_step(cfg, fl, mesh=mesh, deterministic=True)
+    sharded = MA.make_fl_train_step(cfg, fl, 'spfl', mesh, True)
     plain = D.make_fl_train_step(cfg, fl, deterministic=True)
     toks = torch.as_tensor(synth_tokens(k * b, t, cfg.vocab_size, seed)
                            .reshape(k, b, t), device=dev)
     rows = mesh.clients.rows(k)
+    if mesh.clients.size != 1:
+        raise ValueError('the model-axis check runs one client rank')
     q = torch.full((k,), 0.95, device=dev)
     p = torch.full((k,), 0.9, device=dev)
     # the per-client gradient blocks, before the first step
     _, got = MA.client_grads(blocks, cfg, toks[rows], layout, True)
     _, want = D.client_grads(params, cfg, toks[rows], True)
-    for i, (g, w) in enumerate(zip(got, tree.leaves(want))):
-        if not torch.equal(g, layout.block_of(i, w, 1)):
-            raise AssertionError(f'{arch} {mesh.shape}: the gradient block '
-                                 f'of {layout.paths[i]} differs')
+    want = tree.leaves(want)
+    if not tensor_parallel:
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, layout.block_of(i, w, 1)):
+                raise AssertionError(f'{cfg.name} {mesh.shape}: the '
+                                     'gradient block of '
+                                     f'{layout.paths[i]} differs')
+        leaf_err = {}
+    else:
+        leaf_err = tp_gradient_errors(cfg, mesh, layout, params, blocks,
+                                      toks[rows], got, want)
     del got, want
     host = torch.Generator().manual_seed(seed + 1)
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sizes = [x.numel() for x in tree.leaves(params)]
     out = {'step_ms': [], 'plain_ms': [], 'params': 0.0, 'gbar': 0.0,
-           'g2': 0.0, 'flips': 0, 'counts': {}}
+           'g2': 0.0, 'flips': 0, 'counts': {}, 'leaf_err': leaf_err,
+           'uses': {u: layout.uses.count(u) for u in set(layout.uses)},
+           'arch': cfg.name, 'tensor_parallel': tensor_parallel}
     ints = ('sign_flips', 'mod_flips', 'sign_crc_ok', 'mod_crc_ok')
+    kept, passed = [], []
+    orig = MA.client_grads
+
+    def keep(*args, **kw):
+        kept.append(orig(*args, **kw))
+        return kept[-1]
+
+    def handed(*args, **kw):
+        """The sharded step's gradients, whole (the one client rank;
+        gathered before the timed step)."""
+        return passed[-1]
+
     for _ in range(steps):
         rand = [torch.rand((k, n), generator=gen, device=dev) for n in sizes]
         draws = tr.TreeDraws(rand, **{f: x.to(dev) for f, x in
@@ -5815,26 +6060,37 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
         sync()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        blocks, gbar_blocks, m = sharded(blocks, {'tokens': toks[rows]},
-                                         gbar_blocks, q, p, draws)
+        with mock.patch.object(MA, 'client_grads', keep):
+            blocks, gbar_blocks, m = sharded(blocks, {'tokens': toks[rows]},
+                                             gbar_blocks, q, p, draws)
         sync()
         out['step_ms'].append((time.perf_counter() - t0) * 1e3)
         for name, c in ops.launch_counts.items():
             if c:
                 out['counts'][name] = out['counts'].get(name, 0) + c
-        t0 = time.perf_counter()
-        params, gbar, rm = plain(params, {'tokens': toks}, gbar, q, p,
-                                 draws)
-        sync()
-        out['plain_ms'].append((time.perf_counter() - t0) * 1e3)
+        if tensor_parallel:
+            losses, g = kept[-1]
+            passed.append((losses, tree.unflatten(params, [
+                MA.gather_full(mesh, x, s, lead=1)
+                for x, s in zip(g, layout.specs)])))
+            sync()
+        with (mock.patch.object(D, 'client_grads', handed)
+              if tensor_parallel else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            params, gbar, rm = plain(params, {'tokens': toks}, gbar, q, p,
+                                     draws)
+            sync()
+            out['plain_ms'].append((time.perf_counter() - t0) * 1e3)
+        kept.clear()
+        passed.clear()
         del rand, draws
         bad = [f for f in ('sign_ok', 'mod_ok', 'g_min', 'g_max')
                if not torch.equal(m[f], rm[f])]
         bad += [f for f in ints if not torch.equal(
             getattr(m['telemetry'], f), getattr(rm['telemetry'], f))]
         if bad:
-            raise AssertionError(f'{arch} {mesh.shape}: {bad} differ from '
-                                 'the unsharded step')
+            raise AssertionError(f'{cfg.name} {mesh.shape}: {bad} differ '
+                                 'from the unsharded step')
         out['flips'] += int(rm['telemetry'].sign_flips.sum()
                             + rm['telemetry'].mod_flips.sum())
         for key, mine, whole in (('params', blocks, params),
@@ -5851,17 +6107,33 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
     out['g2_bound'] = MA.g2_rtol(len(sizes))
     if not (out['params'] <= MODEL_AXIS_RTOL and out['gbar']
             <= MODEL_AXIS_RTOL and out['g2'] <= out['g2_bound']):
-        raise AssertionError(f'{arch} {mesh.shape}: against the unsharded '
-                             f'step {out}')
+        raise AssertionError(f'{cfg.name} {mesh.shape}: against the '
+                             f'unsharded step {out}')
+    if tensor_parallel:
+        rand = [torch.rand((k, n), generator=gen, device=dev)
+                for n in sizes]
+        draws = tr.TreeDraws(rand, **{f: x.to(dev) for f, x in
+                                      tr.tree_host_draws(
+                                          k, len(sizes), 0, 'bitlevel',
+                                          host).items()})
+        out['flops'] = step_flops(sharded, blocks, {'tokens': toks[rows]},
+                                  gbar_blocks, q, p, draws)
+        out['plain_flops'] = step_flops(plain, params, {'tokens': toks},
+                                        gbar, q, p, draws)
     out['bytes'] = model_axis_bytes(layout, mesh.clients.k_local(k), k)
     out['coords'] = mesh.coords
+    if dev.type == 'cuda':
+        out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
 
 
 def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
     """A rank of phase 14's gloo run (``python3 chip_smoke.py
-    --model-rank R S PORT OUT``): ``model_axis_steps`` on the
-    (data=1, model=2) mesh; writes its results to OUT/rankR.json."""
+    --model-rank R S PORT OUT``) on the (data=1, model=2) mesh:
+    ``model_axis_steps`` on mamba2-130m (no tensor parallelism: every
+    leaf gathered at use), then tensor parallel on smollm-135m and on one
+    full-width group of granite-8b (``MODEL_AXIS_TP``); writes its
+    results to OUT/rankR.json."""
     import torch
     import torch.distributed as tdist
     sys.path.insert(0, str(SRC))
@@ -5871,8 +6143,15 @@ def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
     tdist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
                              rank=rank, world_size=world)
     try:
-        res = model_axis_steps(ProductionMesh(*MODEL_AXIS_MESH),
-                               torch.device('cuda'))
+        mesh = ProductionMesh(*MODEL_AXIS_MESH)
+        dev = torch.device('cuda')
+        res = {'gathered': model_axis_steps(mesh, dev, MODEL_AXIS_GATHERED)}
+        free_card()
+        for label, (arch, steps, run) in MODEL_AXIS_TP.items():
+            cfg = one_group(arch) if label.endswith('group') else None
+            res[label] = model_axis_steps(mesh, dev, arch, steps, cfg=cfg,
+                                          **run)
+            free_card()
         Path(out, f'rank{rank}.json').write_text(json.dumps(res))
     finally:
         tdist.destroy_process_group()
@@ -5882,12 +6161,41 @@ def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
 def print_model_axis(label: str, res: dict) -> None:
     gb = {side: {key: v / 1e9 for key, v in b.items()}
           for side, b in res['bytes'].items()}
-    print(f'{label}: step ms {json.dumps(res["step_ms"])} (unsharded '
-          f'{json.dumps(res["plain_ms"])}); gradient blocks and integers '
-          f'bit for bit, bit flips {res["flips"]}; params {res["params"]:.3e}'
-          f', gbar {res["gbar"]:.3e} (bound {MODEL_AXIS_RTOL}), g2 '
-          f'{res["g2"]:.3e} (bound {res["g2_bound"]:.3e}); GB at rest '
-          f'{json.dumps(gb)}; launches {json.dumps(res["counts"])}',
+    if res['tensor_parallel']:
+        errs = res['leaf_err'].values()
+        tp, ctl, tp_ctl, f32 = (max(e[key] for e in errs) for key in (
+            'tp', 'control', 'tp_vs_control', 'f32'))
+        n_past = sum(e['tp'] > VMAP_RTOL for e in errs)
+        grads = (f'gradient blocks within {tp:.3e} of each leaf\'s largest '
+                 f'|g| of the unsharded pass ({n_past} leaves past '
+                 f'VMAP_RTOL {VMAP_RTOL:.3e}; the control, the unsharded '
+                 f'pass with its products rounded once from float32, '
+                 f'{ctl:.3e}; each leaf within its control + VMAP_RTOL; '
+                 f'tensor parallel against the control {tp_ctl:.3e}), '
+                 f'in float32 within {f32:.3e} (bound '
+                 f'{MODEL_AXIS_F32_ATOL}), integers exact given the same '
+                 'gradients; the worst leaves (tp, control, f32) ' +
+                 '; '.join(f'{p} {e["tp"]:.3e} {e["control"]:.3e} '
+                           f'{e["f32"]:.3e}' for p, e in sorted(
+                               res['leaf_err'].items(),
+                               key=lambda pe: -pe[1]['tp'])[:4]))
+    else:
+        grads = 'gradient blocks and integers bit for bit'
+    flops = ''
+    if 'flops' in res:
+        flops = (f'FLOPs a step {res["flops"]:.4e} (unsharded '
+                 f'{res["plain_flops"]:.4e}, '
+                 f'{res["flops"] / res["plain_flops"]:.4f} of it); ')
+    beside = ('the unsharded step handed these gradients: its transport '
+              'and update' if res['tensor_parallel'] else 'unsharded')
+    print(f'{label} ({res["arch"]}; leaf uses {json.dumps(res["uses"])}): '
+          f'step ms {json.dumps(res["step_ms"])} ({beside} '
+          f'{json.dumps(res["plain_ms"])}); {grads}, bit flips '
+          f'{res["flips"]}; params {res["params"]:.3e}, gbar '
+          f'{res["gbar"]:.3e} (bound {MODEL_AXIS_RTOL}), g2 {res["g2"]:.3e} '
+          f'(bound {res["g2_bound"]:.3e}); {flops}GB at rest '
+          f'{json.dumps(gb)}; peak {res.get("peak_gib", 0.0):.3f} GiB '
+          f'(the process); launches {json.dumps(res["counts"])}',
           flush=True)
 
 
@@ -6009,10 +6317,11 @@ def phase14_drivers() -> dict:
 
 def run_phase14() -> dict:
     """Phase 14: ``launch.env``, the 'model' axis on the card (two gloo
-    ranks at (data=1, model=2) on smollm-135m at full width, and
-    (data=1, model=1) over NCCL in this process), the dry run and the
-    drivers (the dry run in a process of its own beside the card work).
-    -> the phase's launches by kernel (every rank)."""
+    ranks at (data=1, model=2): mamba2-130m at full width gathered at
+    use, then tensor parallel on smollm-135m and on one full-width group
+    of granite-8b; and (data=1, model=1) over NCCL in this process), the
+    dry run and the drivers (the dry run in a process of its own beside
+    the card work).  -> the phase's launches by kernel (every rank)."""
     import torch
     t0 = time.perf_counter()
     phase14_env()
@@ -6046,11 +6355,12 @@ def phase14_card() -> dict:
     t0 = time.perf_counter()
     ranks = spawn_ranks(2, '--model-rank')
     launched = {}
-    for r, res in enumerate(ranks):
-        print_model_axis(f'model axis (data=1, model=2; gloo rank {r}, '
-                         f'coords {res["coords"]})', res)
-        for name, c in res['counts'].items():
-            launched[name] = launched.get(name, 0) + c
+    for r, runs in enumerate(ranks):
+        for label, res in runs.items():
+            print_model_axis(f'model axis {label} (data=1, model=2; gloo '
+                             f'rank {r}, coords {res["coords"]})', res)
+            for name, c in res['counts'].items():
+                launched[name] = launched.get(name, 0) + c
     print(f'phase 14 model axis (gloo): {time.perf_counter() - t0:.3f} s',
           flush=True)
     t0 = time.perf_counter()
@@ -6167,7 +6477,7 @@ def main() -> int:
     fl = FLConfig(wire='packed', channel='bitlevel')
     host_solves = []
     sim, hist, counts = run_sim(
-        fl, 5, 'main', hook=lambda s: keep_host_solves(s, host_solves))
+        fl, 3, 'main', hook=lambda s: keep_host_solves(s, host_solves))
     want = fmt.measured_uplink_bits(sim.dim, fl.quant_bits, sim.K)
     if any(b != want for b in hist.payload_bits):
         raise AssertionError(f'payload_bits {hist.payload_bits} != '
@@ -6187,7 +6497,7 @@ def main() -> int:
     if any(b != want for b in hist_j.payload_bits):
         raise AssertionError('main-jax: payload_bits != measured frames')
     for name, h in (('numpy', hist), ('jax', hist_j)):
-        print(f'main rounds 1-4, {name} backend: '
+        print(f'main rounds after round 0, {name} backend: '
               f'{json.dumps([t * 1e3 for t in h.round_time_s[1:]])} ms',
               flush=True)
     solves = time_device_solves(sim_j, device_probs)

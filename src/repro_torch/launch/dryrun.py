@@ -19,8 +19,11 @@ their inputs are :func:`input_specs` (the reference's), cut to the
 rank's blocks by ``launch.shardings``' batch and token specs.
 
 The rank holds its blocks of the parameters, ḡ, the batch and the cache
-(``launch.shardings``); a sharded weight or cache leaf is gathered at
-use (``training.model_axis``).  Each record holds, under the reference's
+(``launch.shardings``).  A train step computes with its blocks where
+they divide (tensor parallelism, ``training.model_axis`` and
+``models.parallel``) and gathers the other weights at use, each group of
+layers under the configuration's ``remat_policy``; prefill and decode
+gather every sharded weight and cache leaf at use.  Each record holds, under the reference's
 keys where they mean the same: ``arch``, ``shape``, ``mesh``,
 ``applicable``, ``skip_reason``, ``params``, ``active_params``,
 ``n_layers``, ``n_devices``, ``compile_s`` (here the trace's seconds),
@@ -48,8 +51,11 @@ layer and no extrapolation is made.
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \
       [--single-pod|--multi-pod] [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --report [DIR]
 
-Artifacts: ``build/dryrun/<arch>__<shape>__<mesh>.json``.
+Artifacts: ``build/dryrun/<arch>__<shape>__<mesh>.json``; ``--report``
+prints each train record's FLOPs a rank and peak live bytes and how many
+applicable records fit 80 GB by their peak (:func:`report`).
 """
 from __future__ import annotations
 
@@ -458,6 +464,30 @@ def summary(rec: dict) -> str:
             f'{json.dumps(coll)}; trace {rec["compile_s"]:.2f} s')
 
 
+def report(out_dir: str = ARTIFACT_DIR) -> dict:
+    """Read every record in ``out_dir``: print each train record's FLOPs a
+    rank and peak live bytes, then how many applicable records fit 80 GB
+    by their peak and at rest.  -> the counts."""
+    recs = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith('.json'):
+            with open(os.path.join(out_dir, name)) as f:
+                recs.append(json.load(f))
+    live = [r for r in recs if r['applicable']]
+    for r in live:
+        if r['step'] in ('fl_train', 'standard_train'):
+            print(f'{r["arch"]} x {r["shape"]} x {r["mesh"]}: flops '
+                  f'{r["cost"]["flops"]:.4e}, peak live '
+                  f'{r["memory"]["peak_live_bytes"] / 1e9:.3f} GB')
+    out = {'records': len(recs), 'applicable': len(live),
+           'peak_fits': sum(r['memory']['peak_fits_80gb'] for r in live),
+           'held_fits': sum(r['memory']['fits_80gb'] for r in live)}
+    print(f'{out["peak_fits"]} of {out["applicable"]} applicable records '
+          f'({out["records"]} in all) fit 80 GB a rank by their peak, '
+          f'{out["held_fits"]} at rest')
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('--arch', default=None)
@@ -468,7 +498,12 @@ def main(argv=None) -> int:
     ap.add_argument('--out-dir', default=ARTIFACT_DIR)
     ap.add_argument('--resume', action='store_true',
                     help='skip combos whose artifact already exists')
+    ap.add_argument('--report', nargs='?', const=ARTIFACT_DIR, default=None,
+                    help="summarise a directory's records and stop")
     args = ap.parse_args(argv)
+    if args.report is not None:
+        report(args.report)
+        return 0
 
     meshes = []
     if args.single_pod or not args.multi_pod:

@@ -15,11 +15,14 @@ same code.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import (
-    apply_rope_tables, dense_init, rope_tables,
+    apply_rope_tables, dense_init, dot, rope_tables,
 )
 
 Tensor = torch.Tensor
@@ -44,16 +47,19 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                 rope=None):
+                 rope=None, proj=None):
     """positions: (T,) absolute positions shared across the batch;
     ``rope``: their (cos, sin) tables (``common.rope_tables``), made here
-    when not given."""
+    when not given; ``proj(w)`` the product of x with a weight (a
+    tensor-parallel rank's: ``parallel.column``'s)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    q = x @ params['wq']
-    k = x @ params['wk']
-    v = x @ params['wv']
+    proj = functools.partial(dot, x) if proj is None else proj
+    # the heads the weights hold (a tensor-parallel rank's blocks: fewer)
+    h, kv = params['wq'].shape[-1] // hd, params['wk'].shape[-1] // hd
+    q = proj(params['wq'])
+    k = proj(params['wk'])
+    v = proj(params['wv'])
     if cfg.qkv_bias:
         q = q + params['bq']
         k = k + params['bk']
@@ -105,22 +111,31 @@ def multi_head_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
 
 def attention_forward(params, cfg: ModelConfig, x: Tensor,
                       positions: Tensor, window: int = 0,
-                      rope=None) -> Tensor:
+                      rope=None, tp=None) -> Tensor:
     """Full-sequence causal attention (the training trunk); ``rope`` as
-    in ``_project_qkv``."""
-    return attention_prefill(params, cfg, x, positions, window, rope)[0]
+    in ``_project_qkv``.  With ``tp`` (``models.parallel``) whose
+    attention is split, ``params`` are the rank's heads: their output
+    (a row block of ``wo``) is summed over the model ranks."""
+    return attention_prefill(params, cfg, x, positions, window, rope,
+                             tp)[0]
 
 
 def attention_prefill(params, cfg: ModelConfig, x: Tensor,
-                      positions: Tensor, window: int = 0, rope=None):
+                      positions: Tensor, window: int = 0, rope=None,
+                      tp=None):
     """Like :func:`attention_forward`, but also returns the (k, v) to
-    seed a cache."""
-    q, k, v = _project_qkv(params, cfg, x, positions, rope)
+    seed a cache (the rank's heads under ``tp``)."""
+    split = tp is not None and tp.attn is not None
+    q, k, v = _project_qkv(params, cfg, x, positions, rope,
+                           parallel.column(x, tp) if split else None)
     out = multi_head_attention(
         q, k, v, positions, positions, window=window, cap=cfg.attn_softcap,
         q_chunk=cfg.q_chunk)
     B, T = x.shape[:2]
-    return out.reshape(B, T, -1) @ params['wo'], (k, v)
+    out = out.reshape(B, T, -1)
+    y = (parallel.row(out, params['wo'], tp) if split
+         else dot(out, params['wo']))
+    return y, (k, v)
 
 
 def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
@@ -153,5 +168,5 @@ def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
     out = multi_head_attention(
         q, cache_k.to(q.dtype), cache_v.to(q.dtype), positions, kv_pos,
         window=window, cap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
-    y = out.reshape(B, 1, -1) @ params['wo']
+    y = dot(out.reshape(B, 1, -1), params['wo'])
     return y, cache_k, cache_v

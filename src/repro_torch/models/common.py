@@ -6,15 +6,105 @@ torch ops on parameter trees of tensors.
 The reference's mesh helpers (``current_mesh_axes``, ``maybe_constrain``,
 ``client_mesh_axes``) are sharding hints for GSPMD with no numerical
 effect; they are not ported.
+
+:func:`dot` is every product without a batch dimension of the blocks
+(``x @ w`` with a weight matrix ``w``): the unit that the 'dots'
+recomputation policy keeps (``transformer.forward``; the reference's
+``checkpoint_dots_with_no_batch_dims``).  Inside :func:`recording` it
+appends each product to a list; inside :func:`replaying` it hands back
+those products in the same order instead of multiplying again.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# products without a batch dimension ('dots')
+# ---------------------------------------------------------------------------
+
+class _Tape:
+    """What :func:`dot` does now: multiply (``mode`` None), multiply and
+    keep the product ('record'), or take the next kept one ('replay')."""
+    mode: Optional[str] = None
+    products: List[Tensor] = []
+    at: int = 0
+
+
+def _mm_grad(x: Tensor, w: Tensor, g: Tensor):
+    """The gradients of ``x @ w`` (x (..., D), w (D, F)) as autograd
+    takes them from the product's fold ``x.reshape(-1, D).mm(w)``
+    (``mm_mat1_backward``, ``mm_mat2_backward``; both operands row-major),
+    so that a kept product's backward has the bits of a computed one."""
+    g2 = g.reshape(-1, g.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    return g2.mm(w.t()).reshape(x.shape), x2.t().mm(g2)
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``x @ w`` whose value was kept by a recording pass: forward hands
+    back ``out``, backward is the product's."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, out):
+        return out.view_as(out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx, gw = _mm_grad(x, w, g)
+        return gx, gw, None
+
+
+def dot(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` (x (..., D), w (D, F)): a product with no batch
+    dimension, kept or replayed as the current tape says."""
+    if _Tape.mode == 'replay':
+        out = _Tape.products[_Tape.at]
+        _Tape.at += 1
+        return _KeptProduct.apply(x, w, out)
+    out = x @ w
+    if _Tape.mode == 'record':
+        _Tape.products.append(out)
+    return out
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside: every :func:`dot` also appends its product to the list
+    this yields."""
+    before = (_Tape.mode, _Tape.products, _Tape.at)
+    _Tape.mode, _Tape.products, _Tape.at = 'record', [], 0
+    try:
+        yield _Tape.products
+    finally:
+        _Tape.mode, _Tape.products, _Tape.at = before
+
+
+@contextlib.contextmanager
+def replaying(products):
+    """Inside: every :func:`dot` hands back the next of ``products`` (a
+    recording's, in its order) with the product's backward."""
+    before = (_Tape.mode, _Tape.products, _Tape.at)
+    _Tape.mode, _Tape.products, _Tape.at = 'replay', list(products), 0
+    try:
+        yield
+    finally:
+        _Tape.mode, _Tape.products, _Tape.at = before
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float16': torch.float16}

@@ -34,7 +34,8 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models import parallel
+from repro_torch.models.common import dense_init, dot
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
 Tensor = torch.Tensor
@@ -88,7 +89,7 @@ def top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
 def route(params, cfg: ModelConfig, x: Tensor):
     """x: (..., D) -> float32 (probs (..., E), gates (..., k) renormalised,
     experts (..., k) int64)."""
-    logits = torch.matmul(x.to(torch.float32), params['router'])
+    logits = dot(x.to(torch.float32), params['router'])
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = top_k(probs, cfg.topk)
     top_p = top_p / torch.clamp(torch.sum(top_p, -1, keepdim=True),
@@ -129,10 +130,22 @@ def _rows_gather(x: Tensor, idx: Tensor) -> Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _dispatch(params, cfg: ModelConfig, x: Tensor, capacity: int
-              ) -> Tuple[Tensor, dict]:
+def _expert_in(buf: Tensor, w: Tensor) -> Tensor:
+    """(R, E, C, D) slots through each expert's (E, D, F) stack."""
+    return torch.einsum('recd,edf->recf', buf, w)
+
+
+def _expert_out(h: Tensor, w: Tensor) -> Tensor:
+    """(R, E, C, F) through each expert's (E, F, D) stack."""
+    return torch.einsum('recf,efd->recd', h, w)
+
+
+def _dispatch(params, cfg: ModelConfig, x: Tensor, capacity: int,
+              tp=None) -> Tuple[Tensor, dict]:
     """x: (R, N, D), each row dispatched on its own with ``capacity``
-    slots an expert -> (y (R, N, D), aux)."""
+    slots an expert -> (y (R, N, D), aux).  With ``tp`` whose experts are
+    split in f, the experts' outputs of the rank's f columns are summed
+    over the model ranks before the combine."""
     R, N, D = x.shape
     E, k = cfg.n_experts, cfg.topk
     probs, top_p, top_e = route(params, cfg, x)
@@ -144,9 +157,15 @@ def _dispatch(params, cfg: ModelConfig, x: Tensor, capacity: int
     plan = dispatch_plan(top_e, E, capacity)
     x_pad = torch.cat([x, x.new_zeros((R, 1, D))], dim=1)
     buf = _rows_gather(x_pad, plan['slot_tok']).reshape(R, E, capacity, D)
-    h = F.silu(torch.einsum('recd,edf->recf', buf, params['w_gate']))
-    h = h * torch.einsum('recd,edf->recf', buf, params['w_up'])
-    out = torch.einsum('recf,efd->recd', h, params['w_down'])
+    if tp is None or not tp.moe:
+        h = F.silu(_expert_in(buf, params['w_gate']))
+        h = h * _expert_in(buf, params['w_up'])
+        out = _expert_out(h, params['w_down'])
+    else:
+        col = parallel.column(buf, tp)
+        h = F.silu(col(params['w_gate'], _expert_in))
+        h = h * col(params['w_up'], _expert_in)
+        out = parallel.row(h, params['w_down'], tp, _expert_out)
     out_pad = torch.cat([out.reshape(R, E * capacity, D),
                          out.new_zeros((R, 1, D))], dim=1)
     y_sorted = _rows_gather(out_pad, plan['slot'])          # (R, N k, D)
@@ -163,25 +182,28 @@ def _dispatch(params, cfg: ModelConfig, x: Tensor, capacity: int
     return y, {'lb_loss': lb_loss, 'drop_frac': drop_frac}
 
 
-def moe_forward_grouped(params, cfg: ModelConfig, x: Tensor
+def moe_forward_grouped(params, cfg: ModelConfig, x: Tensor, tp=None
                         ) -> Tuple[Tensor, dict]:
     """Per-batch-row dispatch: capacity per row of T tokens."""
-    y, aux = _dispatch(params, cfg, x, grouped_capacity(x.shape[1], cfg))
+    y, aux = _dispatch(params, cfg, x, grouped_capacity(x.shape[1], cfg),
+                       tp)
     if cfg.dense_residual:
-        y = y + mlp_forward(params['dense'], x)
+        y = y + mlp_forward(params['dense'], x, tp)
     return y, aux
 
 
-def moe_forward(params, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, dict]:
+def moe_forward(params, cfg: ModelConfig, x: Tensor, tp=None
+                ) -> Tuple[Tensor, dict]:
     """x: (B, T, D) -> (y, aux) with aux = {'lb_loss', 'drop_frac'}: the
     flat dispatch over all B T tokens, or with ``moe_dispatch='grouped'``
-    and T > 1 one dispatch a row."""
+    and T > 1 one dispatch a row.  ``tp``: ``models.parallel``'s
+    partition (the experts split in f, arctic's dense MLP as the MLP)."""
     if cfg.moe_dispatch == 'grouped' and x.shape[1] > 1:
-        return moe_forward_grouped(params, cfg, x)
+        return moe_forward_grouped(params, cfg, x, tp)
     B, T, D = x.shape
     y, aux = _dispatch(params, cfg, x.reshape(1, B * T, D),
-                       expert_capacity(B * T, cfg))
+                       expert_capacity(B * T, cfg), tp)
     y = y.reshape(B, T, D)
     if cfg.dense_residual:
-        y = y + mlp_forward(params['dense'], x)
+        y = y + mlp_forward(params['dense'], x, tp)
     return y, aux

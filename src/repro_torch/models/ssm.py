@@ -25,7 +25,9 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, gated_rms_norm, softplus
+from repro_torch.models.common import (
+    dense_init, dot, gated_rms_norm, softplus,
+)
 
 Tensor = torch.Tensor
 
@@ -155,7 +157,7 @@ def mamba_forward(params, cfg: ModelConfig, u: Tensor,
     inner, nh, s, conv_dim = _dims(cfg)
     P = cfg.ssm_headdim
 
-    zxbcdt = u @ params['in_proj']
+    zxbcdt = dot(u, params['in_proj'])
     z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
     xBC = _causal_conv(xBC_raw, params['conv_w'], params['conv_b'])
     x = xBC[..., :inner].reshape(B, T, nh, P)
@@ -171,7 +173,7 @@ def mamba_forward(params, cfg: ModelConfig, u: Tensor,
     y = y + x * params['D'].to(x.dtype)[:, None]
     y = y.reshape(B, T, inner)
     y = gated_rms_norm(y, z, params['norm_scale'], cfg.norm_eps)
-    out = y @ params['out_proj']
+    out = dot(y, params['out_proj'])
     if not return_cache:
         return out
     # the conv window holds the *pre-activation* conv inputs
@@ -202,7 +204,7 @@ def mamba_decode(params, cfg: ModelConfig, u: Tensor, cache: dict):
     P = cfg.ssm_headdim
     cdt = cache['ssm'].dtype
 
-    zxbcdt = u @ params['in_proj']
+    zxbcdt = dot(u, params['in_proj'])
     z, xBC_new, dt_raw = _split_proj(cfg, zxbcdt)     # (B, 1, .)
 
     window = torch.cat([cache['conv'], xBC_new.to(cache['conv'].dtype)],
@@ -226,4 +228,4 @@ def mamba_decode(params, cfg: ModelConfig, u: Tensor, cache: dict):
     y = y + x * params['D'].to(cdt)[:, None]
     y = y.reshape(B, 1, inner).to(u.dtype)
     y = gated_rms_norm(y, z, params['norm_scale'], cfg.norm_eps)
-    return y @ params['out_proj'], {'conv': new_conv, 'ssm': h}
+    return dot(y, params['out_proj']), {'conv': new_conv, 'ssm': h}

@@ -16,9 +16,15 @@ leaves` lists them in ``jax.tree.flatten``'s order (keys sorted), the
 order the LLM-scale transports bind their draws to; :class:`Transformer`
 registers the same tree as an ``nn.Module``'s parameters.
 
-The forward pass loops over the groups (the reference scans them under
-``jax.checkpoint``; recomputation changes no number, and the port keeps
-the activations) and makes the rotary tables once for all its layers.
+The forward pass loops over the groups (the reference scans them) and
+makes the rotary tables once for all its layers.  Under grad mode each
+group keeps for its backward what ``cfg.remat_policy`` says, as the
+reference's ``jax.checkpoint`` of a group does: 'full' its inputs only
+(its forward runs again in the backward), 'dots' its inputs and the
+products without a batch dimension (``common.dot``), 'none' every
+activation; the gradients are the same bits under each policy.  With a
+``tp`` partition (``models.parallel``, the 'model' axis of a production
+mesh) the blocks compute with the rank's blocks of the weights.
 The blocks' MoE load-balance losses add up into the aux loss, which
 ``loss_fn`` weighs by ``AUX_LOSS_WEIGHT``.  A vision prefix (precomputed
 patch embeddings: the SigLIP encoder is a stub, as in the reference) is
@@ -39,6 +45,8 @@ same computation.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -50,6 +58,7 @@ from torch.nn import functional as F
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common, parallel
 from repro_torch.models.common import (
     chunked_softmax_xent, dense_init, dtype_of, embed_init, rms_norm,
     rope_tables, softcap,
@@ -159,23 +168,24 @@ def params_from_reference(ref_params, device=None) -> dict:
 # block application (full sequence)
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg: ModelConfig, h: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+def _ffn(p, cfg: ModelConfig, h: Tensor, tp=None
+         ) -> Tuple[Tensor, Optional[Tensor]]:
     """The block's feed-forward half: the MoE (-> its lb_loss) or the
     dense MLP (-> None)."""
     if cfg.is_moe:
-        f, aux = moe_forward(p['moe'], cfg, h)
+        f, aux = moe_forward(p['moe'], cfg, h, tp)
         return f, aux['lb_loss']
-    return mlp_forward(p['mlp'], h), None
+    return mlp_forward(p['mlp'], h, tp), None
 
 
-def _attn_block(p, cfg: ModelConfig, x: Tensor, attend):
+def _attn_block(p, cfg: ModelConfig, x: Tensor, attend, tp=None):
     """Pre-norm attention (``attend(h) -> (a, extra)``) then the FFN,
     with gemma2's post-norms -> (x, lb_loss or None, extra)."""
     a, extra = attend(rms_norm(x, p['ln'], cfg.norm_eps))
     if cfg.post_norm:
         a = rms_norm(a, p['pln'], cfg.norm_eps)
     x = x + a
-    f, lb = _ffn(p, cfg, rms_norm(x, p['ln2'], cfg.norm_eps))
+    f, lb = _ffn(p, cfg, rms_norm(x, p['ln2'], cfg.norm_eps), tp)
     if cfg.post_norm:
         f = rms_norm(f, p['pln2'], cfg.norm_eps)
     return x + f, lb, extra
@@ -190,15 +200,18 @@ def _block_params(kind: str, bparams, shared):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: Tensor,
-                 prefix_embeds: Optional[Tensor] = None) -> Tensor:
-    x = F.embedding(tokens.to(torch.int64), params['embed'])
+                 prefix_embeds: Optional[Tensor] = None, tp=None) -> Tensor:
+    if tp is not None and tp.vocab:
+        x = parallel.vocab_embed(tokens, params['embed'], tp)
+    else:
+        x = F.embedding(tokens.to(torch.int64), params['embed'])
     if cfg.embed_scale:
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
     if prefix_embeds is not None:
         prefix = prefix_embeds.to(x.dtype)
         if 'frontend_proj' in params:
-            prefix = prefix @ params['frontend_proj']
+            prefix = common.dot(prefix, params['frontend_proj'])
         x = torch.cat([prefix, x], dim=1)
     return x
 
@@ -212,33 +225,138 @@ def group_params(params, cfg: ModelConfig) -> list:
             for g in range(n_groups(cfg))]
 
 
+def _group_forward(gparams, shared, cfg: ModelConfig, x: Tensor,
+                   aux: Tensor, positions: Tensor, rope, tp=None
+                   ) -> Tuple[Tensor, Tensor]:
+    """One group (a period of ``cfg.layer_pattern``) on the carry (x,
+    aux): the unit the reference scans and checkpoints."""
+    for i, kind in enumerate(cfg.layer_pattern):
+        bp = gparams.get(f'b{i}')
+        if kind == 'mamba':
+            x = x + mamba_forward(bp['mamba'], cfg,
+                                  rms_norm(x, bp['ln'], cfg.norm_eps))
+            continue
+        p = _block_params(kind, bp, shared)
+
+        def attend(h, p=p, kind=kind):
+            return attn_mod.attention_forward(
+                p['attn'], cfg, h, positions, _window(cfg, kind),
+                rope, tp), None
+
+        x, lb, _ = _attn_block(p, cfg, x, attend, tp)
+        if lb is not None:
+            aux = aux + lb
+    return x, aux
+
+
+class _Group:
+    """A group's forward as a function of flat tensors: the carry (x,
+    aux), the positions and the rotary tables (cos, sin; or none), then
+    the group's leaves, then the shared block's (Zamba2)."""
+
+    def __init__(self, cfg: ModelConfig, gtree, shared, n_fixed: int, tp):
+        self.cfg, self.gtree, self.stree = cfg, gtree, shared
+        self.n_group = len(tree.leaves(gtree))
+        self.n_fixed, self.tp = n_fixed, tp
+
+    def __call__(self, x, aux, *rest):
+        positions, rope = rest[0], rest[1:self.n_fixed] or None
+        leaves = rest[self.n_fixed:]
+        g = tree.unflatten(self.gtree, leaves[:self.n_group])
+        s = (None if self.stree is None
+             else tree.unflatten(self.stree, leaves[self.n_group:]))
+        return _group_forward(g, s, self.cfg, x, aux, positions, rope,
+                              self.tp)
+
+
+class _Recompute(torch.autograd.Function):
+    """A group whose backward runs its forward again: 'full' keeps the
+    group's inputs only; 'dots' also keeps the products without a batch
+    dimension (``common.dot``), which the second forward takes back
+    instead of multiplying again.  The backward pulls the cotangent of
+    (x, aux) back through the second forward with ``torch.func.vjp``, so
+    every leaf's gradient is the one the kept activations would give,
+    and a leaf the group shares with the others (Zamba2's block) is an
+    input of each group, its gradient summed over the groups as autograd
+    sums it over its uses.  The backward takes its inputs and cotangents
+    detached: ``torch.func.grad`` runs the backward with
+    ``create_graph=True``, which would otherwise record the second forward
+    in the outer graph and keep all of it to the end of the pass (the
+    backward is therefore not differentiable again)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, dots, x, aux, *leaves):
+        with common.recording() if dots else contextlib.nullcontext() as kept:
+            x_out, aux_out = run(x, aux, *leaves)
+        # a carry the group leaves as it was goes out as a view of it
+        out = tuple(o.view_as(o) if o is i else o
+                    for o, i in ((x_out, x), (aux_out, aux)))
+        return out + tuple(kept or ())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, dots, *tensors = inputs
+        ctx.run, ctx.dots, ctx.n_in = run, dots, len(tensors)
+        kept = tuple(output[2:]) if dots else ()
+        ctx.mark_non_differentiable(*kept)
+        ctx.save_for_backward(*tensors, *kept)
+
+    @staticmethod
+    def backward(ctx, gx, gaux, *_):
+        saved = [t.detach() for t in ctx.saved_tensors]
+        gx, gaux = gx.detach(), gaux.detach()
+        inputs, kept = saved[:ctx.n_in], saved[ctx.n_in:]
+
+        n_fixed = ctx.run.n_fixed          # positions, rope: no gradient
+        fixed = inputs[2:2 + n_fixed]
+
+        def again(x, aux, *leaves):
+            with (common.replaying(kept) if ctx.dots
+                  else contextlib.nullcontext()):
+                return ctx.run(x, aux, *fixed, *leaves)
+
+        _, pull = torch.func.vjp(again, inputs[0], inputs[1],
+                                 *inputs[2 + n_fixed:])
+        gx, gaux, *gleaves = pull((gx, gaux))
+        return (None, None, gx, gaux) + (None,) * n_fixed + tuple(gleaves)
+
+
 def forward(params, cfg: ModelConfig, tokens: Tensor,
-            prefix_embeds: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+            prefix_embeds: Optional[Tensor] = None,
+            remat: bool = True, tp=None) -> Tuple[Tensor, Tensor]:
     """tokens: (B, T) [+ prefix (B, P, E)] -> (final hidden states (B,
-    P + T, D), the summed MoE load-balance loss, float32)."""
-    x = embed_tokens(params, cfg, tokens, prefix_embeds)
+    P + T, D), the summed MoE load-balance loss, float32).
+
+    Under ``remat`` (with grad mode on) a group keeps for the backward
+    what ``cfg.remat_policy`` says, as the reference's
+    ``jax.checkpoint`` of a group: 'none' every activation, 'dots' its
+    inputs and the products without a batch dimension (the attention
+    projections, the MLP's and Mamba's, the router; the attention and
+    expert einsums are done again), any other value ('full') its inputs
+    alone.  The gradients are the same bits under each policy.
+
+    ``tp``: the 'model' axis's partition (``models.parallel``; None: the
+    unsharded ops), ``params`` then the rank's blocks where it splits."""
+    x = embed_tokens(params, cfg, tokens, prefix_embeds, tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     rope = (rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
             if not cfg.attention_free else None)
     shared = params.get('shared')
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    policy = cfg.remat_policy if remat else 'none'
+    keep_all = policy == 'none' or not torch.is_grad_enabled()
     for gparams in group_params(params, cfg):
-        for i, kind in enumerate(cfg.layer_pattern):
-            bp = gparams.get(f'b{i}')
-            if kind == 'mamba':
-                x = x + mamba_forward(bp['mamba'], cfg,
-                                      rms_norm(x, bp['ln'], cfg.norm_eps))
-                continue
-            p = _block_params(kind, bp, shared)
-
-            def attend(h, p=p, kind=kind):
-                return attn_mod.attention_forward(
-                    p['attn'], cfg, h, positions, _window(cfg, kind),
-                    rope), None
-
-            x, lb, _ = _attn_block(p, cfg, x, attend)
-            if lb is not None:
-                aux = aux + lb
+        if keep_all:
+            x, aux = _group_forward(gparams, shared, cfg, x, aux, positions,
+                                    rope, tp)
+            continue
+        fixed = (positions,) + tuple(rope or ())
+        run = _Group(cfg, gparams, shared, len(fixed), tp)
+        out = _Recompute.apply(run, policy == 'dots', x, aux, *fixed,
+                               *tree.leaves(gparams), *tree.leaves(shared))
+        x, aux = out[0], out[1]
     return rms_norm(x, params['final_norm'], cfg.norm_eps), aux
 
 
@@ -254,18 +372,22 @@ def logits_fn(params, cfg: ModelConfig, hidden: Tensor) -> Tensor:
 
 
 def loss_fn(params, cfg: ModelConfig, tokens: Tensor,
-            prefix_embeds: Optional[Tensor] = None) -> Tensor:
+            prefix_embeds: Optional[Tensor] = None, tp=None) -> Tensor:
     """Next-token cross-entropy of (B, T) tokens over the text positions
     (after a prefix), plus ``AUX_LOSS_WEIGHT`` x the MoE aux loss (a
-    float32 scalar)."""
-    hidden, aux = forward(params, cfg, tokens, prefix_embeds)
+    float32 scalar); the groups under ``cfg.remat_policy``.  ``tp`` as
+    in :func:`forward` (the head and cross-entropy vocab-parallel where
+    it splits the vocabulary)."""
+    hidden, aux = forward(params, cfg, tokens, prefix_embeds, tp=tp)
     P = hidden.shape[1] - tokens.shape[1]      # prefix length
     # hidden at text position i predicts token i + 1
     h = hidden[:, P:-1] if tokens.shape[1] > 1 else hidden[:, P:]
     labels = tokens[:, 1:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    xent = chunked_softmax_xent(h, lm_head_t(params, cfg), labels, mask,
-                                cfg.logit_softcap)
+    xent_fn = (chunked_softmax_xent if tp is None or not tp.vocab
+               else functools.partial(parallel.vocab_xent, tp=tp))
+    xent = xent_fn(h, lm_head_t(params, cfg), labels, mask,
+                   cfg.logit_softcap)
     return xent + AUX_LOSS_WEIGHT * aux
 
 

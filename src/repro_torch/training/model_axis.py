@@ -6,19 +6,38 @@ per-client gradients and of ḡ, at the layout ``param_specs`` gives
 (every 'model' entry splits a dimension over the model ranks; arctic's
 expert stacks also split over the client axes).
 
-The compute partition is gather at use: a sharded weight is all-gathered
-over the axes its spec names inside the differentiated function, by
-:class:`GatherAtUse`, so the forward is the unsharded forward on the same
-weights.  Its backward keeps the rank's slice along 'model' (every model
-rank saw the same data) and reduce-scatters along client axes (the
-standard step's ranks saw different rows).  Under ``torch.func.vmap``
-over a rank's clients this holds the K_local x gradient stack at the
-size of a block; gathering before the vmap would hold K_local x the
-whole tree.  A rank's per-client gradient block is then the same slice
-of the unsharded pass's gradients, bit for bit.  Megatron-style
-activation partitioning (column and row parallel layers, vocab-parallel
-cross-entropy) is not here: every model rank runs the whole forward of
-its clients.
+The compute partition is tensor parallelism (``models.parallel``) where
+the rank's blocks allow it, and gather at use elsewhere.  :class:`Layout`
+names each leaf's use in the forward (``Layout.uses``):
+
+* 'block': the rank's block itself, a column or row block of a
+  tensor-parallel layer (the attention heads, the MLP's and the experts'
+  f, the vocab rows or columns); its per-client gradient is the rank's
+  block directly.  Where the spec also splits it over client axes
+  (arctic's experts), those are gathered at use;
+* 'kv': ``wk/wv`` (``bk/bv``) of an attention whose query heads divide
+  and kv heads do not: gathered at use, the rank's one kv head taken,
+  the cotangent summed over the model ranks (each saw its query heads'
+  share) before the rank keeps its slice;
+* 'gather': gathered at use by :class:`GatherAtUse` (a Mamba2 block, an
+  attention whose query heads do not divide, a vocabulary or FFN that
+  does not divide): its backward keeps the rank's slice along 'model'
+  (every model rank computed that layer whole on the same data) and
+  reduce-scatters along client axes (the standard step's ranks saw
+  different rows).
+
+Under ``torch.func.vmap`` over a rank's clients a gathered leaf holds
+the K_local x gradient stack at the size of a block; gathering before
+the vmap would hold K_local x the whole tree.  A leaf replicated over
+'model' (a norm, the router) gets the same gradient on every model rank:
+the cotangent entering a parallel layer is summed over the ranks.  A
+split product is taken in float32 and rounds once after the sum over
+the ranks (``models.parallel``), so a tensor-parallel step differs from
+the unsharded step by the order of its float32 sums, not bit for bit (a
+'kv' leaf's gradient partials, each rank's query heads' share, round to
+the parameters' dtype before their float32 sum); a model that takes no
+tensor parallelism (Mamba2, or any model on one model rank) is the
+unsharded step bit for bit.
 
 The per-client stats (||g_k||^2, min |g|, max |g|) of a rank's blocks
 are all-reduced over 'model' (sum, min, max; a block replicated over
@@ -46,6 +65,7 @@ from repro_torch.core.mesh import ClientMesh, pad_rows
 from repro_torch.core.quantize import true_div
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import MODEL, ProductionMesh
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tf
 
 Tensor = torch.Tensor
@@ -121,16 +141,52 @@ class GatherAtUse(torch.autograd.Function):
         return grad, None, None
 
 
-def gathered(blocks: Sequence[Tensor], specs: Sequence, mesh) -> list:
-    """Each block through :class:`GatherAtUse` (an unsharded one as is)."""
-    return [GatherAtUse.apply(b, mesh, s) if _sharded_dims(s) else b
-            for b, s in zip(blocks, specs)]
+def _gather_at_use(block: Tensor, spec, mesh) -> Tensor:
+    """``block`` through :class:`GatherAtUse` (an unsharded one as is)."""
+    return GatherAtUse.apply(block, mesh, spec) if _sharded_dims(spec) \
+        else block
+
+
+def _off_model(spec) -> tuple:
+    """``spec`` with the 'model' axis taken out of every entry."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in sh.entry_axes(e) if a != MODEL)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+_ATTN_BLOCK = ('wq', 'wo', 'bq')
+_FFN = ('w_gate', 'w_up', 'w_down')
+
+
+def leaf_use(path: str, spec, tp: parallel.TensorParallel) -> str:
+    """How the forward takes leaf ``path`` (its spec ``spec``) under the
+    partition ``tp``: 'block', 'kv' or 'gather' (the module docstring)."""
+    names = path.split('.')
+    name = names[-1]
+    if tp.attn and 'attn' in names:
+        use = 'block' if tp.attn == 'heads' or name in _ATTN_BLOCK else 'kv'
+    elif name in _FFN and 'moe' in names and 'dense' not in names:
+        use = 'block' if tp.moe else 'gather'
+    elif name in _FFN:
+        use = 'block' if tp.mlp else 'gather'
+    elif name in ('embed', 'lm_head'):
+        use = 'block' if tp.vocab else 'gather'
+    else:
+        use = 'gather'
+    if use == 'block' and not any(MODEL in sh.entry_axes(e) for e in spec):
+        raise ValueError(f'{path}: tensor parallel, but its spec {spec} '
+                         "does not split it over 'model'")
+    return use
 
 
 class Layout:
     """The parameter layout of ``cfg`` on ``mesh``: paths, full shapes,
     specs and the rank's block slices, from the shapes alone (the
-    parameters made on the meta device)."""
+    parameters made on the meta device); the tensor-parallel partition
+    ``tp`` and each leaf's use."""
 
     def __init__(self, cfg: ModelConfig, mesh: ProductionMesh):
         full = tf.init_params(cfg, torch.Generator(), device='meta')
@@ -153,6 +209,26 @@ class Layout:
         self.counted_once = [all(mesh.coords[x] == 0 for x in mesh.axes
                                  if x not in a) for a in axes]
         self.dim = sum(torch.Size(s).numel() for s in self.shapes)
+        self.tp = parallel.partition(cfg, mesh.axis_mesh(MODEL))
+        self.uses = [leaf_use(p, s, self.tp)
+                     for p, s in zip(self.paths, self.specs)]
+        self.head_dim = cfg.resolved_head_dim
+
+    def used(self, blocks: Sequence[Tensor]) -> list:
+        """What the forward computes with, from the rank's blocks (each
+        leaf by its use)."""
+        out = []
+        for b, spec, use in zip(blocks, self.specs, self.uses):
+            if use == 'block':
+                out.append(_gather_at_use(b, _off_model(spec), self.mesh))
+            elif use == 'kv':
+                full = parallel.copy_to(
+                    _gather_at_use(b, spec, self.mesh), self.tp)
+                hd, i = self.head_dim, self.tp.kv_head
+                out.append(full[..., i * hd:(i + 1) * hd])
+            else:
+                out.append(_gather_at_use(b, spec, self.mesh))
+        return out
 
     def block_of(self, i: int, full: Tensor, lead: int = 0) -> Tensor:
         """Leaf i's block of ``full`` (after ``lead`` leading dims)."""
@@ -180,15 +256,15 @@ def client_grads(params, cfg: ModelConfig, tokens: Tensor, layout: Layout,
                  prefix: Optional[Tensor] = None) -> Tuple[Tensor, list]:
     """Each of the rank's clients' loss and gradient blocks from the
     parameter blocks ``params``: (K_local,) f32 losses and (K_local,
-    *block) leaves, ``vmap`` of ``grad_and_value`` with every sharded
-    weight gathered at use."""
+    *block) leaves, ``vmap`` of ``grad_and_value`` with each leaf taken
+    by its use (``Layout.used``) and the forward tensor parallel
+    (``layout.tp``)."""
     from repro_torch.training.distributed import deterministic_algorithms
     leaves = [b.detach() for b in tree.leaves(params)]
-    mesh, specs = layout.mesh, layout.specs
 
     def loss(ls, toks, pre):
-        full = tree.unflatten(params, gathered(ls, specs, mesh))
-        return tf.loss_fn(full, cfg, toks, pre)
+        used = tree.unflatten(params, layout.used(ls))
+        return tf.loss_fn(used, cfg, toks, pre, tp=layout.tp)
 
     with deterministic_algorithms(deterministic):
         grads, losses = vmap(grad_and_value(loss),
@@ -292,41 +368,50 @@ def make_fl_train_step(cfg: ModelConfig, fl: FLConfig, transport_kind: str,
     return train_step
 
 
+def standard_grads(params, cfg: ModelConfig, batch: Dict[str, Tensor],
+                   layout: Layout) -> Tuple[Tensor, list]:
+    """The standard step's loss and gradient blocks from the parameter
+    blocks ``params`` on this rank's rows ``batch``: the mean of the
+    client ranks' mean losses (equal rows a rank) and, each leaf in
+    float32, the sum over the client ranks (a reduce-scatter inside
+    :class:`GatherAtUse` where its spec splits over client axes, an
+    all-reduce after the pass otherwise) over their count."""
+    cm = layout.mesh.clients
+    n_c = cm.size
+    blocks = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    used = tree.unflatten(params, layout.used(blocks))
+    loss = tf.loss_fn(used, cfg, batch['tokens'], batch.get('prefix'),
+                      tp=layout.tp)
+    out = []
+    for g, on_c in zip(torch.autograd.grad(loss, blocks), layout.on_clients):
+        g = g.to(torch.float32)
+        if not on_c:
+            g = cm.all_reduce(g.clone())
+        out.append(true_div(g, float(n_c)))
+    loss = true_div(cm.all_reduce(loss.detach().clone()), float(n_c))
+    return loss, out
+
+
 def make_standard_train_step(cfg: ModelConfig, fl: FLConfig,
                              mesh: ProductionMesh):
     """``training.distributed.make_standard_train_step`` on a production
     mesh: ``train_step(param_blocks, batch) -> (new param blocks,
     {'loss', 'g_norm_sq'})``, ``batch`` this rank's rows of the global
-    (B, T) batch (rows split over the client axes).  The global loss is
-    the mean of the client ranks' means (equal rows a rank); a gradient
-    block is the sum over the client ranks (a reduce-scatter inside
-    :class:`GatherAtUse` where its spec splits over client axes, an
-    all-reduce after the pass otherwise) over their count."""
+    (B, T) batch (rows split over the client axes), the gradient
+    :func:`standard_grads`'."""
     layout = Layout(cfg, mesh)
-    cm = mesh.clients
     lr = fl.learning_rate
-    n_c = cm.size
 
     def train_step(params, batch):
-        blocks = [p.detach().requires_grad_(True)
-                  for p in tree.leaves(params)]
-        full = tree.unflatten(params, gathered(blocks, layout.specs, mesh))
-        loss = tf.loss_fn(full, cfg, batch['tokens'], batch.get('prefix'))
-        grads = torch.autograd.grad(loss, blocks)
+        loss, grads = standard_grads(params, cfg, batch, layout)
         out, g2 = [], torch.zeros((), dtype=torch.float32,
                                   device=loss.device)
-        for p, g, on_c, c in zip(blocks, grads, layout.on_clients,
-                                 layout.counted_once):
-            g = g.to(torch.float32)
-            if not on_c:
-                g = cm.all_reduce(g.clone())
-            g = true_div(g, float(n_c))
+        for p, g, c in zip(tree.leaves(params), grads,
+                           layout.counted_once):
             out.append((p.detach().to(torch.float32) - lr * g).to(p.dtype))
             if c:
                 g2 = g2 + torch.sum(torch.square(g))
-        world = mesh.axis_mesh(mesh.axes)
-        g2 = world.all_reduce(g2)
-        loss = true_div(cm.all_reduce(loss.detach().clone()), float(n_c))
+        g2 = mesh.axis_mesh(mesh.axes).all_reduce(g2)
         return tree.unflatten(params, out), {'loss': loss, 'g_norm_sq': g2}
 
     return train_step

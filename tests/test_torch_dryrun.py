@@ -7,9 +7,11 @@ each trace inside a fake process group that is destroyed after it
   meshes equal the bytes of the blocks the reference's specs give
   (``repro.launch.shardings`` on an ``AbstractMesh``, over
   ``jax.eval_shape`` trees), for all ten architectures at full width;
-* on a (2, 2) mesh a rank's FLOPs equal the unsharded step's on the
-  rank's own clients or rows (gather at use runs the whole forward), for
-  the FL step, the standard step, prefill and decode;
+* on a (2, 2) mesh a rank's FLOPs are the unsharded step's on the
+  rank's own clients or rows less half of the products that tensor
+  parallelism splits (``models.parallel``; counted from the shapes by
+  :func:`parallel_flops`), for the FL step and the standard step, and
+  equal the unsharded step's for prefill and decode (gathered at use);
 * every (architecture x shape) that ``applicable`` skips is recorded as
   a skip, and the CLI writes one artifact a mesh and resumes.
 """
@@ -19,6 +21,7 @@ import contextlib
 import functools
 import json
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +43,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (MULTI_POD_AXES, MULTI_POD_SHAPE,
                                      SINGLE_POD_AXES, SINGLE_POD_SHAPE,
                                      ProductionMesh)
+from repro_torch.models import moe, parallel
 from repro_torch.models import transformer as T
 from repro_torch.training import distributed as D
 
@@ -171,6 +175,36 @@ def unsharded_flops(cfg, shape: ShapeConfig, k: int) -> float:
                                             shape.seq_len - 1))
 
 
+def parallel_flops(cfg, b: int, t: int, model: int = 2) -> float:
+    """FLOPs of one train step on (b, t) tokens in the products that
+    tensor parallelism splits over ``model`` ranks, from the shapes: the
+    attention projections and its two einsums ('heads'), the MLP's three
+    products, the experts' three einsums (capacity ``expert_capacity``),
+    the head's product; a group's product runs forward, again under
+    ``remat_policy`` 'full' and twice backward (the input's and the
+    weight's gradients), the head's forward and twice backward."""
+    tp = parallel.partition(cfg, SimpleNamespace(size=model, rank=0))
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv, n = cfg.n_heads, cfg.n_kv_heads, b * t
+    group = 0
+    for kind in cfg.layer_pattern:
+        if kind == 'mamba':
+            continue
+        if tp.attn == 'heads':
+            group += 2 * n * d * hd * (2 * h + 2 * kv)
+            group += 2 * 2 * b * h * t * t * hd
+        if tp.mlp:
+            group += 3 * 2 * n * d * cfg.d_ff
+        if tp.moe:
+            group += 3 * 2 * cfg.n_experts * moe.expert_capacity(n, cfg) \
+                * d * cfg.d_ff
+    assert cfg.remat_policy == 'full' and tp.attn != 'q'
+    out = 4 * T.n_groups(cfg) * group
+    if tp.vocab:
+        out += 3 * 2 * b * (t - 1) * d * cfg.vocab_size
+    return float(out)
+
+
 @pytest.mark.parametrize('arch,shape', [
     ('smollm-135m-reduced', ShapeConfig('tiny_train', 16, 8, 'train')),
     ('mamba2-130m-reduced', ShapeConfig('tiny_train', 16, 8, 'train')),
@@ -187,13 +221,20 @@ def test_small_mesh_flops_equal_the_unsharded_steps(arch, shape):
         'arctic') else 'fl_train', 'prefill': 'prefill',
         'decode': 'decode'}[shape.kind]
     want = unsharded_flops(cfg, shape, 2)
-    assert want > 0 and rec['cost']['flops'] == want
+    split = 0.0
+    if shape.kind == 'train':
+        split = parallel_flops(cfg, shape.global_batch // 2, shape.seq_len)
+    assert want > 0 and rec['cost']['flops'] == want - split / 2
+    assert (split > 0) == (shape.kind == 'train'
+                           and arch != 'mamba2-130m-reduced')
     coll = rec['collectives']
     assert coll['all-gather']['count'] > 0
     assert coll['all-gather']['bytes'] > 0
     if rec['step'] == 'fl_train':
-        # the stats' sum, min and max over 'model'
-        assert coll['all-reduce']['count'] == 3
+        # the stats' sum, min and max over 'model', and the sums of the
+        # tensor-parallel layers
+        n = coll['all-reduce']['count']
+        assert n == 3 if split == 0 else n > 3
     if rec['step'] == 'standard_train':
         assert coll['reduce-scatter']['count'] > 0
     mem = rec['memory']
@@ -234,3 +275,7 @@ def test_cli_writes_each_mesh_and_resumes(tmp_path, capsys):
     assert dryrun.main(args + ['--resume', '--single-pod']) == 0
     assert capsys.readouterr().out.count('[HAVE]') == 1
     assert not dist.is_initialized()
+    assert dryrun.main(['--report', str(tmp_path)]) == 0
+    assert capsys.readouterr().out.endswith(
+        '2 of 2 applicable records (2 in all) fit 80 GB a rank by their '
+        'peak, 2 at rest\n')
