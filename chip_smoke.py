@@ -45,7 +45,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    its plain solve (``check_alloc_layouts``);
 4. the main path: ``build_simulator(FLConfig(wire='packed',
    channel='bitlevel'))`` at full width (K=20, 500 images per client,
-   2000 test images) for 3 rounds, with every kernel launch counter reset
+   2000 test images) for 2 rounds (each round after round 0 is a ~20 s
+   NumPy host solve), with every kernel launch counter reset
    just before and read just after; then the device operations of one
    more round under ``torch.profiler``; the solver kernel on that run's
    own host problems against the host solutions
@@ -222,28 +223,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     (``--model-rank``), and at (data=1, model=1) over NCCL in this
     process: K = 4 clients of 4 x 256 tokens, packed wire, bit channel,
     deterministic, 1 step each beside the unsharded step on the same
-    draws, every leaf gathered at use (mamba2-130m at full width on the
-    gloo ranks, which takes no tensor parallelism; smollm-135m on the
-    one NCCL rank) (``model_axis_steps``: every per-client gradient
-    block its slice of the unsharded pass bit for bit; ``sign_ok``,
-    ``mod_ok``, flips, CRC verdicts, ``g_min`` and ``g_max`` exactly; the
-    parameters and ḡ within 9.9e-8 of each leaf's largest magnitude,
-    ||g_k||^2 within ``model_axis.g2_rtol``); then on the two gloo ranks
-    tensor parallel (``models.parallel``, float32 partial products) on
-    smollm-135m (1 step) and on one full-width group of granite-8b
-    (K = 2 of 4 x 256, 1 step): each gradient block within
-    ``VMAP_RTOL`` of the leaf's largest |g| of the unsharded pass (each
-    one's distance from the float32 pass of the same weights printed
-    beside), and the same integers, parameters, ḡ and ||g_k||^2 given
-    the same gradients; each step's ms, a rank's FLOPs (``FlopCounterMode``)
-    and bytes of parameters, gradient stack and ḡ (``launch.shardings``'
-    blocks) against the unsharded step's;
+    draws; on the NCCL rank every leaf gathered at use (smollm-135m)
+    (``model_axis_steps``: every per-client gradient block its slice of
+    the unsharded pass bit for bit; ``sign_ok``, ``mod_ok``, flips, CRC
+    verdicts, ``g_min`` and ``g_max`` exactly; the parameters and ḡ
+    within 9.9e-8 of each leaf's largest magnitude, ||g_k||^2 within
+    ``model_axis.g2_rtol``); on the two gloo ranks tensor parallel
+    (``models.parallel``, float32 partial products; ``MODEL_AXIS_TP``) on
+    mamba2-130m at full width (its SSM heads split, ``in_proj``,
+    ``conv_w``, ``conv_b`` re-blocked), smollm-135m and one full-width
+    group of granite-8b and of paligemma-3b (one kv head: its 'kv'
+    leaves' partials summed in float32) (K = 2 of 4 x 256 for the
+    groups; 1 step each): each gradient block in float32 within 1e-5 of
+    the leaf's largest |g| of the float32 unsharded pass, in bf16 within
+    the control's distance plus ``VMAP_RTOL``, and the same integers,
+    parameters, ḡ and ||g_k||^2 given the same gradients; each step's ms,
+    a rank's FLOPs (``FlopCounterMode``) and bytes of parameters,
+    gradient stack and ḡ (``launch.shardings``' blocks) against the
+    unsharded step's; then on the same ranks the split serve
+    (``SERVE_TP``, ``tp_serve``) of the granite-8b group and of
+    mamba2-130m (batch 4, prompt 128, a prefill and 4 greedy decode
+    tokens, ``serving.generate(layout=)``) beside the unsharded serve:
+    prefill ms and decode ms a token each way, the bf16 logits' distance
+    and greedy tokens, and a float32 copy's logits within 1e-5 of each
+    row's largest |logit|;
     ``examples.fl_train_lm --full --seq 256`` for 3 steps and
     ``examples.serve_batched`` on smollm-135m; and, in a process of its
     own beside that card work (``--dryrun``), the dry run of
-    smollm-135m x the four shapes x both production
-    meshes (``build/dryrun/``), each record's bytes a rank against 80
-    GB, FLOPs and collectives printed.
+    smollm-135m x the four shapes on the single-pod mesh
+    (``build/dryrun/``), each record's bytes a rank against 80 GB, FLOPs
+    and collectives printed.
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -253,8 +262,9 @@ reset just before that run; ``alloc_solve_f32``'s is the count of its
 kernel in the card's record of phase 10's 'scan' run (``torch.profiler``:
 the wrappers do not see a graph's replays).  The solver's row times the last main-jax (float32: fused)
 round's solve (``ms`` and ``warm_ms`` are the same measurement: its
-inputs are a few hundred bytes) and its plain version once; its bound
-counts the work of that solve's trip counts.  Its ``bound_ms`` is the
+inputs are a few hundred bytes) and its plain version once (the float64
+one in this process while phase 14's gloo ranks run); its bound counts
+the work of that solve's trip counts.  Its ``bound_ms`` is the
 larger of its bytes (each input read once, each output written once) over
 the HBM rate and the operations its function needs (``FUNCTION_OPS``)
 over the busiest pipe's rate, each shift and bit set placed on the ALU
@@ -3616,6 +3626,10 @@ FUSED_SWEEP = (
     ('error_free-analytic', dict(transport='error_free', wire='analytic'),
      []),
 )
+# fading draws of the kept float32 problem solved in one launch and held
+# to their plain batch (a host-bound plain solve: ~2.9 s a draw on the
+# card's host; 16 draws took 45.7 s in PR 29's last run)
+FUSED_F32_DRAWS = 4
 # the f32 contract against the float64 solve (tests/test_torch_allocation_
 # jax_f32.py, the reference's "f32 solve_traceable contract")
 F32_CONTRACT = dict(obj_rtol=1e-4, qp_atol=5e-3)
@@ -3847,8 +3861,9 @@ def run_fused(data) -> dict:
     and an 'eager' replay under ``set_sync_debug_mode('error')``; the
     device operations of one replayed round and one segment's idle share
     (``torch.profiler``); round 1's f32 solve (the problem it prints, kept
-    in ``tests/data/fused_f32_problem_k20.json``) and 16 fading draws of
-    it in one launch held to their plain versions bit for bit.  -> the
+    in ``tests/data/fused_f32_problem_k20.json``) and ``FUSED_F32_DRAWS``
+    fading draws of it in one launch held to their plain versions bit for
+    bit.  -> the
     row of the f32 solver (round 1's solve), the round times and the
     solves."""
     import dataclasses
@@ -4017,13 +4032,13 @@ def run_fused(data) -> dict:
           f"{json.dumps(op_kinds(seg['names']))}, most time first "
           f"{json.dumps(seg['top_ms'])} ms", flush=True)
     # round 1's float32 solve (the kept problem, timed alone above) and
-    # 16 fading draws of its gains in one launch, each held to its plain
-    # version on the same card tensors
+    # FUSED_F32_DRAWS fading draws of its gains in one launch, each held
+    # to its plain version on the same card tensors
     kw = dict(max_iters=one_iters, tol=fl.allocation_tol or 1e-5,
               early_exit=fl.allocation_early_exit, gate=one['gate'])
-    draws = fading_draws(one['prob'])
-    draw_trips = torch.zeros((16, len(ops.ALLOC_TRIPS)), dtype=torch.int32,
-                             device='cuda')
+    draws = fading_draws(one['prob'], FUSED_F32_DRAWS)
+    draw_trips = torch.zeros((FUSED_F32_DRAWS, len(ops.ALLOC_TRIPS)),
+                             dtype=torch.int32, device='cuda')
     batch = ops.alloc_solve(draws, fl.allocator, trips=draw_trips, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4034,12 +4049,15 @@ def run_fused(data) -> dict:
                   'round 1 problem')
     t0 = time.perf_counter()
     same_solution(batch, AJ.solve_plain(draws, fl.allocator, **kw),
-                  'alloc_solve_f32 on 16 fading draws of that problem')
+                  f'alloc_solve_f32 on {FUSED_F32_DRAWS} fading draws of '
+                  'that problem')
     batch_s = time.perf_counter() - t0
     print(f'alloc_solve_f32 on the fused-f32 round 1 problem (K={K}): '
           f'kernel {one["ms"]:.4f} ms, plain {plain_ms:.1f} ms on the card, '
-          'bit for bit; 16 fading draws of it in one launch (layout '
-          f'{json.dumps(ops.alloc_layout(16, K, fl.allocator, torch.float32))}'
+          f'bit for bit; {FUSED_F32_DRAWS} fading draws of it in one '
+          'launch (layout '
+          + json.dumps(ops.alloc_layout(FUSED_F32_DRAWS, K, fl.allocator,
+                                        torch.float32)) +
           f'): bit for bit with their plain batch ({batch_s:.1f} s), trips '
           'summed '
           f'{json.dumps(dict(zip(ops.ALLOC_TRIPS, draw_trips.sum(0).tolist())))}',
@@ -4997,11 +5015,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(world: int, flag: str = '--shard-rank') -> list:
+def spawn_ranks(world: int, flag: str = '--shard-rank',
+                beside=None) -> list:
     """``world`` gloo ranks of this script on the one card (``flag``:
     phase 12's ``--shard-rank`` or phase 14's ``--model-rank``) -> each
     rank's results; a rank that fails fails the phase (the others are
-    stopped)."""
+    stopped).  ``beside``: a callable this process runs while the ranks
+    run."""
     import tempfile
     out = tempfile.mkdtemp(prefix=f'{flag[2:]}{world}_', dir=ROOT / 'build')
     port = free_port()
@@ -5011,6 +5031,14 @@ def spawn_ranks(world: int, flag: str = '--shard-rank') -> list:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     errors = []
+    if beside is not None:
+        try:
+            beside()
+        except BaseException:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
     try:
         for r, proc in enumerate(procs):
             _, err = proc.communicate(timeout=SHARD_TIMEOUT_S)
@@ -5852,19 +5880,34 @@ MODEL_AXIS_RTOL = 9.9e-8
 # float32 pass, of the leaf's largest |g| (tests/test_torch_model_axis.py's
 # GRAD_ATOL)
 MODEL_AXIS_F32_ATOL = 1e-5
-# every leaf gathered at use on the same two ranks: an attention-free
-# model takes no tensor parallelism
-MODEL_AXIS_GATHERED = 'mamba2-130m'
-# tensor parallelism on the same two ranks: (arch, steps, run) by label;
-# smollm-135m (9 heads: attention gathered; MLP and vocabulary split) and
+# tensor parallelism on two gloo ranks: (arch, steps, run) by label;
+# mamba2-130m at full width (its 24 SSM heads and its vocabulary of
+# 50,280 divide 2: in_proj, conv_w, conv_b re-blocked by an all-to-all),
+# smollm-135m (9 heads: attention gathered; MLP and vocabulary split),
 # one full-width group of granite-8b (32 heads, 8 kv heads, d_ff 14,336,
-# vocab 49,152: every kind of parallel layer), K = 2 clients of 4 x 256
-# there (each rank holds its step and the unsharded step: the K x dim x
-# 4-byte uniforms alone are 5 GB a rank at K = 2)
+# vocab 49,152: every kind of parallel layer) and of paligemma-3b (8
+# query heads, one kv head: 'q', its wk/wv 'kv' leaves), K = 2 clients
+# of 4 x 256 for the granite group, of 2 x 128 for paligemma's (its
+# vocabulary of 257,216: at 4 x 256, and at 2 x 256 beside the script's
+# own process, the two ranks' checks ran out of the card); each rank
+# holds its step and the unsharded step: the K x dim x 4-byte uniforms
+# alone are 5 GB a rank at K = 2
 MODEL_AXIS_TP = {
+    'tp_mamba2': ('mamba2-130m', 1, {}),
     'tp_smollm': (LLM_ARCH, 1, {}),
     'tp_granite_group': ('granite-8b', 1, dict(k=2, b=4, t=256)),
+    'tp_paligemma_group': ('paligemma-3b', 1, dict(k=2, b=2, t=128)),
 }
+# the split serve on the same two ranks (label: arch; a 'group' label
+# one full-width group), ZOO_SERVE's batch and prompt, a prefill and
+# SERVE_TP_TOKENS - 1 decode steps, against the unsharded serve of the
+# same weights on each rank
+SERVE_TP = {'serve_granite_group': 'granite-8b',
+            'serve_mamba2': 'mamba2-130m'}
+SERVE_TP_TOKENS = 5
+# the split serve's float32 logits against the unsharded float32 serve,
+# of each row's largest |logit| (tests/test_torch_tp_serving.py's)
+SERVE_TP_F32_ATOL = 1e-5
 PHASE14_KERNELS = ('quantize_pack', 'spfl_accumulate', 'corrupt_fold')
 DRYRUN_ARCHS = ('smollm-135m',)
 DRYRUN_TIMEOUT_S = 400
@@ -5883,21 +5926,30 @@ def model_axis_bytes(layout, k_local: int, k: int) -> dict:
             'unsharded': MA.rank_bytes(layout, k, whole=True)}
 
 
-def step_flops(step, *args) -> float:
-    """FLOPs of one call ``step(*args)`` (``FlopCounterMode``: matmuls,
-    convolutions, attention)."""
-    from torch.utils.flop_counter import FlopCounterMode
-    counter = FlopCounterMode(display=False)
-    with counter:
-        step(*args)
-    return float(counter.get_total_flops())
-
-
 def rounded_once(x, w):
     """``x @ w`` as a float32 GEMM rounded to x's dtype once (the
     control of :func:`tp_gradient_errors`)."""
     import torch
     return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+
+
+class EinsumRoundedOnce:
+    """``torch`` as ``models.ssm`` sees it in the control of
+    :func:`tp_gradient_errors`: every ``einsum`` (the SSD's batched
+    products over heads, whose accumulation order a split changes) taken
+    in float32 and rounded to its operands' dtype once."""
+
+    def __getattr__(self, name):
+        import torch
+        return getattr(torch, name)
+
+    @staticmethod
+    def einsum(eq, *ops):
+        import torch
+        dt = ops[0].dtype
+        for o in ops[1:]:
+            dt = torch.promote_types(dt, o.dtype)
+        return torch.einsum(eq, *[o.to(torch.float32) for o in ops]).to(dt)
 
 
 def tp_gradient_errors(cfg, mesh, layout, params, blocks, toks, got,
@@ -5906,27 +5958,42 @@ def tp_gradient_errors(cfg, mesh, layout, params, blocks, toks, got,
     weights) against the unsharded pass's ``want``, each leaf's largest
     distance over its largest |g|, beside two others of the same leaf:
     'control', the unsharded pass again with every ``common.dot``
-    product of the attention and the MLP taken as a float32 GEMM rounded
-    once (the float32 partial products' rounding, with no split and no
-    collective) against the unsharded pass ('tp_vs_control': the
-    tensor-parallel pass against the control); 'f32', the tensor-parallel
-    pass against the unsharded one with both in float32 (the same
-    weights cast up).  Holds 'f32' within ``MODEL_AXIS_F32_ATOL`` (the
-    CPU tests' bound) and the bf16 distance within the control's plus
-    ``VMAP_RTOL``.  -> {path: {'tp', 'control', 'tp_vs_control', 'f32'}}."""
+    product of the attention, the MLP and the Mamba2 block, and the
+    Mamba2 block's einsums (``EinsumRoundedOnce``), taken in float32 and
+    rounded once (the float32 partial products' rounding, with no split
+    and no collective) against the unsharded pass
+    ('tp_vs_control': the tensor-parallel pass against the control);
+    'f32', the tensor-parallel pass against the unsharded one with both
+    in float32 (the same weights cast up; their FLOPs, a step's: the
+    transport and update count none).  Holds 'f32' within
+    ``MODEL_AXIS_F32_ATOL`` (the CPU tests' bound) and the bf16 distance
+    within the control's plus ``VMAP_RTOL``.  Where a leaf's 'f32'
+    passes ``MODEL_AXIS_F32_ATOL``, the unsharded float32 pass is held to
+    a float64 pass of the same weights ('f32_own': float32's own error on
+    that leaf, the cumulative log decay of a Mamba2 block cancels) and
+    the leaf to ``MODEL_AXIS_F32_ATOL`` + 2 x 'f32_own' (each of two
+    float32 passes lies within its own error of the exact gradient).
+    -> ({path: {'tp', 'control', 'tp_vs_control', 'f32'[, 'f32_own']}},
+    {'flops', 'plain_flops'})."""
     from unittest import mock
     import torch
     from repro_torch import tree
-    from repro_torch.models import attention, mlp
+    from repro_torch.models import attention, mlp, ssm
     from repro_torch.training import distributed as D
     from repro_torch.training import model_axis as MA
 
     def dist(a, b, whole) -> float:
+        """In float64 a client row at a time (a whole leaf in float64
+        is K x 8 bytes an entry: 8.4 GB for paligemma-3b's embedding at
+        K = 2)."""
         scale = max(float(whole.abs().max()), 1e-30)
-        return float((a.double() - b.double()).abs().max()) / scale
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b)) / scale
 
     with mock.patch.object(attention, 'dot', rounded_once), \
-            mock.patch.object(mlp, 'dot', rounded_once):
+            mock.patch.object(mlp, 'dot', rounded_once), \
+            mock.patch.object(ssm, 'dot', rounded_once), \
+            mock.patch.object(ssm, 'torch', EinsumRoundedOnce()):
         ctl = tree.leaves(D.client_grads(params, cfg, toks, True)[1])
     errs = {}
     for i, (g, w, c) in enumerate(zip(got, want, ctl)):
@@ -5939,11 +6006,26 @@ def tp_gradient_errors(cfg, mesh, layout, params, blocks, toks, got,
     def f32(t):
         return tree.map(lambda x: x.to(torch.float32), t)
 
-    exact = tree.leaves(D.client_grads(f32(params), cfg, toks, True)[1])
-    _, got32 = MA.client_grads(f32(blocks), cfg, toks, layout, True)
+    from torch.utils.flop_counter import FlopCounterMode
+    counted = FlopCounterMode(display=False)
+    with counted:
+        exact = tree.leaves(D.client_grads(f32(params), cfg, toks,
+                                           True)[1])
+    flops = {'plain_flops': float(counted.get_total_flops())}
+    counted = FlopCounterMode(display=False)
+    with counted:
+        _, got32 = MA.client_grads(f32(blocks), cfg, toks, layout, True)
+    flops['flops'] = float(counted.get_total_flops())
     for i, (g, e) in enumerate(zip(got32, exact)):
         errs[layout.paths[i]]['f32'] = dist(g, layout.block_of(i, e, 1), e)
-    del exact, got32
+    del got32
+    if any(e['f32'] > MODEL_AXIS_F32_ATOL for e in errs.values()):
+        f64 = tree.map(lambda x: x.to(torch.float64), params)
+        exact64 = tree.leaves(D.client_grads(f64, cfg, toks, True)[1])
+        for i, (e, e64) in enumerate(zip(exact, exact64)):
+            errs[layout.paths[i]]['f32_own'] = dist(e, e64, e64)
+        del f64, exact64
+    del exact
     worst = sorted(errs, key=lambda p: errs[p]['tp'], reverse=True)[:6]
     print(f'{cfg.name} {mesh.coords}: gradient blocks / leaf max |g| '
           '(tensor parallel against the unsharded pass; control; float32 '
@@ -5953,13 +6035,14 @@ def tp_gradient_errors(cfg, mesh, layout, params, blocks, toks, got,
           file=sys.stderr, flush=True)
     bad = {p: e for p, e in errs.items()
            if not (e['f32'] <= MODEL_AXIS_F32_ATOL
+                   + 2 * e.get('f32_own', 0.0)
                    and e['tp'] <= e['control'] + VMAP_RTOL)}
     if bad:
         raise AssertionError(f'{cfg.name} {mesh.shape}: tensor-parallel '
                              'gradient blocks past their bounds (float32 '
-                             f'{MODEL_AXIS_F32_ATOL}; bf16 the control + '
-                             f'{VMAP_RTOL}): {bad}')
-    return errs
+                             f'{MODEL_AXIS_F32_ATOL} + 2 x its own error; '
+                             f'bf16 the control + {VMAP_RTOL}): {bad}')
+    return errs, flops
 
 
 def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
@@ -5971,8 +6054,9 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
     step on the same tokens, (q, p) and draws, each from its own state.
 
     Every leaf gathered at use (a model that takes no tensor parallelism,
-    or one model rank): before the first step every per-client gradient
-    block against the same slice of the unsharded pass bit for bit; each
+    or one model rank): the first step's per-client gradient blocks (the
+    step's own gradient pass) against the same slice of the unsharded
+    pass bit for bit; each
     step, the integers (``sign_ok``, ``mod_ok``, flips, CRC verdicts,
     ``g_min``, ``g_max``) exactly, the parameters and ḡ within
     ``MODEL_AXIS_RTOL`` of each leaf's largest magnitude and ||g_k||^2
@@ -5981,9 +6065,11 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
     pass as :func:`tp_gradient_errors` holds it.  Each
     step the unsharded step is handed the sharded step's gradients
     (gathered over 'model'), so the same integers, parameters, ḡ and
-    ||g_k||^2 are held given the same gradients, and after the timed
-    steps one more step of each under ``FlopCounterMode``.  -> step ms (sharded and unsharded), the worst
-    errors, FLOPs, the rank's bytes and the sharded steps' launches."""
+    ||g_k||^2 are held given the same gradients; a step's FLOPs
+    (``FlopCounterMode``) are those of its gradient pass, counted on
+    :func:`tp_gradient_errors`' float32 passes.  -> step ms (sharded and
+    unsharded), the worst errors, FLOPs, the rank's bytes and the sharded
+    steps' launches."""
     from unittest import mock
     import torch
     from repro_torch import tree
@@ -6016,26 +6102,31 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
         raise ValueError('the model-axis check runs one client rank')
     q = torch.full((k,), 0.95, device=dev)
     p = torch.full((k,), 0.9, device=dev)
-    # the per-client gradient blocks, before the first step
-    _, got = MA.client_grads(blocks, cfg, toks[rows], layout, True)
-    _, want = D.client_grads(params, cfg, toks[rows], True)
-    want = tree.leaves(want)
-    if not tensor_parallel:
+
+    def check_gradients(got, first_blocks) -> dict:
+        """The first step's per-client gradient blocks ``got`` (of the
+        first blocks) against the unsharded pass of the same weights
+        (``params`` before the unsharded step updates them)."""
+        want = tree.leaves(D.client_grads(params, cfg, toks[rows], True)[1])
+        if tensor_parallel:
+            errs, flops = tp_gradient_errors(cfg, mesh, layout, params,
+                                             first_blocks, toks[rows], got,
+                                             want)
+            out.update(flops)
+            return errs
         for i, (g, w) in enumerate(zip(got, want)):
             if not torch.equal(g, layout.block_of(i, w, 1)):
                 raise AssertionError(f'{cfg.name} {mesh.shape}: the '
                                      'gradient block of '
                                      f'{layout.paths[i]} differs')
-        leaf_err = {}
-    else:
-        leaf_err = tp_gradient_errors(cfg, mesh, layout, params, blocks,
-                                      toks[rows], got, want)
-    del got, want
+        return {}
+
+    first_blocks = blocks
     host = torch.Generator().manual_seed(seed + 1)
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sizes = [x.numel() for x in tree.leaves(params)]
     out = {'step_ms': [], 'plain_ms': [], 'params': 0.0, 'gbar': 0.0,
-           'g2': 0.0, 'flips': 0, 'counts': {}, 'leaf_err': leaf_err,
+           'g2': 0.0, 'flips': 0, 'counts': {}, 'leaf_err': {},
            'uses': {u: layout.uses.count(u) for u in set(layout.uses)},
            'arch': cfg.name, 'tensor_parallel': tensor_parallel}
     ints = ('sign_flips', 'mod_flips', 'sign_crc_ok', 'mod_crc_ok')
@@ -6068,6 +6159,9 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
         for name, c in ops.launch_counts.items():
             if c:
                 out['counts'][name] = out['counts'].get(name, 0) + c
+        if first_blocks is not None:
+            out['leaf_err'] = check_gradients(kept[-1][1], first_blocks)
+            first_blocks = None
         if tensor_parallel:
             losses, g = kept[-1]
             passed.append((losses, tree.unflatten(params, [
@@ -6109,17 +6203,6 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
             <= MODEL_AXIS_RTOL and out['g2'] <= out['g2_bound']):
         raise AssertionError(f'{cfg.name} {mesh.shape}: against the '
                              f'unsharded step {out}')
-    if tensor_parallel:
-        rand = [torch.rand((k, n), generator=gen, device=dev)
-                for n in sizes]
-        draws = tr.TreeDraws(rand, **{f: x.to(dev) for f, x in
-                                      tr.tree_host_draws(
-                                          k, len(sizes), 0, 'bitlevel',
-                                          host).items()})
-        out['flops'] = step_flops(sharded, blocks, {'tokens': toks[rows]},
-                                  gbar_blocks, q, p, draws)
-        out['plain_flops'] = step_flops(plain, params, {'tokens': toks},
-                                        gbar, q, p, draws)
     out['bytes'] = model_axis_bytes(layout, mesh.clients.k_local(k), k)
     out['coords'] = mesh.coords
     if dev.type == 'cuda':
@@ -6127,13 +6210,124 @@ def model_axis_steps(mesh, dev, arch: str = LLM_ARCH,
     return out
 
 
+def serve_steps(params, cfg, prompts, layout=None) -> tuple:
+    """A prefill and ``SERVE_TP_TOKENS - 1`` greedy decode steps (the
+    rank's blocks and ``model_axis.Serving`` under ``layout``) -> (each
+    step's logits of the whole batch, float32 (B, steps, V); the tokens
+    fed)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import model_axis as MA
+    B, T = prompts.shape
+    n = T + SERVE_TP_TOKENS + 8
+    serving = tp = None
+    if layout is not None:
+        serving = MA.Serving(layout, cfg, ShapeConfig('serve', n, B,
+                                                      'decode'))
+        tp = layout.tp
+    with torch.no_grad():
+        logits, cache = tf.prefill(params, cfg, prompts, n,
+                                   cache_dtype=torch.float32, tp=tp,
+                                   at_use=serving)
+        outs, toks = [logits.float()], []
+        for i in range(SERVE_TP_TOKENS - 1):
+            token = torch.argmax(logits[:, -1].float(), dim=-1).to(
+                torch.int32)[:, None]
+            logits, cache = tf.decode_step(params, cfg, cache, token, T + i,
+                                           tp, serving)
+            outs.append(logits.float())
+            toks.append(token)
+    return torch.cat(outs, dim=1), torch.cat(toks, dim=1)
+
+
+def tp_serve(mesh, dev, arch: str, cfg=None, seed: int = 30) -> dict:
+    """The split serve of ``arch`` (or ``cfg``) at full width on the
+    production ``mesh`` (``serving.generate(layout=)``: a prefill and
+    ``SERVE_TP_TOKENS - 1`` greedy decode tokens, ZOO_SERVE's batch and
+    prompt) beside the unsharded serve on this rank, timed each; the
+    bf16 logits' distance and whether the greedy tokens agree; then a
+    float32 copy of the weights served both ways step for step
+    (:func:`serve_steps`, TF32 off), its logits held within
+    ``SERVE_TP_F32_ATOL`` of each row's largest |logit|."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import synth_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import engine
+    from repro_torch.training import model_axis as MA
+    cfg = get_arch(arch) if cfg is None else cfg
+    b, t = ZOO_SERVE['batch'], ZOO_SERVE['prompt_len']
+    params = tree.map(lambda x: x.to(dev), tf.init_params(
+        cfg, torch.Generator().manual_seed(seed)))
+    layout = MA.Layout(cfg, mesh)
+    blocks = tree.map(torch.clone, MA.shard_params(params, layout))
+    prompts = torch.as_tensor(synth_tokens(b, t, cfg.vocab_size, seed)
+                              .reshape(b, t), device=dev)
+
+    def rel(got, want) -> float:
+        g = got.double().reshape(got.shape[0], -1)
+        w = want.double().reshape(want.shape[0], -1)
+        return float(((g - w).abs().amax(1)
+                      / w.abs().amax(1).clamp(min=1e-30)).max())
+
+    out = {'arch': cfg.name, 'tp': [layout.tp.attn, layout.tp.mlp,
+                                    layout.tp.moe, layout.tp.vocab,
+                                    layout.tp.ssm],
+           'uses': {u: layout.uses.count(u) for u in set(layout.uses)}}
+    ops.reset_launch_counts()
+    served = {}
+    for side, args in (('unsharded', (params, None)),
+                       ('split', (blocks, layout)),
+                       ('split_again', (blocks, layout)),
+                       ('unsharded_again', (params, None))):
+        timing = {}
+        served[side] = engine.generate(args[0], cfg, prompts,
+                                       SERVE_TP_TOKENS, timings=timing,
+                                       layout=args[1])
+        out[side] = {'prefill_ms': timing['prefill_s'] * 1e3,
+                     'decode_ms': timing['decode_s'] * 1e3
+                     / (SERVE_TP_TOKENS - 1)}
+    (toks, logits), (want_toks, want) = served['split'], served['unsharded']
+    out['bf16_tokens_equal'] = bool(torch.equal(toks, want_toks))
+    out['bf16_prefill_logits'] = rel(logits, want)
+    del served, toks, logits, want_toks, want
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = tree.map(lambda x: x.to(torch.float32), params)
+        f32_blocks = tree.map(lambda x: x.to(torch.float32), blocks)
+        del params, blocks
+        want, want_toks = serve_steps(f32, cfg, prompts)
+        got, got_toks = serve_steps(f32_blocks, cfg, prompts, layout)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    out['f32_logits'] = rel(got, want)
+    out['f32_tokens_equal'] = bool(torch.equal(got_toks, want_toks))
+    out['launches'] = {n: c for n, c in ops.launch_counts.items() if c}
+    if not (out['f32_logits'] <= SERVE_TP_F32_ATOL
+            and out['f32_tokens_equal']):
+        raise AssertionError(f'{cfg.name} {mesh.shape} split serve: float32 '
+                             f'logits {out["f32_logits"]:.3e} of the row '
+                             f'max (bound {SERVE_TP_F32_ATOL}), tokens '
+                             f'equal {out["f32_tokens_equal"]}')
+    out['coords'] = mesh.coords
+    return out
+
+
 def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
     """A rank of phase 14's gloo run (``python3 chip_smoke.py
     --model-rank R S PORT OUT``) on the (data=1, model=2) mesh:
-    ``model_axis_steps`` on mamba2-130m (no tensor parallelism: every
-    leaf gathered at use), then tensor parallel on smollm-135m and on one
-    full-width group of granite-8b (``MODEL_AXIS_TP``); writes its
-    results to OUT/rankR.json."""
+    ``model_axis_steps`` tensor parallel on mamba2-130m, smollm-135m and
+    one full-width group of granite-8b and of paligemma-3b
+    (``MODEL_AXIS_TP``), then the split serve of the granite-8b group and
+    of mamba2-130m (``SERVE_TP``, :func:`tp_serve`); writes its results
+    to OUT/rankR.json."""
     import torch
     import torch.distributed as tdist
     sys.path.insert(0, str(SRC))
@@ -6145,17 +6339,39 @@ def model_rank_main(rank: int, world: int, port: int, out: str) -> int:
     try:
         mesh = ProductionMesh(*MODEL_AXIS_MESH)
         dev = torch.device('cuda')
-        res = {'gathered': model_axis_steps(mesh, dev, MODEL_AXIS_GATHERED)}
-        free_card()
+        res = {}
         for label, (arch, steps, run) in MODEL_AXIS_TP.items():
             cfg = one_group(arch) if label.endswith('group') else None
             res[label] = model_axis_steps(mesh, dev, arch, steps, cfg=cfg,
                                           **run)
             free_card()
+        for label, arch in SERVE_TP.items():
+            cfg = one_group(arch) if label.endswith('group') else None
+            res[label] = tp_serve(mesh, dev, arch, cfg)
+            free_card()
         Path(out, f'rank{rank}.json').write_text(json.dumps(res))
     finally:
         tdist.destroy_process_group()
     return 0
+
+
+def print_tp_serve(label: str, res: dict) -> None:
+    print(f'{label} ({res["arch"]}; tensor parallel (attention, MLP, '
+          f'experts, vocabulary, SSM) {json.dumps(res["tp"])}; leaf uses '
+          f'{json.dumps(res["uses"])}): prefill ms split '
+          f'{res["split"]["prefill_ms"]:.3f} / '
+          f'{res["split_again"]["prefill_ms"]:.3f}, unsharded '
+          f'{res["unsharded"]["prefill_ms"]:.3f} / '
+          f'{res["unsharded_again"]["prefill_ms"]:.3f}; decode ms a token '
+          f'split {res["split"]["decode_ms"]:.3f} / '
+          f'{res["split_again"]["decode_ms"]:.3f}, unsharded '
+          f'{res["unsharded"]["decode_ms"]:.3f} / '
+          f'{res["unsharded_again"]["decode_ms"]:.3f}; bf16 prefill logits '
+          f'within {res["bf16_prefill_logits"]:.3e} of the row max, greedy '
+          f'tokens equal {res["bf16_tokens_equal"]}; float32 logits within '
+          f'{res["f32_logits"]:.3e} (bound {SERVE_TP_F32_ATOL}), tokens '
+          f'equal {res["f32_tokens_equal"]}; launches '
+          f'{json.dumps(res["launches"])}', flush=True)
 
 
 def print_model_axis(label: str, res: dict) -> None:
@@ -6166,6 +6382,7 @@ def print_model_axis(label: str, res: dict) -> None:
         tp, ctl, tp_ctl, f32 = (max(e[key] for e in errs) for key in (
             'tp', 'control', 'tp_vs_control', 'f32'))
         n_past = sum(e['tp'] > VMAP_RTOL for e in errs)
+        own = [e['f32_own'] for e in errs if 'f32_own' in e]
         grads = (f'gradient blocks within {tp:.3e} of each leaf\'s largest '
                  f'|g| of the unsharded pass ({n_past} leaves past '
                  f'VMAP_RTOL {VMAP_RTOL:.3e}; the control, the unsharded '
@@ -6173,7 +6390,10 @@ def print_model_axis(label: str, res: dict) -> None:
                  f'{ctl:.3e}; each leaf within its control + VMAP_RTOL; '
                  f'tensor parallel against the control {tp_ctl:.3e}), '
                  f'in float32 within {f32:.3e} (bound '
-                 f'{MODEL_AXIS_F32_ATOL}), integers exact given the same '
+                 f'{MODEL_AXIS_F32_ATOL}' + (
+                     f' + 2 x the unsharded float32 pass\'s own distance '
+                     f'from float64, up to {max(own):.3e}' if own else '')
+                 + '), integers exact given the same '
                  'gradients; the worst leaves (tp, control, f32) ' +
                  '; '.join(f'{p} {e["tp"]:.3e} {e["control"]:.3e} '
                            f'{e["f32"]:.3e}' for p, e in sorted(
@@ -6226,9 +6446,10 @@ def phase14_env() -> dict:
 
 
 def phase14_dryrun() -> dict:
-    """The dry run of ``DRYRUN_ARCHS`` x the four shapes x both meshes
-    (``build/dryrun/``), each record's line printed; every applicable
-    record traced, every other one a skip."""
+    """The dry run of ``DRYRUN_ARCHS`` x the four shapes on the
+    single-pod mesh (``build/dryrun/``; the multi-pod records are the
+    CPU tests' and ``--all``'s), each record's line printed; every
+    applicable record traced, every other one a skip."""
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import applicable, get_arch
     from repro_torch.launch import dryrun
@@ -6236,14 +6457,13 @@ def phase14_dryrun() -> dict:
     recs = {}
     for arch in DRYRUN_ARCHS:
         for shape in INPUT_SHAPES:
-            for mp in (False, True):
-                rec = dryrun.run_one(arch, shape, mp)
-                ok, _ = applicable(get_arch(arch), INPUT_SHAPES[shape])
-                if rec['applicable'] != ok or (ok and 'cost' not in rec):
-                    raise AssertionError(f'dry run {arch} {shape}: {rec}')
-                print(f'dry run {arch} x {shape} x {rec["mesh"]}: '
-                      f'{dryrun.summary(rec)}', flush=True)
-                recs[(arch, shape, rec['mesh'])] = rec
+            rec = dryrun.run_one(arch, shape)
+            ok, _ = applicable(get_arch(arch), INPUT_SHAPES[shape])
+            if rec['applicable'] != ok or (ok and 'cost' not in rec):
+                raise AssertionError(f'dry run {arch} {shape}: {rec}')
+            print(f'dry run {arch} x {shape} x {rec["mesh"]}: '
+                  f'{dryrun.summary(rec)}', flush=True)
+            recs[(arch, shape, rec['mesh'])] = rec
     s = time.perf_counter() - t0
     print(f'dry run: {len(recs)} records in {s:.3f} s of host (--all is '
           'not run here: 8 min of host on the CPU of the sandbox)',
@@ -6315,7 +6535,7 @@ def phase14_drivers() -> dict:
     return counts
 
 
-def run_phase14() -> dict:
+def run_phase14(beside=None) -> dict:
     """Phase 14: ``launch.env``, the 'model' axis on the card (two gloo
     ranks at (data=1, model=2): mamba2-130m at full width gathered at
     use, then tensor parallel on smollm-135m and on one full-width group
@@ -6334,7 +6554,7 @@ def run_phase14() -> dict:
     t_dry = time.perf_counter()
     dry = start_dryrun()          # host work, beside the card work below
     try:
-        launched = phase14_card()
+        launched = phase14_card(beside)
     finally:
         finish_dryrun(dry)
     print(f'phase 14 dry run: {time.perf_counter() - t_dry:.3f} s (its '
@@ -6346,19 +6566,24 @@ def run_phase14() -> dict:
     return launched
 
 
-def phase14_card() -> dict:
-    """Phase 14's card work: the model axis over gloo and NCCL, then the
-    drivers.  -> launches by kernel (every rank)."""
+def phase14_card(beside=None) -> dict:
+    """Phase 14's card work: the model axis over gloo (this process runs
+    ``beside`` meanwhile) and NCCL, then the drivers.  -> launches by
+    kernel (every rank)."""
     import torch
     import torch.distributed as tdist
     from repro_torch.launch.mesh import ProductionMesh
     t0 = time.perf_counter()
-    ranks = spawn_ranks(2, '--model-rank')
+    ranks = spawn_ranks(2, '--model-rank', beside)
     launched = {}
     for r, runs in enumerate(ranks):
         for label, res in runs.items():
-            print_model_axis(f'model axis {label} (data=1, model=2; gloo '
-                             f'rank {r}, coords {res["coords"]})', res)
+            where = (f'(data=1, model=2; gloo rank {r}, coords '
+                     f'{res["coords"]})')
+            if label in SERVE_TP:
+                print_tp_serve(f'model axis {label} {where}', res)
+                continue
+            print_model_axis(f'model axis {label} {where}', res)
             for name, c in res['counts'].items():
                 launched[name] = launched.get(name, 0) + c
     print(f'phase 14 model axis (gloo): {time.perf_counter() - t0:.3f} s',
@@ -6477,7 +6702,7 @@ def main() -> int:
     fl = FLConfig(wire='packed', channel='bitlevel')
     host_solves = []
     sim, hist, counts = run_sim(
-        fl, 3, 'main', hook=lambda s: keep_host_solves(s, host_solves))
+        fl, 2, 'main', hook=lambda s: keep_host_solves(s, host_solves))
     want = fmt.measured_uplink_bits(sim.dim, fl.quant_bits, sim.K)
     if any(b != want for b in hist.payload_bits):
         raise AssertionError(f'payload_bits {hist.payload_bits} != '
@@ -6557,9 +6782,25 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = run_zoo()
     print(f'phase 13: {time.perf_counter() - t0:.3f} s', flush=True)
-    # 14. launch/env.py, the 'model' axis, the dry run, the drivers
+    # 14. launch/env.py, the 'model' axis, the dry run, the drivers; the
+    # solver kernel's row: the last main-jax round's solve, its plain
+    # version once on the same card tensors, timed in this process while
+    # phase 14's gloo ranks run (both host-bound; ~60 s of plain solve)
+    from repro_torch.core import allocation_jax as AJ
+    last = solves[-1]
+    alloc_plain = {}
+
+    def time_alloc_plain() -> None:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        alloc_plain['sol'] = AJ.solve_plain(
+            last['prob'], fl_j.allocator,
+            max_iters=fl_j.allocation_max_iters or 6, gate=last['gate'])
+        torch.cuda.synchronize()
+        alloc_plain['ms'] = (time.perf_counter() - t1) * 1e3
+
     t0 = time.perf_counter()
-    launches14 = run_phase14()
+    launches14 = run_phase14(time_alloc_plain)
     print(f'phase 14 launches (every rank): {json.dumps(launches14)}',
           flush=True)
     print(f'phase 14: {time.perf_counter() - t0:.3f} s', flush=True)
@@ -6570,22 +6811,13 @@ def main() -> int:
     if leaked:
         return fail(f'imported {leaked}')
 
-    # the solver kernel's row: the last main-jax round's solve, its plain
-    # version once on the same card tensors
-    from repro_torch.core import allocation_jax as AJ
-    last = solves[-1]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = AJ.solve_plain(last['prob'], fl_j.allocator,
-                           max_iters=fl_j.allocation_max_iters or 6,
-                           gate=last['gate'])
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain, plain_ms = alloc_plain['sol'], alloc_plain['ms']
     err = max(float((getattr(plain, f).double() - getattr(last['sol'], f)
                      .double()).abs().nan_to_num(0.0).max())
               for f in plain._fields)
     print(f'alloc_solve on the last main-jax round: plain {plain_ms:.1f} ms '
-          f'on the card, kernel - plain {err:.3e}', flush=True)
+          "on the card (beside phase 14's gloo ranks), kernel - plain "
+          f'{err:.3e}', flush=True)
     results['alloc_solve'] = {
         'ms': last['ms'], 'warm_ms': last['ms'], 'plain_ms': plain_ms,
         'max_abs_err': max(err, alloc['max_abs_err']),

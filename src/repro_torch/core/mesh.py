@@ -8,8 +8,8 @@ S holds the block of rows ``[r * K_local, (r + 1) * K_local)`` of the K
 clients, ``K_local = ceil(K / S)`` (the reference's row-major block), and
 K is padded to ``S * K_local`` with dummy rows (zeros: zero-weight rows
 whose vote gate is off).  The collectives are the group's ``all_reduce``
-(sum) and ``all_gather``; on a group whose backend is gloo a CUDA tensor
-goes through the host.
+(sum), ``all_gather`` and ``all_to_all_single``; on a group whose backend
+is gloo a CUDA tensor goes through the host.
 
 ``ClientMesh()`` (no group) is the one-rank mesh whose collectives are
 the identity: the transports' gathered collective runs on it, so the
@@ -98,6 +98,19 @@ class ClientMesh:
         else:
             dist.all_gather(list(out.chunk(self.size)), src,
                             group=self.group)
+        return out.to(t.device)
+
+    def all_to_all(self, t: Tensor, out_splits, in_splits) -> Tensor:
+        """Rows of ``t`` sent in consecutive runs of ``in_splits`` rows to
+        the ranks in order; the runs received, ``out_splits`` rows from
+        each rank in order, concatenated (one ``all_to_all_single``)."""
+        if self.group is None:
+            return t
+        src = t.cpu() if self._host(t) else t.contiguous()
+        out = torch.empty((sum(out_splits),) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.all_to_all_single(out, src.contiguous(), list(out_splits),
+                               list(in_splits), group=self.group)
         return out.to(t.device)
 
     def gather_rows(self, local: Tensor, k: int) -> Tensor:

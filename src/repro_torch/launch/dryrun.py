@@ -13,17 +13,22 @@ return at once), with the step builders the card runs:
   (the analytic wire, the 'gather' collective), K the client ranks;
 * ``prefill_32k``: ``models.transformer.prefill`` of the rank's rows;
 * ``decode_32k`` and ``long_500k``: one ``decode_step`` of the rank's
-  rows against a cache of ``seq_len``;
+  rows against a cache of ``seq_len`` (long_500k's batch of 1: every
+  rank's rows, the cache split by sequence);
 
 their inputs are :func:`input_specs` (the reference's), cut to the
 rank's blocks by ``launch.shardings``' batch and token specs.
 
 The rank holds its blocks of the parameters, ḡ, the batch and the cache
-(``launch.shardings``).  A train step computes with its blocks where
-they divide (tensor parallelism, ``training.model_axis`` and
-``models.parallel``) and gathers the other weights at use, each group of
-layers under the configuration's ``remat_policy``; prefill and decode
-gather every sharded weight and cache leaf at use.  Each record holds, under the reference's
+(``launch.shardings``; the serving cache at ``serving_cache_blocks``'
+layout).  Every step computes with its blocks where they divide
+(tensor parallelism, ``training.model_axis`` and ``models.parallel``)
+and gathers the other weights at use, each group of layers (a train
+step's under the configuration's ``remat_policy``); prefill and decode
+take the weights and the cache one group of layers at a time
+(``model_axis.Serving``): a cache leaf the partition does not split by
+heads is gathered over 'model' at use and cut back after, a
+sequence-split one attended in place.  Each record holds, under the reference's
 keys where they mean the same: ``arch``, ``shape``, ``mesh``,
 ``applicable``, ``skip_reason``, ``params``, ``active_params``,
 ``n_layers``, ``n_devices``, ``compile_s`` (here the trace's seconds),
@@ -54,8 +59,9 @@ layer and no extrapolation is made.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --report [DIR]
 
 Artifacts: ``build/dryrun/<arch>__<shape>__<mesh>.json``; ``--report``
-prints each train record's FLOPs a rank and peak live bytes and how many
-applicable records fit 80 GB by their peak (:func:`report`).
+prints each record's FLOPs a rank and peak live bytes and how many
+applicable records of each shape fit 80 GB by their peak
+(:func:`report`).
 """
 from __future__ import annotations
 
@@ -126,8 +132,10 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class LiveBytes(TorchDispatchMode):
     """Bytes of the tensors made under the mode that are alive at once
-    (a tensor that is no view counts from its making to its release),
-    their peak, and each collective's result bytes by kind."""
+    (a tensor that is no view counts from its making to its release; an
+    operator whose schema returns an alias of an input, as ``unbind``,
+    makes none), their peak, and each collective's result bytes by
+    kind."""
 
     def __init__(self):
         super().__init__()
@@ -143,6 +151,8 @@ class LiveBytes(TorchDispatchMode):
         if kind is not None:
             self.bytes[kind] += sum(_nbytes(t) for t in _tensors(args[0]))
             return out
+        if any(r.alias_info is not None for r in func._schema.returns):
+            return out             # a view of an input (unbind, split)
         for t in _tensors(out):
             if t._is_view() or t._base is not None:
                 continue
@@ -183,22 +193,6 @@ def _tree_of(like, flat: Dict[str, torch.Tensor]):
 
 def _bytes(t) -> int:
     return sum(_nbytes(x) for x in tree.leaves(t))
-
-
-def _without_batch(spec, dim: int) -> tuple:
-    return tuple(None if i == dim else e for i, e in enumerate(spec))
-
-
-def _gather_local(t, spec, mesh, batch_dim: int):
-    """A data leaf's block gathered over every sharded dimension but its
-    batch dimension (the rank computes on its own rows)."""
-    return MA.gather_full(mesh, t, _without_batch(spec, batch_dim))
-
-
-def _cache_block(t, spec, mesh, batch_dim: int = 1):
-    """The rank's block of a cache leaf it holds whole but for the batch."""
-    return t[sh.block_slices(_without_batch(spec, batch_dim),
-                             tuple(t.shape), mesh, mesh.coords)]
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, n_clients: int
@@ -294,42 +288,36 @@ class StepTrace:
             return step(self.params, batch)
         return run, {'step': 'standard_train', 'clients': 0}
 
-    def _gathered_params(self):
-        return _tree_of(self.full, {
-            p: MA.gather_full(self.mesh, x, self.pspecs[p])
-            for p, x in zip(tree.paths(self.params),
-                            tree.leaves(self.params))})
+    def _serving(self):
+        """The rank's serving (``model_axis.Serving``) and its held cache
+        blocks, made on the meta device (bf16)."""
+        serving = MA.Serving(MA.Layout(self.cfg, self.mesh), self.cfg,
+                             self.shape)
+        ng = tf.n_groups(self.cfg)
+        full = tf.init_cache(self.cfg, 1, 1, device=META)
+        cache = _tree_of(full, {
+            p: _empty((ng,) + s, torch.bfloat16)
+            for p, s in serving.held_shapes().items()})
+        return serving, cache
 
     def _prefill(self):
         cfg, shape, mesh = self.cfg, self.shape, self.mesh
         batch = self._batch(sh.prefill_batch_spec(cfg, mesh))
-        full_cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
-                                   torch.bfloat16, device=META)
-        cspecs = sh.cache_specs(cfg, mesh, shape, full_cache)
-        cache_out = _blocks(sh.shapes_of(full_cache), cspecs, mesh,
-                            lambda p: torch.bfloat16)
-        self.memory.update(batch=_bytes(batch),
-                           cache=sum(map(_nbytes, cache_out.values())),
-                           outputs=sum(map(_nbytes, cache_out.values())))
+        serving, cache_out = self._serving()
+        self.memory.update(batch=_bytes(batch), cache=_bytes(cache_out),
+                           outputs=_bytes(cache_out))
 
         def run():
             with torch.no_grad():
-                logits, cache = tf.prefill(
-                    self._gathered_params(), cfg, batch['tokens'],
-                    shape.seq_len, prefix_embeds=batch.get('prefix'))
-                return logits, {
-                    p: _cache_block(x, cspecs[p], mesh)
-                    for p, x in zip(tree.paths(cache), tree.leaves(cache))}
+                return tf.prefill(self.params, cfg, batch['tokens'],
+                                  shape.seq_len,
+                                  prefix_embeds=batch.get('prefix'),
+                                  tp=serving.tp, at_use=serving)
         return run, {'step': 'prefill', 'clients': 0}
 
     def _decode(self):
         cfg, shape, mesh = self.cfg, self.shape, self.mesh
-        full_cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
-                                   torch.bfloat16, device=META)
-        cspecs = sh.cache_specs(cfg, mesh, shape, full_cache)
-        cache = _tree_of(full_cache, _blocks(
-            sh.shapes_of(full_cache), cspecs, mesh,
-            lambda p: torch.bfloat16))
+        serving, cache = self._serving()
         token = self._batch(
             {'token': sh.decode_token_spec(cfg, mesh, shape)})['token']
         self.memory.update(batch=_nbytes(token), cache=_bytes(cache),
@@ -337,14 +325,9 @@ class StepTrace:
 
         def run():
             with torch.no_grad():
-                local = _tree_of(cache, {
-                    p: _gather_local(x, cspecs[p], mesh, 1)
-                    for p, x in zip(tree.paths(cache), tree.leaves(cache))})
-                logits, new = tf.decode_step(self._gathered_params(), cfg,
-                                             local, token, shape.seq_len - 1)
-                return logits, {
-                    p: _cache_block(x, cspecs[p], mesh)
-                    for p, x in zip(tree.paths(new), tree.leaves(new))}
+                return tf.decode_step(self.params, cfg, cache, token,
+                                      shape.seq_len - 1, tp=serving.tp,
+                                      at_use=serving)
         return run, {'step': 'decode', 'clients': 0}
 
 
@@ -465,23 +448,33 @@ def summary(rec: dict) -> str:
 
 
 def report(out_dir: str = ARTIFACT_DIR) -> dict:
-    """Read every record in ``out_dir``: print each train record's FLOPs a
-    rank and peak live bytes, then how many applicable records fit 80 GB
-    by their peak and at rest.  -> the counts."""
+    """Read every record in ``out_dir``: print each applicable record's
+    FLOPs a rank and peak live bytes, then by shape how many applicable
+    records fit 80 GB by their peak, then how many in all fit by their
+    peak and at rest.  -> the counts (``by_shape``: {shape: [fit, n]})."""
     recs = []
     for name in sorted(os.listdir(out_dir)):
         if name.endswith('.json'):
             with open(os.path.join(out_dir, name)) as f:
                 recs.append(json.load(f))
     live = [r for r in recs if r['applicable']]
+    by_shape: Dict[str, list] = {}
     for r in live:
-        if r['step'] in ('fl_train', 'standard_train'):
-            print(f'{r["arch"]} x {r["shape"]} x {r["mesh"]}: flops '
-                  f'{r["cost"]["flops"]:.4e}, peak live '
-                  f'{r["memory"]["peak_live_bytes"] / 1e9:.3f} GB')
+        m = r['memory']
+        print(f'{r["arch"]} x {r["shape"]} x {r["mesh"]}: flops '
+              f'{r["cost"]["flops"]:.4e}, peak live '
+              f'{m["peak_live_bytes"] / 1e9:.3f} GB, held '
+              f'{m["held_bytes"] / 1e9:.3f} GB')
+        n = by_shape.setdefault(r['shape'], [0, 0])
+        n[0] += bool(m['peak_fits_80gb'])
+        n[1] += 1
+    for shape, (fit, n) in sorted(by_shape.items()):
+        print(f'{shape}: {fit} of {n} applicable records fit 80 GB a rank '
+              'by their peak')
     out = {'records': len(recs), 'applicable': len(live),
            'peak_fits': sum(r['memory']['peak_fits_80gb'] for r in live),
-           'held_fits': sum(r['memory']['fits_80gb'] for r in live)}
+           'held_fits': sum(r['memory']['fits_80gb'] for r in live),
+           'by_shape': by_shape}
     print(f'{out["peak_fits"]} of {out["applicable"]} applicable records '
           f'({out["records"]} in all) fit 80 GB a rank by their peak, '
           f'{out["held_fits"]} at rest')

@@ -31,6 +31,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import MODEL, coords_of, mesh_shape
+from repro_torch.models import parallel
 
 Spec = Tuple[Any, ...]
 
@@ -209,6 +210,75 @@ def cache_specs(cfg: ModelConfig, mesh, shape: ShapeConfig, cache
             _cache_leaf_spec(path.split('.'), len(s), cfg, ms, seq_shard),
             s, ms)
     return out
+
+
+def serving_cache_blocks(cfg: ModelConfig, mesh, shape: ShapeConfig, cache,
+                         tp, coords: Optional[Dict[str, int]] = None
+                         ) -> Dict[str, Tuple[str, tuple]]:
+    """The port's serving cache layout under the tensor-parallel partition
+    ``tp`` (``models.parallel``): {path: (kind, index)}, ``index`` the
+    rank's part of the leaf, one entry a dimension (a slice, or a list of
+    indices: a split Mamba2 conv window's channels), ``kind`` how the
+    rank computes with it:
+
+    * 'heads': by heads where the partition splits them: K/V the rank's
+      kv heads (under 'q' the one it uses: up to twice the reference's
+      block, which splits ``head_dim``), the conv window its heads' x
+      channels with B and C whole, the SSM state its heads; the batch as
+      :func:`cache_specs` shards it.  Computed with as held;
+    * 'sequence': K/V whose sequence :func:`cache_specs` splits
+      (long_500k): the reference's block, attended in place;
+    * 'reference': elsewhere, the reference's block, gathered at use over
+      its 'model' dimensions one layer at a time.
+
+    ``coords``: the rank's (default the mesh's own)."""
+    ms = mesh_shape(mesh)
+    coords = mesh.coords if coords is None else coords
+    specs = cache_specs(cfg, mesh, shape, cache)
+    out = {}
+    for path, leaf in zip(tree.paths(cache), tree.leaves(cache)):
+        s = _shape_of(leaf)
+        spec = specs[path]
+        ref = block_slices(spec, s, ms, coords)
+        name = path.split('.')[-1]
+        whole = [slice(None)] * len(s)
+        whole[1] = ref[1]                          # the batch
+        r, m = tp.rank, tp.size
+        if name in ('k', 'v') and spec[2] is not None:
+            out[path] = ('sequence', ref)
+        elif name in ('k', 'v') and tp.attn is not None:
+            n = cfg.n_kv_heads // m
+            whole[3] = (slice(r * n, (r + 1) * n) if tp.attn == 'heads'
+                        else slice(tp.kv_head, tp.kv_head + 1))
+            out[path] = ('heads', tuple(whole))
+        elif name in ('conv', 'ssm') and tp.ssm:
+            if name == 'conv':
+                whole[3] = parallel.conv_channels(cfg, r, m)
+            else:
+                whole[2] = parallel.ssm_heads(cfg, r, m)
+            out[path] = ('heads', tuple(whole))
+        else:
+            out[path] = ('reference', ref)
+    return out
+
+
+def index_shape(index: tuple, leaf_shape) -> Tuple[int, ...]:
+    """The shape of a leaf's part ``index`` (slices or index lists)."""
+    return tuple(len(range(*e.indices(n))) if isinstance(e, slice)
+                 else len(e) for e, n in zip(index, leaf_shape))
+
+
+def take(x: torch.Tensor, index: tuple, skip: int = 0) -> torch.Tensor:
+    """The part ``index`` of ``x`` (slices, then the index lists; the
+    first ``skip`` entries of ``index`` left out: a group's leaf without
+    its group axis)."""
+    index = index[skip:]
+    x = x[tuple(e if isinstance(e, slice) else slice(None) for e in index)]
+    for d, e in enumerate(index):
+        if not isinstance(e, slice):
+            x = x.index_select(d, torch.tensor(e, dtype=torch.int64,
+                                               device=x.device))
+    return x
 
 
 def decode_token_spec(cfg: ModelConfig, mesh, shape: ShapeConfig) -> Spec:

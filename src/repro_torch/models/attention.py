@@ -61,9 +61,12 @@ def _project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     k = proj(params['wk'])
     v = proj(params['wv'])
     if cfg.qkv_bias:
-        q = q + params['bq']
-        k = k + params['bk']
-        v = v + params['bv']
+        # a tensor-parallel rank's 'kv' bias comes in float32 (its
+        # gradient partials summed in float32): added in the product's
+        # dtype, as the unsharded pass adds its own
+        q = q + params['bq'].to(q.dtype)
+        k = k + params['bk'].to(k.dtype)
+        v = v + params['bv'].to(v.dtype)
     cos, sin = (rope_tables(positions, hd, cfg.rope_theta) if rope is None
                 else rope)
     q = apply_rope_tables(q.reshape(B, T, h, hd), cos, sin)
@@ -138,9 +141,54 @@ def attention_prefill(params, cfg: ModelConfig, x: Tensor,
     return y, (k, v)
 
 
+def heads_of_all(t: Tensor, tp, kv: bool, cfg: ModelConfig) -> Tensor:
+    """A rank's heads of (B, T, h, hd) ``t`` -> every head, gathered over
+    the model ranks; under 'q' a rank's k/v (``kv``) is its one kv head,
+    taken from the first rank that holds each."""
+    parts = tp.mesh.all_gather(t.movedim(2, 0).contiguous())
+    per = parts.shape[0] // tp.size
+    parts = parts.reshape((tp.size, per) + tuple(parts.shape[1:]))
+    if kv and tp.attn == 'q':
+        per_rank = cfg.n_heads // tp.size
+        group = cfg.n_heads // cfg.n_kv_heads
+        first = [j * group // per_rank for j in range(cfg.n_kv_heads)]
+        parts = parts[first]
+    return parts.flatten(0, 1).movedim(0, 2)
+
+
+def _attend_split_sequence(q, cache_k, cache_v, positions, kv_pos, window,
+                           cap, seq):
+    """One query row against the rank's positions of a sequence-split
+    cache: the partial row maximum, sum of exponentials and weighted V
+    of its positions, combined over the ranks that share the sequence
+    (``seq``, a ``core.mesh.ClientMesh``: one MAX and one SUM), as the
+    whole-cache softmax."""
+    B, Tq, H, hd = q.shape
+    Kv = cache_k.shape[2]
+    qg = q.reshape(B, Tq, Kv, H // Kv, hd)
+    logits = torch.einsum('btkgh,bskh->bkgts', qg.to(torch.float32),
+                          cache_k.to(torch.float32)) * hd ** -0.5
+    if cap > 0.0:
+        logits = cap * torch.tanh(logits / cap)
+    valid = kv_pos[None, :] <= positions[:, None]
+    if window > 0:
+        valid = valid & ((positions[:, None] - kv_pos[None, :]) < window)
+    logits = torch.where(valid, logits, NEG_INF)
+    top = seq.all_reduce(torch.amax(logits, dim=-1, keepdim=True),
+                         torch.distributed.ReduceOp.MAX)
+    e = torch.exp(logits - top)
+    part = torch.cat([torch.einsum('bkgts,bskh->btkgh', e,
+                                   cache_v.to(torch.float32)),
+                      torch.sum(e, dim=-1).movedim(-1, 1)[..., None]],
+                     dim=-1)
+    part = seq.all_reduce(part)
+    out = part[..., :hd] / part[..., hd:]
+    return out.to(q.dtype).reshape(B, Tq, H, hd)
+
+
 def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
                      cache_v: Tensor, pos: Tensor, window: int = 0,
-                     rope=None):
+                     rope=None, tp=None, seq=None):
     """One-token decode.  x: (B, 1, D); cache_k, cache_v: (B, S, Kv, hd);
     ``pos``: the int32 device scalar of the new token's absolute position.
 
@@ -149,24 +197,62 @@ def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
     caches S >= pos + 1 in the launchers), in the cache's dtype, and the
     step attends over the cache in the model's dtype.  A slot never
     written holds position 2^30, which fails the causal test.  Returns
-    (y (B, 1, D) in x's dtype, new cache_k, new cache_v)."""
+    (y (B, 1, D) in x's dtype, new cache_k, new cache_v).
+
+    With ``tp`` whose attention is split, ``params`` are the rank's heads
+    (q/k/v column products, ``wo`` a row product) and the cache holds
+    the rank's kv heads (under 'q' the one it uses).  With ``seq`` (a
+    ``core.mesh.ClientMesh``), the cache is the rank's block of
+    ``seq.size`` equal blocks of the ring's slots (block ``seq.rank``):
+    the rank that holds slot ``pos % S`` writes the new K/V, and each
+    rank attends with every head over its own slots, the partials
+    combined over ``seq`` (the q/k/v of a split attention gathered over
+    the model ranks first; one token: small)."""
     B = x.shape[0]
-    S = cache_k.shape[1]
+    split = tp is not None and tp.attn is not None
     positions = pos.reshape(1)
-    q, k, v = _project_qkv(params, cfg, x, positions, rope)
+    q, k, v = _project_qkv(params, cfg, x, positions, rope,
+                           parallel.column(x, tp) if split else None)
+    n_local = cache_k.shape[1]
+    S = n_local * (seq.size if seq is not None else 1)
+    start = seq.rank * n_local if seq is not None else 0
     slot = positions % S
-    cache_k = cache_k.index_copy(1, slot.long(), k.to(cache_k.dtype))
-    cache_v = cache_v.index_copy(1, slot.long(), v.to(cache_v.dtype))
+    idx = torch.arange(start, start + n_local, dtype=torch.int32,
+                       device=x.device)
+    if seq is None:
+        cache_k = cache_k.index_copy(1, slot.long(), k.to(cache_k.dtype))
+        cache_v = cache_v.index_copy(1, slot.long(), v.to(cache_v.dtype))
+    else:
+        if split:
+            k, v = (heads_of_all(t, tp, True, cfg) for t in (k, v))
+        mine = (slot >= start) & (slot < start + n_local)
+        at = torch.clamp(slot - start, 0, n_local - 1).long()
+
+        def put(c, new):
+            new = torch.where(mine, new.to(c.dtype), c.index_select(1, at))
+            return c.index_copy(1, at, new)
+
+        cache_k, cache_v = put(cache_k, k), put(cache_v, v)
     # the absolute position each slot holds (ring-aware)
-    idx = torch.arange(S, dtype=torch.int32, device=x.device)
     wrapped = positions - torch.remainder(slot - idx, S)
     kv_pos = torch.where(wrapped >= 0, wrapped,
                          torch.full_like(wrapped, 2 ** 30))
-    # the cache read back in the model's dtype: a float32 cache of a bf16
-    # model holds the bf16 K/V exactly, and the step attends as the
-    # full-sequence pass does
-    out = multi_head_attention(
-        q, cache_k.to(q.dtype), cache_v.to(q.dtype), positions, kv_pos,
-        window=window, cap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
-    y = dot(out.reshape(B, 1, -1), params['wo'])
+    if seq is None:
+        # the cache read back in the model's dtype: a float32 cache of a
+        # bf16 model holds the bf16 K/V exactly, and the step attends as
+        # the full-sequence pass does
+        out = multi_head_attention(
+            q, cache_k.to(q.dtype), cache_v.to(q.dtype), positions, kv_pos,
+            window=window, cap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
+    else:
+        q_all = heads_of_all(q, tp, False, cfg) if split else q
+        out = _attend_split_sequence(
+            q_all, cache_k.to(q.dtype), cache_v.to(q.dtype), positions,
+            kv_pos, window, cfg.attn_softcap, seq)
+        if split:
+            h = q.shape[2]
+            out = out[:, :, tp.rank * h:(tp.rank + 1) * h]
+    out = out.reshape(B, 1, -1)
+    y = (parallel.row(out, params['wo'], tp) if split
+         else dot(out, params['wo']))
     return y, cache_k, cache_v

@@ -24,12 +24,20 @@ them over):
   split in f alike; the router is replicated, so routing is the same on
   every rank (its input is whole);
 * the embedding (vocab rows) and the head (vocab columns; a tied head is
-  the embedding's rows): :func:`vocab_embed` and :func:`vocab_xent`.
+  the embedding's rows): :func:`vocab_embed` and :func:`vocab_xent`;
+* a Mamba2 block, when its SSM heads divide ('ssm'): the rank computes
+  its heads' columns of z, x and dt (:func:`ssm_columns`), its heads' x
+  channels of the depthwise conv (:func:`conv_channels`) and its slices
+  of ``A_log``, ``D`` and ``dt_bias``; B and C (``ssm_state`` columns
+  each) are computed whole on every rank from their whole columns of
+  ``in_proj`` and their conv channels (d x 2 s: small); the output norm
+  takes its mean of squares over the whole inner width, a float32 sum
+  over the ranks (:func:`gated_rms_norm`); ``out_proj`` is a row block.
 
-An attention-free model (Mamba2) takes none of it: its blocks have no
-tensor-parallel form here, and its full-width vocabulary (50,280) does
-not divide 'model' = 16, so every variant of it keeps the gathered
-partition its full width has.
+Each rule stands alone, so an attention-free model (Mamba2) takes the
+SSM and vocabulary rules where they divide: mamba2-130m's 24 heads and
+its vocabulary of 50,280 divide 2 model ranks, not 16; zamba2-2.7b's 80
+heads divide 16.
 
 The two operators around a parallel block are :func:`copy_to` (identity
 forward, a sum over the model ranks of the cotangent backward; before a
@@ -81,6 +89,7 @@ class TensorParallel:
     mlp: bool
     moe: bool
     vocab: bool
+    ssm: bool
 
 
 def partition(cfg: ModelConfig, mesh: ClientMesh) -> TensorParallel:
@@ -89,9 +98,9 @@ def partition(cfg: ModelConfig, mesh: ClientMesh) -> TensorParallel:
     rank)."""
     m, r = mesh.size, mesh.rank
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    split = m > 1 and not cfg.attention_free
+    split = m > 1
     attn, kv_head = None, 0
-    if split and h and h % m == 0:
+    if split and not cfg.attention_free and h and h % m == 0:
         per_rank, group = h // m, h // kv
         if kv % m == 0:
             attn = 'heads'
@@ -102,7 +111,36 @@ def partition(cfg: ModelConfig, mesh: ClientMesh) -> TensorParallel:
         mesh=mesh, rank=r, size=m, attn=attn, kv_head=kv_head,
         mlp=ff and (not cfg.is_moe or cfg.dense_residual),
         moe=ff and cfg.is_moe,
-        vocab=split and cfg.vocab_size % m == 0)
+        vocab=split and cfg.vocab_size % m == 0,
+        ssm=(split and 'mamba' in cfg.layer_pattern
+             and cfg.ssm_heads % m == 0))
+
+
+def ssm_heads(cfg: ModelConfig, rank: int, size: int) -> slice:
+    """Model rank ``rank``'s SSM heads of ``size``."""
+    n = cfg.ssm_heads // size
+    return slice(rank * n, (rank + 1) * n)
+
+
+def conv_channels(cfg: ModelConfig, rank: int, size: int) -> list:
+    """Model rank ``rank``'s channels of the depthwise conv's ``x | B |
+    C``: its heads' x channels, then B and C whole."""
+    inner, s = cfg.ssm_inner, cfg.ssm_state
+    n = inner // size
+    return (list(range(rank * n, (rank + 1) * n))
+            + list(range(inner, inner + 2 * s)))
+
+
+def ssm_columns(cfg: ModelConfig, rank: int, size: int) -> list:
+    """Model rank ``rank``'s columns of ``in_proj``'s ``z | x | B | C |
+    dt``: its heads' z and x columns, B and C whole, its heads' dt."""
+    inner, s = cfg.ssm_inner, cfg.ssm_state
+    n = inner // size
+    heads = ssm_heads(cfg, rank, size)
+    return (list(range(rank * n, (rank + 1) * n))
+            + [inner + c for c in conv_channels(cfg, rank, size)]
+            + list(range(2 * inner + 2 * s + heads.start,
+                         2 * inner + 2 * s + heads.stop)))
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +233,30 @@ def row(x: Tensor, w: Tensor, tp: TensorParallel, product=dot) -> Tensor:
     rounded to x's dtype once (Megatron's g)."""
     return reduce_from(product(x.to(torch.float32), w.to(torch.float32)),
                        tp).to(x.dtype)
+
+
+def gated_rms_norm(x: Tensor, z: Tensor, scale: Tensor, eps: float,
+                   tp: TensorParallel) -> Tensor:
+    """``common.gated_rms_norm`` of the rank's channels ``x`` and ``z``
+    (``scale`` its block): the mean of squares over the whole inner
+    width, a float32 sum over the model ranks before the rsqrt; its
+    cotangent is summed over them too (each rank's sum feeds its own
+    channels)."""
+    dt = x.dtype
+    gate = F.silu(z.to(torch.float32)).to(dt)
+    y = (x * gate).to(torch.float32)
+    n = y.shape[-1] * tp.size
+    ssq = reduce_sum(copy_to(torch.sum(torch.square(y), dim=-1,
+                                       keepdim=True), tp), tp.mesh)
+    y = y * torch.rsqrt(ssq / n + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def gather_columns(x: Tensor, tp: TensorParallel) -> Tensor:
+    """Every model rank's last-dimension block of ``x`` concatenated in
+    rank order (the vocabulary-split head's logits: no gradient)."""
+    parts = tp.mesh.all_gather(x.detach().movedim(-1, 0).contiguous())
+    return parts.movedim(0, -1)
 
 
 def max_over(x: Tensor, tp: TensorParallel) -> Tensor:

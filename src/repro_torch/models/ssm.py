@@ -9,6 +9,16 @@ here a Python loop over the chunks where the reference runs
 shifted copies contracted by ``einsum``.  Decode is the exact recurrence
 h <- exp(dt A) h + dt B x, y = C h, with O(1) state a token.
 
+With a ``tp`` partition whose SSM is split (``models.parallel``: the
+'model' axis), the block computes with the rank's heads: ``params`` are
+then its compute blocks (``training.model_axis`` hands them over: the
+``in_proj`` columns of ``parallel.ssm_columns``, the conv channels of
+``parallel.conv_channels``, its heads' ``A_log``, ``D`` and ``dt_bias``,
+its block of ``norm_scale`` and its row block of ``out_proj``), ``in_proj``
+a column product, the norm's mean of squares summed over the ranks,
+``out_proj`` a row product; the decode state is the rank's heads and its
+conv window the rank's x channels with B and C whole.
+
 ``A_log``, ``D`` and ``dt_bias`` are float32 leaves in a bf16 model, as
 in the reference.  The decode state lives in the cache's dtype (the
 serving engine's float32): the step reads the new token's projections
@@ -25,6 +35,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import (
     dense_init, dot, gated_rms_norm, softplus,
 )
@@ -32,12 +43,35 @@ from repro_torch.models.common import (
 Tensor = torch.Tensor
 
 
-def _dims(cfg: ModelConfig):
-    inner = cfg.ssm_inner
-    nh = cfg.ssm_heads
+def _split(tp) -> bool:
+    return tp is not None and tp.ssm
+
+
+def _dims(cfg: ModelConfig, tp=None):
+    """(inner, heads, state, conv channels) of the block, or of the
+    rank's part of it under a split ``tp``."""
+    m = tp.size if _split(tp) else 1
+    inner = cfg.ssm_inner // m
+    nh = cfg.ssm_heads // m
     s = cfg.ssm_state
     conv_dim = inner + 2 * s
     return inner, nh, s, conv_dim
+
+
+def _in_proj(params, u: Tensor, tp) -> Tensor:
+    if _split(tp):
+        return parallel.column(u, tp)(params['in_proj'])
+    return dot(u, params['in_proj'])
+
+
+def _out(params, cfg: ModelConfig, y: Tensor, z: Tensor, tp) -> Tensor:
+    """The gated norm and ``out_proj`` (a row product under ``tp``)."""
+    if _split(tp):
+        y = parallel.gated_rms_norm(y, z, params['norm_scale'],
+                                    cfg.norm_eps, tp)
+        return parallel.row(y, params['out_proj'], tp)
+    y = gated_rms_norm(y, z, params['norm_scale'], cfg.norm_eps)
+    return dot(y, params['out_proj'])
 
 
 def init_mamba(generator: torch.Generator, cfg: ModelConfig,
@@ -131,8 +165,8 @@ def ssd_chunked(x_dt: Tensor, dA: Tensor, Bm: Tensor, Cm: Tensor,
 # block-level forward / decode
 # ---------------------------------------------------------------------------
 
-def _split_proj(cfg: ModelConfig, zxbcdt: Tensor):
-    inner, nh, s, _ = _dims(cfg)
+def _split_proj(cfg: ModelConfig, zxbcdt: Tensor, tp=None):
+    inner, nh, s, _ = _dims(cfg, tp)
     z = zxbcdt[..., :inner]
     xBC = zxbcdt[..., inner:inner + inner + 2 * s]
     dt = zxbcdt[..., inner + inner + 2 * s:]
@@ -151,14 +185,15 @@ def _causal_conv(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
 
 
 def mamba_forward(params, cfg: ModelConfig, u: Tensor,
-                  return_cache: bool = False):
-    """u: (B, T, D) -> y (B, T, D) [, cache {'conv', 'ssm'}]."""
+                  return_cache: bool = False, tp=None):
+    """u: (B, T, D) -> y (B, T, D) [, cache {'conv', 'ssm'}] (the rank's
+    heads' under a split ``tp``)."""
     B, T, _ = u.shape
-    inner, nh, s, conv_dim = _dims(cfg)
+    inner, nh, s, conv_dim = _dims(cfg, tp)
     P = cfg.ssm_headdim
 
-    zxbcdt = dot(u, params['in_proj'])
-    z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
+    zxbcdt = _in_proj(params, u, tp)
+    z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt, tp)
     xBC = _causal_conv(xBC_raw, params['conv_w'], params['conv_b'])
     x = xBC[..., :inner].reshape(B, T, nh, P)
     Bm = xBC[..., inner:inner + s]
@@ -172,8 +207,7 @@ def mamba_forward(params, cfg: ModelConfig, u: Tensor,
     y, h_final = ssd_chunked(x_dt, dA, Bm, Cm)
     y = y + x * params['D'].to(x.dtype)[:, None]
     y = y.reshape(B, T, inner)
-    y = gated_rms_norm(y, z, params['norm_scale'], cfg.norm_eps)
-    out = dot(y, params['out_proj'])
+    out = _out(params, cfg, y, z, tp)
     if not return_cache:
         return out
     # the conv window holds the *pre-activation* conv inputs
@@ -186,8 +220,9 @@ def mamba_forward(params, cfg: ModelConfig, u: Tensor,
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                     device=None) -> dict:
-    inner, nh, s, conv_dim = _dims(cfg)
+                     device=None, tp=None) -> dict:
+    """Zero conv window and state (the rank's under a split ``tp``)."""
+    inner, nh, s, conv_dim = _dims(cfg, tp)
     return {
         'conv': torch.zeros((batch, cfg.conv_width - 1, conv_dim),
                             dtype=dtype, device=device),
@@ -196,16 +231,18 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     }
 
 
-def mamba_decode(params, cfg: ModelConfig, u: Tensor, cache: dict):
-    """u: (B, 1, D); the exact recurrent step in the cache's dtype.
-    Returns (y (B, 1, D) in u's dtype, new cache)."""
+def mamba_decode(params, cfg: ModelConfig, u: Tensor, cache: dict,
+                 tp=None):
+    """u: (B, 1, D); the exact recurrent step in the cache's dtype (the
+    rank's heads under a split ``tp``).  Returns (y (B, 1, D) in u's
+    dtype, new cache)."""
     B = u.shape[0]
-    inner, nh, s, conv_dim = _dims(cfg)
+    inner, nh, s, conv_dim = _dims(cfg, tp)
     P = cfg.ssm_headdim
     cdt = cache['ssm'].dtype
 
-    zxbcdt = dot(u, params['in_proj'])
-    z, xBC_new, dt_raw = _split_proj(cfg, zxbcdt)     # (B, 1, .)
+    zxbcdt = _in_proj(params, u, tp)
+    z, xBC_new, dt_raw = _split_proj(cfg, zxbcdt, tp)  # (B, 1, .)
 
     window = torch.cat([cache['conv'], xBC_new.to(cache['conv'].dtype)],
                        dim=1)                         # (B, W, C)
@@ -227,5 +264,4 @@ def mamba_decode(params, cfg: ModelConfig, u: Tensor, cache: dict):
     y = torch.einsum('bs,bhps->bhp', Cm, h)
     y = y + x * params['D'].to(cdt)[:, None]
     y = y.reshape(B, 1, inner).to(u.dtype)
-    y = gated_rms_norm(y, z, params['norm_scale'], cfg.norm_eps)
-    return dot(y, params['out_proj']), {'conv': new_conv, 'ssm': h}
+    return _out(params, cfg, y, z, tp), {'conv': new_conv, 'ssm': h}

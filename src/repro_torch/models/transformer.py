@@ -42,6 +42,15 @@ and each block hands back its output in the hidden state's dtype.  The
 reference raises on that mix (a dtype mismatch in its cache update and
 scan carry) and so serves only float32 models; on those the two are the
 same computation.
+
+On the 'model' axis (``tp``) the serving path computes with the rank's
+blocks as the training pass does, Mamba2's included; the head's logits
+of a vocabulary split are gathered over the model ranks, so the caller
+sees (B, 1, V).  ``at_use`` (an :class:`AtUse`) says how a rank takes
+each weight and cache leaf at use from what it holds
+(``training.model_axis.Serving``: the rank's blocks, gathered one group
+of layers at a time where the partition does not split them); the cache
+of :func:`init_cache` under ``tp`` is the rank's compute layout.
 """
 from __future__ import annotations
 
@@ -234,7 +243,8 @@ def _group_forward(gparams, shared, cfg: ModelConfig, x: Tensor,
         bp = gparams.get(f'b{i}')
         if kind == 'mamba':
             x = x + mamba_forward(bp['mamba'], cfg,
-                                  rms_norm(x, bp['ln'], cfg.norm_eps))
+                                  rms_norm(x, bp['ln'], cfg.norm_eps),
+                                  tp=tp)
             continue
         p = _block_params(kind, bp, shared)
 
@@ -367,8 +377,15 @@ def lm_head_t(params, cfg: ModelConfig) -> Tensor:
     return params['lm_head']
 
 
-def logits_fn(params, cfg: ModelConfig, hidden: Tensor) -> Tensor:
-    return softcap(hidden @ lm_head_t(params, cfg), cfg.logit_softcap)
+def logits_fn(params, cfg: ModelConfig, hidden: Tensor, tp=None
+              ) -> Tensor:
+    """The (..., V) logits of ``hidden``; with ``tp`` whose vocabulary is
+    split, the rank's (D, V / size) columns of the head give its logits
+    (a ``parallel.column`` product), gathered over the model ranks."""
+    if tp is None or not tp.vocab:
+        return softcap(hidden @ lm_head_t(params, cfg), cfg.logit_softcap)
+    mine = parallel.column(hidden, tp)(lm_head_t(params, cfg))
+    return parallel.gather_columns(softcap(mine, cfg.logit_softcap), tp)
 
 
 def loss_fn(params, cfg: ModelConfig, tokens: Tensor,
@@ -401,17 +418,27 @@ def entry_cache_len(cfg: ModelConfig, kind: str, cache_len: int) -> int:
     return cache_len
 
 
+def kv_heads(cfg: ModelConfig, tp=None) -> int:
+    """KV heads of a cache: all, or the rank's under a split ``tp`` (its
+    block under 'heads', the one it uses under 'q')."""
+    if tp is None or tp.attn is None:
+        return cfg.n_kv_heads
+    return cfg.n_kv_heads // tp.size if tp.attn == 'heads' else 1
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+               dtype: torch.dtype = torch.bfloat16, device=None, tp=None
+               ) -> dict:
     """Zero caches: per ``b{i}`` of the pattern (Zamba2's shared block
     too: one cache an occurrence) a leading ``n_groups`` axis over
-    ``{'k', 'v'}`` (B, S, Kv, hd) or ``{'conv', 'ssm'}``."""
+    ``{'k', 'v'}`` (B, S, Kv, hd) or ``{'conv', 'ssm'}``; under ``tp``
+    the rank's kv heads (:func:`kv_heads`) and Mamba2 heads."""
     ng = n_groups(cfg)
-    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    hd, kv = cfg.resolved_head_dim, kv_heads(cfg, tp)
     cache = {}
     for i, kind in enumerate(cfg.layer_pattern):
         if kind == 'mamba':
-            c = init_mamba_cache(cfg, batch, dtype, device)
+            c = init_mamba_cache(cfg, batch, dtype, device, tp)
         else:
             S = entry_cache_len(cfg, kind, cache_len)
             c = {'k': torch.zeros((batch, S, kv, hd), dtype=dtype,
@@ -436,39 +463,89 @@ def _stack_caches(caches: list):
 # decode
 # ---------------------------------------------------------------------------
 
+class AtUse:
+    """How a rank takes each weight and cache leaf at use from what it
+    holds: here as it is (the unsharded model, or the compute blocks
+    themselves).  Paths are ``tree.paths``' (a group's leaf without its
+    group axis, e.g. ``groups.b0.attn.wq``; a group's cache leaf ``b0.k``)."""
+
+    def params(self, path: str, x: Tensor) -> Tensor:
+        return x
+
+    def cache_in(self, path: str, x: Tensor) -> Tensor:
+        return x
+
+    def cache_out(self, path: str, x: Tensor) -> Tensor:
+        return x
+
+    def seq(self, path: str):
+        """The ranks that split cache leaf ``path``'s sequence (a
+        ``core.mesh.ClientMesh``), or None."""
+        return None
+
+
+def _used(use: AtUse, sub, prefix: str):
+    """The subtree ``sub`` (at ``prefix``) as the forward computes with
+    it."""
+    if sub is None:
+        return None
+    return tree.unflatten(sub, [use.params(prefix + p, x) for p, x in
+                                zip(tree.paths(sub), tree.leaves(sub))])
+
+
+def _head_params(params, cfg: ModelConfig, use: AtUse) -> dict:
+    name = 'embed' if cfg.tie_embeddings else 'lm_head'
+    return {name: use.params(name, params[name])}
+
+
+def _embed_params(params, use: AtUse) -> dict:
+    return {k: use.params(k, params[k]) for k in ('embed', 'frontend_proj')
+            if k in params}
+
+
 def decode_step(params, cfg: ModelConfig, cache: dict, token: Tensor,
-                pos) -> Tuple[Tensor, dict]:
+                pos, tp=None, at_use: Optional[AtUse] = None
+                ) -> Tuple[Tensor, dict]:
     """token: (B, 1) int; ``pos`` (an int or an int32 device scalar): the
     absolute position of the new token.  Returns (logits (B, 1, V), new
-    cache)."""
-    x = embed_tokens(params, cfg, token)
+    cache).  ``tp``: the 'model' axis's partition (the blocks compute
+    split where it splits them); ``at_use``: how the rank takes each
+    leaf from what it holds (one group of layers at a time)."""
+    use = at_use or AtUse()
+    x = embed_tokens(_embed_params(params, use), cfg, token, tp=tp)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     rope = (rope_tables(pos[None], cfg.resolved_head_dim, cfg.rope_theta)
             if not cfg.attention_free else None)
-    shared = params.get('shared')
+    shared = _used(use, params.get('shared'), 'shared.')
     new = []
     for gparams, gcache in zip(group_params(params, cfg),
                                _group_caches(cache, n_groups(cfg))):
+        gparams = _used(use, gparams, 'groups.')
         new_g = {}
         for i, kind in enumerate(cfg.layer_pattern):
-            bp, bc = gparams.get(f'b{i}'), gcache[f'b{i}']
+            bp, name = gparams.get(f'b{i}'), f'b{i}'
+            bc = {n: use.cache_in(f'{name}.{n}', t)
+                  for n, t in gcache[name].items()}
             if kind == 'mamba':
                 h = rms_norm(x, bp['ln'], cfg.norm_eps)
-                y, new_g[f'b{i}'] = mamba_decode(bp['mamba'], cfg, h, bc)
+                y, out = mamba_decode(bp['mamba'], cfg, h, bc, tp)
                 x = x + y
-                continue
-            p = _block_params(kind, bp, shared)
+            else:
+                p = _block_params(kind, bp, shared)
 
-            def attend(h, p=p, kind=kind, bc=bc):
-                y, ck, cv = attn_mod.attention_decode(
-                    p['attn'], cfg, h, bc['k'], bc['v'], pos,
-                    _window(cfg, kind), rope)
-                return y, {'k': ck, 'v': cv}
+                def attend(h, p=p, kind=kind, bc=bc, name=name):
+                    y, ck, cv = attn_mod.attention_decode(
+                        p['attn'], cfg, h, bc['k'], bc['v'], pos,
+                        _window(cfg, kind), rope, tp, use.seq(f'{name}.k'))
+                    return y, {'k': ck, 'v': cv}
 
-            x, _, new_g[f'b{i}'] = _attn_block(p, cfg, x, attend)
+                x, _, out = _attn_block(p, cfg, x, attend, tp)
+            new_g[name] = {n: use.cache_out(f'{name}.{n}', t)
+                           for n, t in out.items()}
         new.append(new_g)
     x = rms_norm(x, params['final_norm'], cfg.norm_eps)
-    return logits_fn(params, cfg, x), _stack_caches(new)
+    return (logits_fn(_head_params(params, cfg, use), cfg, x, tp),
+            _stack_caches(new))
 
 
 # ---------------------------------------------------------------------------
@@ -501,42 +578,53 @@ def _kv_cache(cfg: ModelConfig, kind: str, kv: Tensor, cache_len: int,
 
 def prefill(params, cfg: ModelConfig, tokens: Tensor, cache_len: int,
             prefix_embeds: Optional[Tensor] = None,
-            cache_dtype: torch.dtype = torch.bfloat16) -> Tuple[Tensor, dict]:
+            cache_dtype: torch.dtype = torch.bfloat16, tp=None,
+            at_use: Optional[AtUse] = None) -> Tuple[Tensor, dict]:
     """Run the prompt, build a decode-ready cache of ``cache_dtype``.
 
     Returns (last-position logits (B, 1, V), cache).  The caller goes on
-    with ``decode_step(..., pos=T_total)``.
+    with ``decode_step(..., pos=T_total)``.  ``tp`` and ``at_use`` as in
+    :func:`decode_step` (each new cache leaf handed to
+    ``at_use.cache_out``).
     """
-    x = embed_tokens(params, cfg, tokens, prefix_embeds)
+    use = at_use or AtUse()
+    x = embed_tokens(_embed_params(params, use), cfg, tokens, prefix_embeds,
+                     tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     rope = (rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
             if not cfg.attention_free else None)
-    shared = params.get('shared')
+    shared = _used(use, params.get('shared'), 'shared.')
     caches = []
     for gparams in group_params(params, cfg):
+        gparams = _used(use, gparams, 'groups.')
         new_g = {}
         for i, kind in enumerate(cfg.layer_pattern):
             bp = gparams.get(f'b{i}')
             if kind == 'mamba':
                 h = rms_norm(x, bp['ln'], cfg.norm_eps)
-                y, c = mamba_forward(bp['mamba'], cfg, h, return_cache=True)
+                y, c = mamba_forward(bp['mamba'], cfg, h, return_cache=True,
+                                     tp=tp)
                 x = x + y
-                new_g[f'b{i}'] = tree.map(lambda a: a.to(cache_dtype), c)
-                continue
-            p = _block_params(kind, bp, shared)
+                c = tree.map(lambda a: a.to(cache_dtype), c)
+            else:
+                p = _block_params(kind, bp, shared)
 
-            def attend(h, p=p, kind=kind):
-                a, (k, v) = attn_mod.attention_prefill(
-                    p['attn'], cfg, h, positions, _window(cfg, kind), rope)
-                return a, {'k': _kv_cache(cfg, kind, k, cache_len,
-                                          cache_dtype),
-                           'v': _kv_cache(cfg, kind, v, cache_len,
-                                          cache_dtype)}
+                def attend(h, p=p, kind=kind):
+                    a, (k, v) = attn_mod.attention_prefill(
+                        p['attn'], cfg, h, positions, _window(cfg, kind),
+                        rope, tp)
+                    return a, {'k': _kv_cache(cfg, kind, k, cache_len,
+                                              cache_dtype),
+                               'v': _kv_cache(cfg, kind, v, cache_len,
+                                              cache_dtype)}
 
-            x, _, new_g[f'b{i}'] = _attn_block(p, cfg, x, attend)
+                x, _, c = _attn_block(p, cfg, x, attend, tp)
+            new_g[f'b{i}'] = {n: use.cache_out(f'b{i}.{n}', t)
+                              for n, t in c.items()}
         caches.append(new_g)
     x = rms_norm(x[:, -1:], params['final_norm'], cfg.norm_eps)
-    return logits_fn(params, cfg, x), _stack_caches(caches)
+    return (logits_fn(_head_params(params, cfg, use), cfg, x, tp),
+            _stack_caches(caches))
 
 
 # ---------------------------------------------------------------------------

@@ -16,15 +16,33 @@ names each leaf's use in the forward (``Layout.uses``):
   block directly.  Where the spec also splits it over client axes
   (arctic's experts), those are gathered at use;
 * 'kv': ``wk/wv`` (``bk/bv``) of an attention whose query heads divide
-  and kv heads do not: gathered at use, the rank's one kv head taken,
-  the cotangent summed over the model ranks (each saw its query heads'
-  share) before the rank keeps its slice;
-* 'gather': gathered at use by :class:`GatherAtUse` (a Mamba2 block, an
-  attention whose query heads do not divide, a vocabulary or FFN that
-  does not divide): its backward keeps the rank's slice along 'model'
-  (every model rank computed that layer whole on the same data) and
-  reduce-scatters along client axes (the standard step's ranks saw
-  different rows).
+  and kv heads do not: gathered at use, the rank's one kv head taken in
+  float32, the cotangent summed over the model ranks in float32 (each
+  saw its query heads' share) and rounded once before the rank keeps
+  its slice;
+* 'slice': Mamba2's per-head ``A_log``, ``D`` and ``dt_bias`` (replicated
+  over 'model') under a split SSM, and its ``in_proj``/``conv_w``/
+  ``conv_b`` where their spec does not split them: the rank's heads'
+  entries taken in float32, the cotangent summed over the model ranks
+  in float32 and rounded once;
+* 'reblock': Mamba2's ``in_proj``, ``conv_w`` and ``conv_b`` under a split
+  SSM.  The reference's spec cuts contiguous columns of ``z | x | B | C
+  | dt`` (and channels of ``x | B | C``), so the block a rank stores is
+  not its heads' columns; :class:`ReBlock` moves each rank's stored
+  block to its compute block (``parallel.ssm_columns``,
+  ``parallel.conv_channels``) with one all-to-all over the model ranks,
+  about one block of bytes a rank against the gather's ``size`` blocks,
+  and its backward moves the cotangent back the same way (B's and C's
+  columns, which every rank computes with, summed in float32 and rounded
+  once).  The stored layout and the leaf's coordinate order stay the
+  reference's: the packed wire packs the flattened leaf, and the
+  per-client stats and the transport see the stored blocks;
+* 'gather': gathered at use by :class:`GatherAtUse` (a Mamba2 block whose
+  heads do not divide, an attention whose query heads do not divide, a
+  vocabulary or FFN that does not divide): its backward keeps the rank's
+  slice along 'model' (every model rank computed that layer whole on the
+  same data) and reduce-scatters along client axes (the standard step's
+  ranks saw different rows).
 
 Under ``torch.func.vmap`` over a rank's clients a gathered leaf holds
 the K_local x gradient stack at the size of a block; gathering before
@@ -33,11 +51,13 @@ the vmap would hold K_local x the whole tree.  A leaf replicated over
 the cotangent entering a parallel layer is summed over the ranks.  A
 split product is taken in float32 and rounds once after the sum over
 the ranks (``models.parallel``), so a tensor-parallel step differs from
-the unsharded step by the order of its float32 sums, not bit for bit (a
-'kv' leaf's gradient partials, each rank's query heads' share, round to
-the parameters' dtype before their float32 sum); a model that takes no
-tensor parallelism (Mamba2, or any model on one model rank) is the
-unsharded step bit for bit.
+the unsharded step by the order of its float32 sums, not bit for bit; a
+model that takes no tensor parallelism (mamba2-130m at 16 model ranks,
+or any model on one model rank) is the unsharded step bit for bit.
+
+Serving (:class:`Serving`, ``transformer.AtUse``): prefill and decode
+take each leaf by the same use, one group of layers at a time, and the
+cache at ``launch.shardings.serving_cache_blocks``' layout.
 
 The per-client stats (||g_k||^2, min |g|, max |g|) of a rank's blocks
 are all-reduced over 'model' (sum, min, max; a block replicated over
@@ -59,12 +79,13 @@ from torch.func import grad_and_value, vmap
 from torch.profiler import record_function
 
 from repro_torch import tree
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import FLConfig, ModelConfig, ShapeConfig
 from repro_torch.core import transport as tr
 from repro_torch.core.mesh import ClientMesh, pad_rows
 from repro_torch.core.quantize import true_div
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import MODEL, ProductionMesh
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import parallel
 from repro_torch.models import transformer as tf
 
@@ -159,14 +180,28 @@ def _off_model(spec) -> tuple:
 
 _ATTN_BLOCK = ('wq', 'wo', 'bq')
 _FFN = ('w_gate', 'w_up', 'w_down')
+_SSM_COLUMNS = ('in_proj', 'conv_w', 'conv_b')
+_SSM_HEADS = ('A_log', 'D', 'dt_bias')
+
+
+def _on_model(spec) -> bool:
+    return any(MODEL in sh.entry_axes(e) for e in spec)
 
 
 def leaf_use(path: str, spec, tp: parallel.TensorParallel) -> str:
     """How the forward takes leaf ``path`` (its spec ``spec``) under the
-    partition ``tp``: 'block', 'kv' or 'gather' (the module docstring)."""
+    partition ``tp``: 'block', 'kv', 'slice', 'reblock' or 'gather' (the
+    module docstring)."""
     names = path.split('.')
     name = names[-1]
-    if tp.attn and 'attn' in names:
+    if 'mamba' in names:
+        if not tp.ssm:
+            use = 'gather'
+        elif name in _SSM_COLUMNS:
+            use = 'reblock' if _on_model(spec) else 'slice'
+        else:
+            use = 'slice' if name in _SSM_HEADS else 'block'
+    elif tp.attn and 'attn' in names:
         use = 'block' if tp.attn == 'heads' or name in _ATTN_BLOCK else 'kv'
     elif name in _FFN and 'moe' in names and 'dense' not in names:
         use = 'block' if tp.moe else 'gather'
@@ -176,10 +211,127 @@ def leaf_use(path: str, spec, tp: parallel.TensorParallel) -> str:
         use = 'block' if tp.vocab else 'gather'
     else:
         use = 'gather'
-    if use == 'block' and not any(MODEL in sh.entry_axes(e) for e in spec):
+    if use == 'block' and not _on_model(spec):
         raise ValueError(f'{path}: tensor parallel, but its spec {spec} '
                          "does not split it over 'model'")
     return use
+
+
+def runs(index: Sequence[int]) -> list:
+    """``index`` as runs of consecutive entries, [(start, stop), ...]."""
+    out = []
+    for c in index:
+        if out and out[-1][1] == c:
+            out[-1][1] = c + 1
+        else:
+            out.append([c, c + 1])
+    return [tuple(r) for r in out]
+
+
+def run_index(rs: Sequence[tuple], device) -> Tensor:
+    """The int64 index tensor of the runs ``rs`` (made from ``arange``s:
+    a factory, so also inside a ``torch.func`` transform)."""
+    return torch.cat([torch.arange(a, b, dtype=torch.int64, device=device)
+                      for a, b in rs])
+
+
+class ReBlock:
+    """The all-to-all over the model ranks ``mm`` that moves each rank's
+    stored block of a leaf (the reference's: ``n`` contiguous entries of
+    its last dimension) to its compute block (``index[r]``, rank r's
+    entries of the last dimension, ascending).  Rank r sends rank j the
+    entries of ``index[j]`` it stores, in order; what rank j receives,
+    in rank order, is ``index[j]`` in order.  The backward sends each
+    cotangent entry back to the rank that stores it, which sums what it
+    gets (an entry in several ranks' compute blocks: B's and C's) in
+    float32 and rounds once to the stored block's dtype."""
+
+    def __init__(self, mm: ClientMesh, n: int, index: Sequence[Sequence[int]]):
+        r = mm.rank
+        lo, hi = r * n, (r + 1) * n
+        self.mm, self.n = mm, n
+        self.send = runs([c - lo for ix in index for c in ix
+                          if lo <= c < hi])
+        self.send_counts = [sum(lo <= c < hi for c in ix) for ix in index]
+        self.recv_counts = [sum(j * n <= c < (j + 1) * n for c in index[r])
+                            for j in range(mm.size)]
+
+    def _index(self, device) -> Tensor:
+        return run_index(self.send, device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        """(..., n) stored -> (..., compute) in float32."""
+        rows = x.movedim(-1, 0).index_select(0, self._index(x.device))
+        out = self.mm.all_to_all(rows, self.recv_counts, self.send_counts)
+        return out.movedim(0, -1).to(torch.float32)
+
+    def backward(self, g: Tensor, dtype: torch.dtype) -> Tensor:
+        """(..., compute) float32 cotangent -> (..., n) in ``dtype``."""
+        rows = g.to(torch.float32).movedim(-1, 0).contiguous()
+        back = self.mm.all_to_all(rows, self.send_counts, self.recv_counts)
+        out = torch.zeros((self.n,) + tuple(back.shape[1:]),
+                          dtype=torch.float32, device=g.device)
+        out = out.index_add(0, self._index(g.device), back)
+        return out.movedim(0, -1).to(dtype)
+
+
+class _ReBlock(torch.autograd.Function):
+    """The stored block -> the compute block (:class:`ReBlock`); its
+    backward :class:`_ReBlockBack`.  Explicit ``vmap`` rules hand the
+    all-to-all the whole batched tensor."""
+
+    @staticmethod
+    def forward(x, plan):
+        return plan.forward(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plan, ctx.dtype = inputs[1], inputs[0].dtype
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReBlockBack.apply(g, ctx.plan, ctx.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan):
+        if in_dims[0] is None:
+            return _ReBlock.apply(x, plan), None
+        return _ReBlock.apply(x.movedim(in_dims[0], 0), plan), 0
+
+
+class _ReBlockBack(torch.autograd.Function):
+    """A compute block's cotangent -> the stored block's."""
+
+    @staticmethod
+    def forward(g, plan, dtype):
+        return plan.backward(g, dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError('the re-block use is differentiable once')
+
+    @staticmethod
+    def vmap(info, in_dims, g, plan, dtype):
+        if in_dims[0] is None:
+            return _ReBlockBack.apply(g, plan, dtype), None
+        return _ReBlockBack.apply(g.movedim(in_dims[0], 0), plan, dtype), 0
+
+
+def compute_index(path: str, cfg: ModelConfig, rank: int, size: int
+                  ) -> list:
+    """Model rank ``rank``'s entries of the last dimension of a Mamba2
+    leaf under a split SSM (its 'slice' or 'reblock' use)."""
+    name = path.split('.')[-1]
+    if name == 'in_proj':
+        return parallel.ssm_columns(cfg, rank, size)
+    if name in ('conv_w', 'conv_b'):
+        return parallel.conv_channels(cfg, rank, size)
+    heads = parallel.ssm_heads(cfg, rank, size)
+    return list(range(heads.start, heads.stop))
 
 
 class Layout:
@@ -213,26 +365,122 @@ class Layout:
         self.uses = [leaf_use(p, s, self.tp)
                      for p, s in zip(self.paths, self.specs)]
         self.head_dim = cfg.resolved_head_dim
+        m = self.tp.size
+        self.index = {i: compute_index(p, cfg, self.tp.rank, m)
+                      for i, (p, u) in enumerate(zip(self.paths, self.uses))
+                      if u in ('slice', 'reblock')}
+        self.reblock = {
+            i: ReBlock(self.tp.mesh, self.shapes[i][-1] // m,
+                       [compute_index(self.paths[i], cfg, r, m)
+                        for r in range(m)])
+            for i, u in enumerate(self.uses) if u == 'reblock'}
+        self._at = {p: i for i, p in enumerate(self.paths)}
+
+    def use_leaf(self, i: int, b: Tensor, spec=None) -> Tensor:
+        """What the forward computes with from leaf i's block ``b``, by
+        its use (``spec``: the block's spec, default leaf i's; a group's
+        leaf without its group axis drops the first entry)."""
+        spec = self.specs[i] if spec is None else spec
+        use = self.uses[i]
+        if use == 'block':
+            return _gather_at_use(b, _off_model(spec), self.mesh)
+        if use == 'reblock':
+            return _ReBlock.apply(b, self.reblock[i])
+        full = _gather_at_use(b, spec, self.mesh)
+        if use == 'gather':
+            return full
+        full = parallel.copy_to(full.to(torch.float32), self.tp)
+        if use == 'kv':
+            hd, k = self.head_dim, self.tp.kv_head
+            return full[..., k * hd:(k + 1) * hd]
+        return torch.cat([full.narrow(-1, a, b - a)
+                          for a, b in runs(self.index[i])], dim=-1)
 
     def used(self, blocks: Sequence[Tensor]) -> list:
         """What the forward computes with, from the rank's blocks (each
         leaf by its use)."""
-        out = []
-        for b, spec, use in zip(blocks, self.specs, self.uses):
-            if use == 'block':
-                out.append(_gather_at_use(b, _off_model(spec), self.mesh))
-            elif use == 'kv':
-                full = parallel.copy_to(
-                    _gather_at_use(b, spec, self.mesh), self.tp)
-                hd, i = self.head_dim, self.tp.kv_head
-                out.append(full[..., i * hd:(i + 1) * hd])
-            else:
-                out.append(_gather_at_use(b, spec, self.mesh))
-        return out
+        return [self.use_leaf(i, b) for i, b in enumerate(blocks)]
+
+    def leaf(self, path: str) -> int:
+        """The index of the leaf at ``path``."""
+        return self._at[path]
 
     def block_of(self, i: int, full: Tensor, lead: int = 0) -> Tensor:
         """Leaf i's block of ``full`` (after ``lead`` leading dims)."""
         return full[(slice(None),) * lead + self.slices[i]]
+
+
+class Serving(tf.AtUse):
+    """A rank's prefill and decode on a production mesh
+    (``transformer.AtUse``): each weight by its use
+    (:meth:`Layout.use_leaf`: the rank's blocks where the partition
+    splits them, else gathered at use, a group's leaves one group at a
+    time), each cache leaf at ``launch.shardings.serving_cache_blocks``'
+    layout for ``shape`` (the global batch and the cache's length):
+    'heads' as held, 'reference' gathered over 'model' at use and cut
+    back after, 'sequence' attended in place over the ranks that split
+    it (a prefill's whole sequence cut to the rank's block).  ``rows``:
+    the rank's rows of the global batch (``prefill_batch_spec``)."""
+
+    def __init__(self, layout: Layout, cfg: ModelConfig, shape: ShapeConfig):
+        mesh = layout.mesh
+        self.layout, self.tp, self.mesh, self.cfg = layout, layout.tp, mesh, cfg
+        full = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                             device='meta')
+        self.full_shapes = {p: s[1:] for p, s in sh.shapes_of(full).items()}
+        self.specs = {p: s[1:] for p, s in
+                      sh.cache_specs(cfg, mesh, shape, full).items()}
+        self.blocks = {p: (kind, index[1:]) for p, (kind, index) in
+                       sh.serving_cache_blocks(cfg, mesh, shape, full,
+                                               self.tp).items()}
+        spec = sh.sanitize_spec(sh.prefill_batch_spec(cfg, mesh)['tokens'],
+                                (shape.global_batch, 1), mesh)
+        self.rows = sh.block_slices(spec, (shape.global_batch, 1), mesh,
+                                    mesh.coords)[0]
+        self.rows_split = bool(_sharded_dims(spec))
+
+    def held_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """{path: the rank's held shape} of a group's cache leaf."""
+        return {p: sh.index_shape(ix, self.full_shapes[p])
+                for p, (_, ix) in self.blocks.items()}
+
+    def params(self, path: str, x: Tensor) -> Tensor:
+        i = self.layout.leaf(path)
+        spec = self.layout.specs[i]
+        return self.layout.use_leaf(
+            i, x, spec[1:] if path.startswith('groups.') else spec)
+
+    def cache_in(self, path: str, x: Tensor) -> Tensor:
+        kind, _ = self.blocks[path]
+        if kind != 'reference':
+            return x
+        for d, axes in _sharded_dims(self.specs[path]):
+            if d and MODEL in axes:
+                x = gather_dim(self.mesh, x, d, axes)
+        return x
+
+    def cache_out(self, path: str, x: Tensor) -> Tensor:
+        kind, index = self.blocks[path]
+        full = self.full_shapes[path]
+        if (kind == 'sequence' and self.tp.attn is not None
+                and x.shape[2] != full[2]):
+            x = attn_mod.heads_of_all(x, self.tp, True, self.cfg)
+        cut = tuple(e if x.shape[d] == n else slice(None)
+                    for d, (e, n) in enumerate(zip(index, full)))
+        if all(e == slice(None) for e in cut):
+            return x
+        # a copy: a view would keep the whole leaf alive
+        return sh.take(x, cut).clone()
+
+    def seq(self, path: str):
+        kind, _ = self.blocks[path]
+        if kind != 'sequence':
+            return None
+        return self.mesh.axis_mesh(sh.entry_axes(self.specs[path][1]))
+
+    def gather_rows(self, x: Tensor) -> Tensor:
+        """The global batch's rows from each client rank's ``rows``."""
+        return self.mesh.clients.all_gather(x) if self.rows_split else x
 
 
 class BlockDraws(Sequence):

@@ -7,11 +7,19 @@ each trace inside a fake process group that is destroyed after it
   meshes equal the bytes of the blocks the reference's specs give
   (``repro.launch.shardings`` on an ``AbstractMesh``, over
   ``jax.eval_shape`` trees), for all ten architectures at full width;
+  a serving cache leaf held by heads (``serving_cache_blocks``) holds
+  the same bytes where its heads divide, a 'q' rank's one kv head
+  ``model / kv`` times the reference's block (the reference splits
+  ``head_dim``), a split Mamba2 conv window its heads' x channels with
+  B and C whole;
 * on a (2, 2) mesh a rank's FLOPs are the unsharded step's on the
   rank's own clients or rows less half of the products that tensor
   parallelism splits (``models.parallel``; counted from the shapes by
-  :func:`parallel_flops`), for the FL step and the standard step, and
-  equal the unsharded step's for prefill and decode (gathered at use);
+  :func:`parallel_flops`, a Mamba2 block's split measured on the block
+  alone, whole and the rank's part, by :func:`mamba_split_flops`), for
+  the FL step, the standard step, prefill and decode;
+* a reduced serving record's peak falls below the unsharded serve's
+  bytes of its whole model, and its FLOPs a rank by the split;
 * every (architecture x shape) that ``applicable`` skips is recorded as
   a skip, and the CLI writes one artifact a mesh and resumes.
 """
@@ -121,9 +129,43 @@ def test_rank_bytes_equal_the_references_specs(multi_pod):
                     rcfg, rs.global_batch, rs.seq_len, jnp.bfloat16))
                 st = dryrun.StepTrace(cfg, shp, mesh)
                 st.arguments()
-                want = ref_block_bytes(RS.cache_specs(rcfg, am, rs, rc), rc,
-                                       ms)
-                assert st.memory['cache'] == want, (arch, name)
+                assert st.memory['cache'] == serving_cache_bytes(
+                    cfg, shp, mesh, rcfg, rs, rc, am), (arch, name)
+
+
+def serving_cache_bytes(cfg, shape, mesh, rcfg, rs, rc, am) -> int:
+    """A rank's bytes of the serving cache (``serving_cache_blocks``),
+    each leaf held against the reference's block of it."""
+    from repro_torch.launch import shardings as sh
+    ms = mesh.shape
+    tp = parallel.partition(cfg, mesh.axis_mesh('model'))
+    full = T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        torch.bfloat16, device=META)
+    blocks = sh.serving_cache_blocks(cfg, mesh, shape, full, tp)
+    specs = jax.tree.leaves(RS.cache_specs(rcfg, am, rs, rc),
+                            is_leaf=lambda x: isinstance(
+                                x, jax.sharding.PartitionSpec))
+    total = 0
+    for path, leaf, spec, ref in zip(tree.paths(full), tree.leaves(full),
+                                     specs, jax.tree.leaves(rc)):
+        kind, index = blocks[path]
+        held = sh.index_shape(index, leaf.shape)
+        ours = math.prod(held) * 2
+        want = ref_block_bytes([spec], [ref], ms)
+        if kind == 'heads':
+            # cut by heads (kv heads, conv channels, SSM heads: the one
+            # dimension past the batch that the index cuts), where the
+            # reference cuts 'model' ranks' worth of another dimension
+            (d,) = [d for d in range(2, len(held)) if held[d] < leaf.shape[d]]
+            m_ref = math.prod(tp.size for e in spec if e == 'model')
+            assert ours * leaf.shape[d] == want * m_ref * held[d], path
+            name = path.split('.')[-1]
+            assert (held[d] * tp.size == leaf.shape[d]) == (
+                name == 'ssm' or tp.attn == 'heads' and name in ('k', 'v'))
+        else:
+            assert ours == want, (path, kind)
+        total += ours
+    return total
 
 
 def _meta_like(t):
@@ -175,33 +217,104 @@ def unsharded_flops(cfg, shape: ShapeConfig, k: int) -> float:
                                             shape.seq_len - 1))
 
 
-def parallel_flops(cfg, b: int, t: int, model: int = 2) -> float:
-    """FLOPs of one train step on (b, t) tokens in the products that
-    tensor parallelism splits over ``model`` ranks, from the shapes: the
-    attention projections and its two einsums ('heads'), the MLP's three
+def mamba_split_flops(cfg, b: int, t: int, kind: str, model: int = 2
+                      ) -> float:
+    """FLOPs of one Mamba2 block in the products that a split SSM divides
+    over ``model`` ranks: the block whole less the rank's part
+    (``mamba_forward`` or ``mamba_decode`` with the rank's compute
+    blocks, its collectives the one-rank mesh's identity), each under
+    ``FlopCounterMode`` on the meta device, over 1 - 1 / ``model``; a
+    train step's block runs forward, then again and backward
+    (``remat_policy`` 'full')."""
+    from repro_torch.core.mesh import ClientMesh
+    from repro_torch.models import ssm
+    tp = parallel.partition(cfg, SimpleNamespace(size=model, rank=0))
+    if not tp.ssm:
+        return 0.0
+    tp = parallel.TensorParallel(
+        mesh=ClientMesh(), rank=0, size=model, attn=None, kv_head=0,
+        mlp=False, moe=False, vocab=False, ssm=True)
+    whole = ssm.init_mamba(torch.Generator(), cfg, torch.float32, META)
+    heads = parallel.ssm_heads(cfg, 0, model)
+    cols = {'in_proj': parallel.ssm_columns(cfg, 0, model),
+            'conv_w': parallel.conv_channels(cfg, 0, model),
+            'conv_b': parallel.conv_channels(cfg, 0, model)}
+    inner = cfg.ssm_inner // model
+    part = {}
+    for name, x in whole.items():
+        if name in cols:
+            part[name] = x[..., :len(cols[name])]
+        elif name in ('A_log', 'D', 'dt_bias'):
+            part[name] = x[heads]
+        elif name == 'norm_scale':
+            part[name] = x[:inner]
+        else:
+            part[name] = x[:inner]
+    u = torch.empty((b, t, cfg.d_model), device=META)
+
+    def count(p, split) -> float:
+        sp = tp if split else None
+        if kind == 'decode':
+            cache = ssm.init_mamba_cache(cfg, b, torch.bfloat16, META, sp)
+            with torch.no_grad():
+                return _flops(lambda: ssm.mamba_decode(p, cfg, u[:, :1],
+                                                       cache, sp))
+        if kind == 'prefill':
+            with torch.no_grad():
+                return _flops(lambda: ssm.mamba_forward(
+                    p, cfg, u, return_cache=True, tp=sp))
+        with torch.no_grad():
+            fwd = _flops(lambda: ssm.mamba_forward(p, cfg, u, tp=sp))
+        leaves = [x.requires_grad_(True) for x in p.values()]
+        ui = u.clone().requires_grad_(True)
+
+        def both():
+            y = ssm.mamba_forward(dict(zip(p, leaves)), cfg, ui, tp=sp)
+            torch.autograd.grad(y.sum(), [ui] + leaves)
+        return fwd + _flops(both)
+
+    return (count(whole, False) - count(part, True)) * model / (model - 1)
+
+
+def parallel_flops(cfg, b: int, t: int, model: int = 2, kind: str = 'train',
+                   cache_len: int = 0) -> float:
+    """FLOPs of one step on (b, t) tokens (decode: b tokens against a
+    cache of ``cache_len``) in the products that tensor parallelism
+    splits over ``model`` ranks, from the shapes: the attention
+    projections and its two einsums ('heads'), the MLP's three
     products, the experts' three einsums (capacity ``expert_capacity``),
-    the head's product; a group's product runs forward, again under
-    ``remat_policy`` 'full' and twice backward (the input's and the
-    weight's gradients), the head's forward and twice backward."""
+    the head's product, and a Mamba2 block's split
+    (:func:`mamba_split_flops`).  A train step's group product runs
+    forward, again under ``remat_policy`` 'full' and twice backward (the
+    input's and the weight's gradients), the head's forward and twice
+    backward; prefill's head takes the last position."""
     tp = parallel.partition(cfg, SimpleNamespace(size=model, rank=0))
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv, n = cfg.n_heads, cfg.n_kv_heads, b * t
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    n = b * (1 if kind == 'decode' else t)
     group = 0
-    for kind in cfg.layer_pattern:
-        if kind == 'mamba':
+    mamba = 0.0
+    for lk in cfg.layer_pattern:
+        if lk == 'mamba':
+            mamba += mamba_split_flops(cfg, b, t, kind, model)
             continue
         if tp.attn == 'heads':
+            tq = 1 if kind == 'decode' else t
+            s = T.entry_cache_len(cfg, lk, cache_len) if kind == 'decode' \
+                else t
             group += 2 * n * d * hd * (2 * h + 2 * kv)
-            group += 2 * 2 * b * h * t * t * hd
+            group += 2 * 2 * b * h * tq * s * hd
         if tp.mlp:
             group += 3 * 2 * n * d * cfg.d_ff
         if tp.moe:
             group += 3 * 2 * cfg.n_experts * moe.expert_capacity(n, cfg) \
                 * d * cfg.d_ff
     assert cfg.remat_policy == 'full' and tp.attn != 'q'
-    out = 4 * T.n_groups(cfg) * group
+    ng = T.n_groups(cfg)
+    out = (4 if kind == 'train' else 1) * ng * group + ng * mamba
     if tp.vocab:
-        out += 3 * 2 * b * (t - 1) * d * cfg.vocab_size
+        out += (3 * 2 * b * (t - 1) * d * cfg.vocab_size if kind == 'train'
+                else 2 * b * d * cfg.vocab_size)
     return float(out)
 
 
@@ -221,12 +334,10 @@ def test_small_mesh_flops_equal_the_unsharded_steps(arch, shape):
         'arctic') else 'fl_train', 'prefill': 'prefill',
         'decode': 'decode'}[shape.kind]
     want = unsharded_flops(cfg, shape, 2)
-    split = 0.0
-    if shape.kind == 'train':
-        split = parallel_flops(cfg, shape.global_batch // 2, shape.seq_len)
-    assert want > 0 and rec['cost']['flops'] == want - split / 2
-    assert (split > 0) == (shape.kind == 'train'
-                           and arch != 'mamba2-130m-reduced')
+    split = parallel_flops(cfg, shape.global_batch // 2, shape.seq_len,
+                           kind=shape.kind, cache_len=shape.seq_len)
+    assert want > 0 and split > 0
+    assert rec['cost']['flops'] == want - split / 2
     coll = rec['collectives']
     assert coll['all-gather']['count'] > 0
     assert coll['all-gather']['bytes'] > 0
@@ -240,6 +351,27 @@ def test_small_mesh_flops_equal_the_unsharded_steps(arch, shape):
     mem = rec['memory']
     assert mem['peak_live_bytes'] >= mem['argument_size_in_bytes'] > 0
     assert mem['fits_80gb'] and rec['compile_s'] > 0
+
+
+@pytest.mark.parametrize('arch,shape', [
+    ('smollm-135m-reduced', ShapeConfig('tiny_prefill', 32, 4, 'prefill')),
+    ('mamba2-130m-reduced', ShapeConfig('tiny_decode', 32, 4, 'decode')),
+    ('zamba2-2.7b-reduced', ShapeConfig('tiny_decode', 32, 4, 'decode'))])
+def test_small_mesh_serving_peak_below_the_whole_model(arch, shape):
+    """A serving record of an 8-group variant on the (2, 2) mesh: its
+    peak live bytes below the bytes of the whole model (the unsharded
+    serve holds all of them; a rank takes one group's weights at a
+    time), its FLOPs a rank the unsharded step's less half the split."""
+    import dataclasses
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base, n_layers=8 * len(base.layer_pattern))
+    whole = sum(x.numel() * x.element_size() for x in tree.leaves(
+        T.init_params(cfg, torch.Generator(), device=META)))
+    rec = dryrun.run_one(cfg, shape, out_dir=None, mesh_shape=SMALL, rank=1)
+    assert rec['memory']['peak_live_bytes'] < whole, (rec['memory'], whole)
+    split = parallel_flops(cfg, shape.global_batch // 2, shape.seq_len,
+                           kind=shape.kind, cache_len=shape.seq_len)
+    assert rec['cost']['flops'] == unsharded_flops(cfg, shape, 2) - split / 2
 
 
 @pytest.mark.parametrize('multi_pod', [False, True])

@@ -5,9 +5,12 @@ every rank runs every case and writes its results and gradient blocks),
 on smollm-135m-reduced (4 heads, 2 kv heads, d_ff 512, vocab 512: every
 tensor-parallel kind of ``models.parallel``), paligemma-3b-reduced (one
 kv head: ``wk/wv`` gathered, the query heads split),
-mamba2-130m-reduced (no tensor parallelism: gathered at use) and
-mixtral-3e-reduced (mixtral-8x7b-reduced with 3 experts, which stay off
-the client axes: its experts split in f inside the FL step's vmap).
+mamba2-130m-reduced (its 32 SSM heads split: ``in_proj``, ``conv_w`` and
+``conv_b`` re-blocked by one all-to-all, ``A_log``, ``D`` and ``dt_bias``
+sliced; the vocabulary split), mixtral-3e-reduced (mixtral-8x7b-reduced
+with 3 experts, which stay off the client axes: its experts split in f
+inside the FL step's vmap) and zamba2-2.7b-reduced (Mamba2 split beside
+the shared attention block).
 
 Each FL case is held to the step without the 'model' axis on the same
 rank's clients and the same draws (the parameters whole on the rank; the
@@ -15,8 +18,8 @@ packed wire's client axis sharded as ``collective='sharded'``; the
 analytic wire's client rows gathered):
 
 * each per-client gradient block against the same slice of the
-  unsharded pass's gradients: bit for bit on mamba2 (gathered at use);
-  under tensor parallelism within ``GRAD_ATOL`` (1e-5) of the leaf's
+  unsharded pass's gradients (every architecture here takes tensor
+  parallelism at model = 2) within ``GRAD_ATOL`` (1e-5) of the leaf's
   largest |g| (its row-parallel sums regroup), the losses within
   ``LOSS_RTOL`` (1e-6) relative; on the pytest side the blocks are also
   held within ``GRAD_ATOL`` of the reference's
@@ -51,7 +54,10 @@ halves).  A MoE's capacity and load-balance loss are per batch, so a
 MoE's whole-batch step is another function.  The FL step refuses a tree
 split over the client axes.  Without a spawn, ``parallel.partition`` and
 each leaf's use are held at the production (data=16, model=16) for all
-ten architectures and every model rank.
+ten architectures and every model rank (no Mamba2 leaf gathered where
+its heads divide).  The re-block use's bytes: one all-to-all a leaf each
+way, a rank receiving exactly its compute blocks forward and sending
+them back backward (``test_reblock_moves_one_block_each_way``).
 """
 from __future__ import annotations
 
@@ -76,16 +82,18 @@ K, B, T = 4, 2, 16
 VARIANTS = {'mixtral-3e-reduced': ('mixtral-8x7b-reduced',
                                    {'n_experts': 3})}
 ARCHS = ('smollm-135m-reduced', 'paligemma-3b-reduced',
-         'mamba2-130m-reduced', 'mixtral-3e-reduced')
+         'mamba2-130m-reduced', 'mixtral-3e-reduced', 'zamba2-2.7b-reduced')
 STANDARD = ('smollm-135m-reduced', 'arctic-480b-reduced',
             'mixtral-8x7b-reduced')
-# the parts each architecture splits at (data=2, model=2)
-PARTS = {'smollm-135m-reduced': ('heads', True, False, True),
-         'paligemma-3b-reduced': ('q', True, False, True),
-         'mamba2-130m-reduced': (None, False, False, False),
-         'arctic-480b-reduced': ('heads', True, True, True),
-         'mixtral-8x7b-reduced': ('heads', False, True, True),
-         'mixtral-3e-reduced': ('heads', False, True, True)}
+# the parts each architecture splits at (data=2, model=2): attention,
+# MLP, experts, vocabulary, SSM (mamba2-reduced's 32 heads divide 2)
+PARTS = {'smollm-135m-reduced': ('heads', True, False, True, False),
+         'paligemma-3b-reduced': ('q', True, False, True, False),
+         'mamba2-130m-reduced': (None, False, False, True, True),
+         'arctic-480b-reduced': ('heads', True, True, True, False),
+         'mixtral-8x7b-reduced': ('heads', False, True, True, False),
+         'mixtral-3e-reduced': ('heads', False, True, True, False),
+         'zamba2-2.7b-reduced': ('heads', True, False, True, True)}
 WIRES = ('analytic', 'packed')
 PARAM_RTOL = 9.9e-8
 WHOLE_BATCH_RTOL = 1e-4
@@ -179,7 +187,7 @@ class Cases:
         layout = MA.Layout(cfg, mesh)
         tp = layout.tp
         self.out[f'{name}.parts'] = [tp.attn, tp.mlp, tp.moe, tp.vocab,
-                                     layout.uses]
+                                     tp.ssm, layout.uses]
         rows = cm.rows(K)
         blocks = MA.shard_params(params, layout)
         gb_blocks = MA.shard_params(gbar, layout)
@@ -285,6 +293,59 @@ class Cases:
                 'loss': float((m['client_losses']
                                - rm['client_losses']).abs().max())}
 
+    def reblock_bytes(self, name: str) -> None:
+        """The bytes each re-block all-to-all of one client's forward and
+        backward moves (``ClientMesh.all_to_all`` recorded), against the
+        rank's compute blocks and the gather's ``size`` stored blocks."""
+        from unittest import mock
+
+        from repro_torch import tree
+        from repro_torch.core.mesh import ClientMesh
+        from repro_torch.models import transformer as tf
+        from repro_torch.training import model_axis as MA
+        cfg = _arch(name)
+        params, toks, *_ = _inputs(cfg)
+        layout = MA.Layout(cfg, self.mesh)
+        blocks = [b.detach().requires_grad_(True)
+                  for b in tree.leaves(MA.shard_params(params, layout))]
+        moved = []
+        orig = ClientMesh.all_to_all
+
+        def record(mesh, t, out_splits, in_splits):
+            out = orig(mesh, t, out_splits, in_splits)
+            moved.append((t.numel() * t.element_size(),
+                          out.numel() * out.element_size()))
+            return out
+
+        with mock.patch.object(ClientMesh, 'all_to_all', record):
+            used = tree.unflatten(params, layout.used(blocks))
+            n_fwd = len(moved)
+            loss = tf.loss_fn(used, cfg, toks[0], tp=layout.tp)
+            torch.autograd.grad(loss, blocks)
+        fwd, bwd = moved[:n_fwd], moved[n_fwd:]
+        # a block's gradient in the block's own dtype: float32 blocks of
+        # a bf16 configuration's layout (a float32 copy of its weights)
+        import dataclasses
+        layout16 = MA.Layout(dataclasses.replace(
+            cfg, param_dtype='bfloat16'), self.mesh)
+        loss16 = tf.loss_fn(tree.unflatten(params, layout16.used(blocks)),
+                            cfg, toks[0], tp=layout16.tp)
+        dtypes = {str(g.dtype) for g in torch.autograd.grad(loss16, blocks)}
+        compute = stored = 0
+        for i, plan in layout.reblock.items():
+            lead = torch.Size(layout.shapes[i][:-1]).numel()
+            compute += sum(plan.recv_counts) * lead * 4
+            stored += plan.n * lead * 4
+        self.out[f'{name}.reblock'] = {
+            'leaves': len(layout.reblock), 'calls': [len(fwd), len(bwd)],
+            'fwd_sent': sum(a for a, _ in fwd),
+            'fwd_received': sum(b for _, b in fwd),
+            'bwd_sent': sum(a for a, _ in bwd),
+            'bwd_received': sum(b for _, b in bwd),
+            'compute': compute, 'stored': stored,
+            'gather': stored * layout.tp.size,
+            'bc': 2 * cfg.ssm_state, 'f32_copy_dtypes': sorted(dtypes)}
+
     def standard(self, name: str) -> None:
         from repro_torch import tree
         from repro_torch.configs.base import FLConfig
@@ -301,7 +362,7 @@ class Cases:
         layout = MA.Layout(cfg, mesh)
         tp = layout.tp
         self.out[f'{name}.parts'] = [tp.attn, tp.mlp, tp.moe, tp.vocab,
-                                     layout.uses]
+                                     tp.ssm, layout.uses]
         fl = FLConfig(n_devices=K)
         blocks = MA.shard_params(params, layout)
         loss, grads = MA.standard_grads(blocks, cfg, {'tokens': flat[mine]},
@@ -370,6 +431,7 @@ def worker_main(rank: int, port: int, out_dir: Path) -> None:
         cases = Cases(mesh)
         for name in ARCHS:
             cases.arch(name)
+        cases.reblock_bytes('mamba2-130m-reduced')
         for name in STANDARD:
             cases.standard(name)
         cases.out['coords'] = mesh.coords
@@ -432,32 +494,36 @@ def test_ranks_lie_row_major(ranks):
 @pytest.mark.parametrize('arch', sorted(PARTS))
 def test_tensor_parallel_partition(ranks, arch):
     """Which parts take tensor parallelism (attention mode, MLP, experts,
-    vocabulary), the same on every rank; each leaf's use."""
+    vocabulary, SSM), the same on every rank; each leaf's use."""
     key = f'{arch}.parts'
-    uses = {tuple(r[key][4]) for r in ranks}
+    uses = {tuple(r[key][5]) for r in ranks}
     assert len(uses) == 1
-    assert tuple(ranks[0][key][:4]) == PARTS[arch]
+    assert tuple(ranks[0][key][:5]) == PARTS[arch]
     (use,) = uses
     if PARTS[arch][0] is None and not any(PARTS[arch][1:]):
         assert set(use) == {'gather'}
     if PARTS[arch][0] == 'q':
         assert use.count('kv') == 2          # wk, wv of the one group
+    if PARTS[arch][4]:
+        # in_proj, conv_w, conv_b re-blocked; A_log, D, dt_bias sliced;
+        # norm_scale, out_proj blocks (one Mamba2 block a group)
+        assert use.count('reblock') == 3 and use.count('slice') == 3
 
 
 # the partition at the production 'model' = 16: (attention, MLP, experts,
 # vocabulary); granite's, mixtral's and gemma2's query heads divide,
 # their 8 kv heads do not ('q': ranks 2j and 2j + 1 share kv head j)
 PRODUCTION_PARTS = {
-    'smollm-135m': (None, True, False, True),
-    'granite-8b': ('q', True, False, True),
-    'mixtral-8x7b': ('q', False, True, True),
-    'qwen2.5-32b': (None, True, False, True),
-    'paligemma-3b': (None, True, False, True),
-    'gemma2-9b': ('q', True, False, True),
-    'musicgen-medium': (None, True, False, True),
-    'zamba2-2.7b': ('heads', True, False, True),
-    'arctic-480b': (None, True, True, True),
-    'mamba2-130m': (None, False, False, False),
+    'smollm-135m': (None, True, False, True, False),
+    'granite-8b': ('q', True, False, True, False),
+    'mixtral-8x7b': ('q', False, True, True, False),
+    'qwen2.5-32b': (None, True, False, True, False),
+    'paligemma-3b': (None, True, False, True, False),
+    'gemma2-9b': ('q', True, False, True, False),
+    'musicgen-medium': (None, True, False, True, False),
+    'zamba2-2.7b': ('heads', True, False, True, True),
+    'arctic-480b': (None, True, True, True, False),
+    'mamba2-130m': (None, False, False, False, False),
 }
 
 
@@ -480,15 +546,19 @@ def test_partition_at_production_size(arch):
     specs = sh.param_specs(cfg, {'data': 16, 'model': 16}, full)
     for r in range(16):
         tp = parallel.partition(cfg, SimpleNamespace(size=16, rank=r))
-        assert (tp.attn, tp.mlp, tp.moe, tp.vocab) == PRODUCTION_PARTS[arch]
+        assert (tp.attn, tp.mlp, tp.moe, tp.vocab,
+                tp.ssm) == PRODUCTION_PARTS[arch]
         if tp.attn == 'q':
             assert tp.kv_head == r // 2
         uses = [MA.leaf_use(p, specs[p], tp) for p in tree.paths(full)]
         assert ('block' in uses) == any(PRODUCTION_PARTS[arch])
+        # no Mamba2 leaf is gathered where its heads divide
+        mamba = [u for p, u in zip(tree.paths(full), uses) if 'mamba' in p]
+        assert ('gather' in mamba) == (bool(mamba) and not tp.ssm)
     # one model rank splits nothing: every leaf as the unsharded pass
     one = parallel.partition(cfg, SimpleNamespace(size=1, rank=0))
-    assert (one.attn, one.mlp, one.moe, one.vocab) == (None, False, False,
-                                                       False)
+    assert (one.attn, one.mlp, one.moe, one.vocab, one.ssm) == (
+        None, False, False, False, False)
     assert {MA.leaf_use(p, specs[p], one)
             for p in tree.paths(full)} == {'gather'}
 
@@ -525,6 +595,30 @@ def test_fl_step_equals_the_unsharded_step(ranks, arch, wire):
         assert res['gbar'] <= PARAM_RTOL, res
         assert res['g2'] <= res['g2_bound'], res
         assert res['loss'] == 0.0, res
+
+
+def test_reblock_moves_one_block_each_way(ranks):
+    """Mamba2's ``in_proj``, ``conv_w`` and ``conv_b`` re-blocked: one
+    all-to-all a leaf forward and one backward; a rank receives exactly
+    its compute blocks forward and sends them back backward; what the
+    ranks send is what they receive; a compute block is the stored block
+    and at most B's and C's columns more, against the gather's ``size``
+    stored blocks; a float32 copy of a bf16 layout's blocks gets float32
+    gradients."""
+    res = [r['mamba2-130m-reduced.reblock'] for r in ranks]
+    for r in res:
+        assert r['f32_copy_dtypes'] == ['torch.float32'], r
+        assert r['leaves'] == 3 and r['calls'] == [3, 3], r
+        assert r['fwd_received'] == r['compute'] == r['bwd_sent'], r
+        assert r['bwd_received'] == r['fwd_sent'], r
+        assert r['stored'] <= r['compute'] < r['gather'], r
+    assert sum(r['fwd_sent'] for r in res) == sum(r['fwd_received']
+                                                  for r in res)
+    # one compute block a rank: the whole leaves' entries plus B's and
+    # C's copies on the second model rank
+    per_model = sum(r['compute'] for r in res[:2])
+    assert per_model == sum(r['stored'] for r in res[:2]) + (
+        res[0]['compute'] - res[0]['stored']) * 2
 
 
 @pytest.mark.parametrize('arch', STANDARD)
