@@ -252,7 +252,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     own beside that card work (``--dryrun``), the dry run of
     smollm-135m x the four shapes on the single-pod mesh
     (``build/dryrun/``), each record's bytes a rank against 80 GB, FLOPs
-    and collectives printed.
+    and collectives printed;
+15. the reference's retained helpers against the live kernels
+    (``run_retained``): at K=20, l=62,006, 3 bits (a) the live encoder
+    (``transport.quantize_encode_wire``, the quantize_pack kernel) and
+    the plain one (``stochastic_quantize``, then
+    ``transport.encode_wire``) give the same words, and
+    ``materialize_wire`` gives back knobs, ±1 signs and the bit-cast
+    ranges exactly; (b) on those words, at per-client BERs cycling
+    through 0, 1e-4, 1e-2, 0.5, 1 - 2^-24 and 1, ``corrupt_fold_words``
+    receives exactly ``words ^ flip_mask_ref(...)`` (the materialized
+    (K, W, 32) mask), its fold and count are the mask's, and
+    ``corrupt_words`` agrees; (c) ``decode_wire``'s verdicts on the
+    damaged words equal the fold_words kernel's, at least one passing
+    and one failing; (d) rows 2-3 of smollm-135m's embedding leaf's knob
+    words ((4, 2,654,208) at 3 bits) at word0 5,308,416, a sharded
+    rank's offset, the kernel against the materialized mask bit for bit,
+    its peak memory printed (at most 8 GiB); with every launch counter
+    reset before the phase and each of its three kernels launched.
 
 It prints one JSON line of per-kernel results, and as its last line
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count in
@@ -2866,7 +2883,7 @@ def check_error_free_round(sim) -> None:
     out = {}
     for dev in ('cuda', 'cpu'):
         g, d = grads.to(dev), draws._replace(rand=draws.rand.to(dev))
-        words = transport.encode_wire(g, d.rand, BITS, 0)[:2]
+        words = transport.quantize_encode_wire(g, d.rand, BITS, 0)[:2]
         ghat, rec = transport.error_free_aggregate(g, sim.fl, d, round_idx=0)
         out[dev] = ([w.cpu() for w in words], ghat.cpu(), rec.to_host())
     (w_gpu, g_gpu, r_gpu), (w_cpu, g_cpu, r_cpu) = out['cuda'], out['cpu']
@@ -3092,7 +3109,7 @@ def adversary_round(sim, dev, grads, q, p, draws, active=None) -> dict:
     mask = None if sim.byz_mask is None else sim.byz_mask.to(dev)
     active = None if active is None else active.to(dev)
     n = g.shape[1]
-    sw, mw, _ = transport.encode_wire(
+    sw, mw, _ = transport.quantize_encode_wire(
         g, d.rand, BITS, 0,
         scaled=(mask, fl.attack_scale) if fl.attack == 'scaled' else None)
     if fl.attack == 'signflip':
@@ -3423,7 +3440,7 @@ def population_round(sim, dev, grads, q, p, draws, active) -> dict:
     g, q, p, d = grads.to(dev), q.to(dev), p.to(dev), draws_to(draws, dev)
     active = None if active is None else active.to(dev)
     n = g.shape[1]
-    sw, mw, _ = transport.encode_wire(g, d.rand, BITS, 0)
+    sw, mw, _ = transport.quantize_encode_wire(g, d.rand, BITS, 0)
     rep = bitchannel.transmit_uplink(sw, mw, q, p, n=n, bits=BITS,
                                      seeds=d.seeds)
     ghat, rec = transport.spfl_aggregate(
@@ -6611,6 +6628,178 @@ def phase14_card(beside=None) -> dict:
     return launched
 
 
+# phase 15: the reference's retained paths on the card
+RETAINED_BERS = (0.0, 1e-4, 1e-2, 0.5, THRESH_MAX_BER, 1.0)
+RETAINED_ROUND = 5
+# smollm-135m's embedding leaf at 3 bits: 49,152 x 576 coordinates,
+# 2,654,208 knob words a client; rows 2-3 of a 4-client buffer, at the
+# word offset a sharded rank draws them (phase 12)
+LARGE_LEAF_WORDS = 2_654_208
+LARGE_ROWS = (2, 4)
+LARGE_BERS = (1e-3, 0.25)
+LARGE_PEAK_BYTES = 8 * 2 ** 30
+PHASE15_KERNELS = ('quantize_pack', 'corrupt_fold', 'fold_words')
+
+
+def retained_encoding(k: int, n: int, dev, seed: int):
+    """Phase 15 (a): the live encoder (``quantize_encode_wire``, the
+    quantize_pack kernel on the card) against the plain one
+    (``stochastic_quantize`` with the same per-row ranges, then
+    ``encode_wire``), word for word; ``materialize_wire`` exact.  -> (the
+    quantized gradient, sign words, modulus words)."""
+    import torch
+    from repro_torch.core import transport
+    from repro_torch.core.quantize import stochastic_quantize
+    from repro_torch.wire import format as fmt
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((k, n), generator=gen, device=dev) * 0.01
+    g[:, ::97] = 0.0            # sign 0 goes over the wire as +1
+    rand = torch.rand((k, n), generator=gen, device=dev)
+    live = transport.quantize_encode_wire(g, rand, BITS, RETAINED_ROUND)
+    a = g.abs()
+    qg = stochastic_quantize(g, BITS, rand, a.amin(1, keepdim=True),
+                             a.amax(1, keepdim=True))
+    plain = transport.encode_wire(qg, RETAINED_ROUND)
+    for name, x, y in (('sign', live[0], plain[0]),
+                       ('modulus', live[1], plain[1])):
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f'phase 15 (a): the live and plain {name} words differ in '
+                f'{int((x != y).sum())} of {x.numel()}')
+    want = fmt.measured_uplink_bits(n, BITS, k)
+    rec, measured, crc_ok = transport.materialize_wire(qg, RETAINED_ROUND)
+    if not live[2] == plain[2] == measured == want:
+        raise AssertionError(f'phase 15 (a): measured bits {live[2]}, '
+                             f'{plain[2]}, {measured} != {want}')
+    sign = torch.where(qg.sign == 0, 1, qg.sign).to(torch.int8)
+    same = {'qidx': torch.equal(rec.qidx, qg.qidx),
+            'sign': torch.equal(rec.sign, sign),
+            'g_min': torch.equal(rec.g_min.view(torch.int32),
+                                 qg.g_min.view(torch.int32)),
+            'g_max': torch.equal(rec.g_max.view(torch.int32),
+                                 qg.g_max.view(torch.int32)),
+            'crc_ok': bool(crc_ok.all())}
+    if not all(same.values()):
+        raise AssertionError(f'phase 15 (a): materialize_wire {same}')
+    print(f'phase 15 (a): K={k} l={n} bits={BITS}: the live and plain '
+          f'encoders give the same {live[0].numel()} sign and '
+          f'{live[1].numel()} modulus words; materialize_wire exact '
+          f'({int((qg.sign == 0).sum())} zero signs as +1), {want} bits',
+          flush=True)
+    return qg, live[0], live[1]
+
+
+def retained_mask(label: str, words, ber, pair, dev, word0: int = 0):
+    """Phase 15 (b), (d): ``corrupt_fold_words`` (the corrupt_fold kernel
+    on the card) against the materialized (K, W, 32) flip mask
+    (``flip_mask_ref``): the received words, the mask's xor-fold and its
+    popcount.  -> (received words, flips a row)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wire import corrupt as wire_corrupt
+    from repro_torch.wire import format as fmt
+    mask = fmt.to_words(wire_corrupt.flip_mask_ref(
+        pair, tuple(words.shape), ber, word0, dev))
+    rx, fold, flips = ops.corrupt_fold_words(ops.seed_words(pair, dev),
+                                             words, ber, word0)
+    same = {'received': torch.equal(rx, words ^ mask),
+            'fold': torch.equal(fold, fmt.xor_fold(mask)),
+            'flips': torch.equal(flips, wire_corrupt.count_flips(mask))}
+    if not all(same.values()):
+        raise AssertionError(f'phase 15 {label}: corrupt_fold_words vs '
+                             f'flip_mask_ref {same}')
+    return rx, flips, mask
+
+
+def run_retained(dev=None, k: int = K, n: int = 62006,
+                 large_words: int = LARGE_LEAF_WORDS, seed: int = 15
+                 ) -> dict:
+    """Phase 15: the reference's retained helpers against the live kernels
+    on the card (``dev``; the CPU runs the wrappers' plain versions, a
+    rehearsal at small ``n`` and ``large_words``).  -> launches by
+    kernel, flips drawn, peak bytes of (d)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import bitchannel, transport
+    from repro_torch.kernels import ops
+    from repro_torch.wire import corrupt as wire_corrupt
+    from repro_torch.wire import format as fmt
+    dev = torch.device(dev or 'cuda')
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    qg, sw, mw = retained_encoding(k, n, dev, seed)
+    # (b) the materialized mask at the main path's width
+    ber = torch.tensor([RETAINED_BERS[i % len(RETAINED_BERS)]
+                        for i in range(k)], dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    pairs = torch.randint(0, 2 ** 32, (3, 2), generator=gen).tolist()
+    rx, flips = [], {}
+    for (label, words), pair in zip((('sign', sw), ('modulus', mw)), pairs):
+        got, f, mask = retained_mask(f'(b) {label}', words, ber, pair, dev)
+        crx, cmask = wire_corrupt.corrupt_words(pair, words, ber)
+        if not (torch.equal(crx, got) and torch.equal(cmask, mask)):
+            raise AssertionError(f'phase 15 (b) {label}: corrupt_words '
+                                 'differs')
+        rx.append(got)
+        flips[label] = f.tolist()
+    print(f'phase 15 (b): corrupt_fold_words = words ^ flip_mask_ref, its '
+          "fold and count the mask's, corrupt_words the same, at BERs "
+          f'{[f"{b:.9g}" for b in ber.tolist()]}; flips a client: '
+          f'{json.dumps(flips)}', flush=True)
+    # (c) decode_wire's verdicts against the fold_words kernel's
+    _, dec = transport.decode_wire(qg, *rx)
+    s_fold = bitchannel.verify_sign_fold(rx[0], n=n)
+    m_fold = bitchannel.verify_mod_fold(rx[1], n=n, bits=BITS)
+    if not (torch.equal(dec.sign_ok, s_fold)
+            and torch.equal(dec.mod_ok, m_fold)):
+        raise AssertionError(f'phase 15 (c): decode_wire {dec.sign_ok} '
+                             f'{dec.mod_ok} vs fold_words {s_fold} {m_fold}')
+    verdicts = torch.cat([dec.sign_ok, dec.mod_ok])
+    if bool(verdicts.all()) or not bool(verdicts.any()):
+        raise AssertionError('phase 15 (c): every packet passed or every '
+                             'packet failed')
+    print(f'phase 15 (c): decode_wire = fold_words verdicts: sign_ok '
+          f'{s_fold.int().tolist()}, mod_ok {m_fold.int().tolist()}',
+          flush=True)
+    # (d) a large counter: the smollm-135m embedding leaf's knob words
+    cfg = registry.get_arch('smollm-135m')
+    if (large_words == LARGE_LEAF_WORDS and fmt.payload_words(
+            cfg.vocab_size * cfg.d_model, BITS) != LARGE_LEAF_WORDS):
+        raise AssertionError('phase 15 (d): the embedding leaf is not '
+                             f'{LARGE_LEAF_WORDS} words a client')
+    r0, r1 = LARGE_ROWS
+    big = torch.randint(-2 ** 31, 2 ** 31, (r1 - r0, large_words),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 1), device=dev, dtype=torch.int32)
+    big_ber = torch.tensor(LARGE_BERS, dtype=torch.float32, device=dev)
+    on_card = dev.type == 'cuda'
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, big_flips, _ = retained_mask('(d)', big, big_ber, pairs[2], dev,
+                                    word0=r0 * large_words)
+    big_flips = big_flips.tolist()
+    peak = torch.cuda.max_memory_allocated() - base if on_card else None
+    print(f'phase 15 (d): rows {r0}-{r1 - 1} of ({r1}, {large_words}) '
+          f'words at word0 {r0 * large_words}, BERs {list(LARGE_BERS)}: '
+          f'corrupt_fold_words = words ^ flip_mask_ref bit for bit, flips '
+          f'{big_flips}; {time.perf_counter() - t1:.3f} s, peak '
+          + (f'{peak} B ({peak / 2 ** 30:.3f} GiB) above the '
+             f'{base} B held before' if on_card else 'not measured (CPU)'),
+          flush=True)
+    if on_card and peak > LARGE_PEAK_BYTES:
+        raise AssertionError(f'phase 15 (d): peak {peak} B > '
+                             f'{LARGE_PEAK_BYTES} B')
+    launched = {name: ops.launch_counts[name] for name in PHASE15_KERNELS}
+    if on_card and not all(launched.values()):
+        raise AssertionError(f'phase 15 launched {launched}')
+    print(f'phase 15 launches: {json.dumps(launched)}', flush=True)
+    return {'launches': launched, 'flips': flips, 'large_flips': big_flips,
+            'peak_bytes': peak, 's': time.perf_counter() - t0}
+
+
 def kernel_bound(label: str, r: dict, sass_mix, name: str = None,
                  per_unit: dict = None):
     """(bound ms, 'bytes' or 'operations') of a launch that moves
@@ -6804,6 +6993,9 @@ def main() -> int:
     print(f'phase 14 launches (every rank): {json.dumps(launches14)}',
           flush=True)
     print(f'phase 14: {time.perf_counter() - t0:.3f} s', flush=True)
+    # 15. the reference's retained helpers against the live kernels
+    retained = run_retained()
+    print(f'phase 15: {retained["s"]:.3f} s', flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == 'jax' or m.startswith(('jax.', 'repro.'))

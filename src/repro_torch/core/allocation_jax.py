@@ -321,9 +321,18 @@ def _objective(P, caps, alpha, beta) -> Tensor:
                                exp_cap=caps.exp_cap))
 
 
-def _success_probs(P, caps, alpha, beta):
-    h_s, h_v = _h_both(P, caps, beta)
-    return AC.success_probs(XP, alpha, h_s, h_v, log_floor=caps.log_floor)
+def success_probs(prob: JaxAllocationProblem, alpha: Tensor, beta: Tensor,
+                  caps: _Caps = None):
+    """(q, p) of eq. (11)/(13) at (alpha, beta) on a problem or a batch
+    (``caps`` default to the problem dtype's)."""
+    P = _lift(prob)
+    caps = caps or _caps(P.A.dtype)
+    h_s, h_v = _h_both(P, caps, beta.reshape(P.A.shape))
+    q, p = AC.success_probs(XP, alpha.reshape(P.A.shape), h_s, h_v,
+                            log_floor=caps.log_floor)
+    if is_batched(prob):
+        return q, p
+    return q[0], p[0]
 
 
 def optimize_alpha(P: JaxAllocationProblem, beta: Tensor, n_grid: int = 256,
@@ -625,7 +634,7 @@ def _solve_lifted(P: JaxAllocationProblem, method: str, max_iters: int,
     nan_objs = torch.full((nb, max_iters), math.nan, dtype=dt, device=dev)
     uniform_obj = _objective(P, caps, alpha_u, beta_u)
     if method == 'uniform':
-        q, p = _success_probs(P, caps, alpha_u, beta_u)
+        q, p = success_probs(P, alpha_u, beta_u, caps)
         return JaxAllocation(
             alpha_u, beta_u, q, p, uniform_obj,
             torch.zeros((nb,), dtype=torch.int32, device=dev), nan_objs,
@@ -681,7 +690,7 @@ def _solve_lifted(P: JaxAllocationProblem, method: str, max_iters: int,
                          torch.where(bad_seen, code(EXIT_NONFINITE),
                                      torch.where(done, code(EXIT_CONVERGED),
                                                  code(EXIT_ITER_CAP))))
-    q, p = _success_probs(P, caps, alpha, beta)
+    q, p = success_probs(P, alpha, beta, caps)
     return JaxAllocation(alpha, beta, q, p, prev, iters, objs, reason)
 
 

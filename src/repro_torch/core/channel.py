@@ -18,6 +18,7 @@ float64 and rounded once, which equals XLA's float32 power on all but
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +30,13 @@ from repro_torch.core.quantize import true_div
 Tensor = torch.Tensor
 
 CHANNEL_KINDS = ('bernoulli', 'bitlevel')
+
+
+@dataclass(frozen=True)
+class ChannelState:
+    """Per-round channel snapshot for K devices."""
+    distance_m: Tensor      # (K,) PS-device distances
+    tx_power_w: Tensor      # (K,) per-device power budgets P_{k,n}
 
 
 def sqrt_rounded(x: Tensor) -> Tensor:

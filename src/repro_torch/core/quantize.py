@@ -68,6 +68,18 @@ def dequantize_modulus(qg: QuantizedGradient) -> Tensor:
     return qg.g_min + qg.qidx.to(torch.float32) * step
 
 
+def dequantize(qg: QuantizedGradient) -> Tensor:
+    """Full Q(g) = s(g) * Q_v(g)."""
+    return qg.sign.to(torch.float32) * dequantize_modulus(qg)
+
+
+def quantization_error_bound(g_min: Tensor, g_max: Tensor, dim: int,
+                             bits: int) -> Tensor:
+    """delta^2 of Lemma 2, eq. (25): l (g_max - g_min)^2 / (4 (2^b - 1)),
+    divided as the IEEE quotient on every device."""
+    return true_div(dim * (g_max - g_min) ** 2, 4.0 * (2 ** bits - 1))
+
+
 def expected_quant_mse(g: Tensor, bits: int, dim=None) -> Tensor:
     """EXACT E||Q(g) - g||^2 of the stochastic quantizer with the range
     taken over ``dim``: sum_i step^2 * frac_i * (1 - frac_i)."""

@@ -21,13 +21,15 @@ per-client gradient trees of the LLM-scale step
 
 ``wire='packed'`` materializes the packets of ``spfl`` and ``error_free``
 as framed uint32 word buffers: the ``quantize_pack`` kernel quantizes and
-packs every client in one read of the gradients (:func:`encode_wire`),
-and the ``spfl_accumulate`` kernel decodes, compensates, weights and sums
-all clients straight from the payload words.  ``channel='bitlevel'``
-sends spfl's buffers through the bit channel (``core.bitchannel``: the
-``corrupt_fold`` and ``fold_words`` kernels).  ``wire='analytic'`` and
-``channel='bernoulli'`` are the plain PyTorch branches of the same
-functions.
+packs every client in one read of the gradients
+(:func:`quantize_encode_wire`), and the ``spfl_accumulate`` kernel
+decodes, compensates, weights and sums all clients straight from the
+payload words (:func:`encode_wire`, :func:`decode_wire` and
+:func:`materialize_wire` are the reference's unpack-per-client path, kept
+to prove the live one).  ``channel='bitlevel'`` sends spfl's buffers
+through the bit channel (``core.bitchannel``: the ``corrupt_fold`` and
+``fold_words`` kernels).  ``wire='analytic'`` and ``channel='bernoulli'``
+are the plain PyTorch branches of the same functions.
 
 ``spfl`` also takes the adversarial knobs (``repro_torch.adversary``): a
 byzantine mask with its attack (the packed sign frames forged before
@@ -62,8 +64,8 @@ from repro_torch.core import bitchannel
 from repro_torch.core import channel as chan
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.quantize import (
-    QuantizedGradient, dequantize_modulus, packet_bits, stochastic_quantize,
-    true_div,
+    QuantizedGradient, dequantize, dequantize_modulus, packet_bits,
+    quantization_error_bound, stochastic_quantize, true_div,
 )
 from repro_torch.core.mesh import ClientMesh, pad_rows
 from repro_torch.kernels import ops as kops
@@ -244,9 +246,10 @@ def _zero_words(rows: int, n: int, bits: int, device) -> Tuple[Tensor,
                         device=device))
 
 
-def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0,
-                scaled: Optional[Tuple[Tensor, float]] = None
-                ) -> Tuple[Tensor, Tensor, int]:
+def quantize_encode_wire(grads: Tensor, rand: Tensor, bits: int,
+                         round_idx=0,
+                         scaled: Optional[Tuple[Tensor, float]] = None
+                         ) -> Tuple[Tensor, Tensor, int]:
     """Client side of the packed wire: quantize and pack (K, l) gradients
     with per-client ranges (the ``quantize_pack`` kernel) and frame them
     -> (sign_words (K, Ws), mod_words (K, Wm), measured bits).
@@ -271,18 +274,57 @@ def encode_wire(grads: Tensor, rand: Tensor, bits: int, round_idx=0,
 
 def _encode_block(grads: Tensor, rand: Tensor, bits: int, round_idx,
                   scaled, rows: int) -> Tuple[Tensor, Tensor]:
-    """:func:`encode_wire` of this rank's rows, padded with zero words to
-    its block of ``rows`` (a rank whose block is all padding encodes
-    nothing)."""
+    """:func:`quantize_encode_wire` of this rank's rows, padded with zero
+    words to its block of ``rows`` (a rank whose block is all padding
+    encodes nothing)."""
     if grads.shape[0] == 0:
         l = grads.shape[1]
         zeros = dict(dtype=torch.int32, device=grads.device)
         return (torch.zeros((rows, wire_fmt.sign_packet_words(l)), **zeros),
                 torch.zeros((rows, wire_fmt.modulus_packet_words(l, bits)),
                             **zeros))
-    sign_words, mod_words, _ = encode_wire(grads, rand, bits, round_idx,
-                                           scaled)
+    sign_words, mod_words, _ = quantize_encode_wire(grads, rand, bits,
+                                                    round_idx, scaled)
     return pad_rows(sign_words, rows), pad_rows(mod_words, rows)
+
+
+def encode_wire(qg: QuantizedGradient, round_idx=0
+                ) -> Tuple[Tensor, Tensor, int]:
+    """Frame a (K, l) quantized gradient with the reference packers ->
+    (sign_words (K, Ws), mod_words (K, Wm), measured bits of the real
+    buffers)."""
+    K = qg.sign.shape[0]
+    sign_words, mod_words = wire_packets.encode_uplink_batch(
+        qg.sign, qg.qidx, qg.g_min.reshape(K), qg.g_max.reshape(K),
+        bits=qg.bits, round_idx=round_idx)
+    measured = wire_fmt.WORD_BITS * K * (sign_words.shape[1]
+                                         + mod_words.shape[1])
+    return sign_words, mod_words, measured
+
+
+def decode_wire(qg: QuantizedGradient, sign_words: Tensor,
+                mod_words: Tensor
+                ) -> Tuple[QuantizedGradient, wire_packets.DecodedUplink]:
+    """PS side: decode (possibly damaged) buffers back into a
+    QuantizedGradient shaped like ``qg`` -> (decoded, the decoded uplink
+    with its CRC flags)."""
+    dec = wire_packets.decode_uplink_batch(
+        sign_words, mod_words, n=qg.sign.shape[1], bits=qg.bits)
+    rec = QuantizedGradient(dec.sign, dec.qidx,
+                            dec.g_min.reshape(qg.g_min.shape),
+                            dec.g_max.reshape(qg.g_max.shape), qg.bits)
+    return rec, dec
+
+
+def materialize_wire(qg: QuantizedGradient, round_idx=0
+                     ) -> Tuple[QuantizedGradient, int, Tensor]:
+    """Round-trip a (K, l) quantized gradient through the packed wire,
+    unpacking every client -> (reconstructed QuantizedGradient, measured
+    bits, per-client CRC-ok flags).  Exact: knobs and the bit-cast ranges
+    come back bit for bit, signs in {-1, +1} (sign 0 travels as +1)."""
+    sign_words, mod_words, measured = encode_wire(qg, round_idx)
+    rec, dec = decode_wire(qg, sign_words, mod_words)
+    return rec, measured, dec.sign_ok & dec.mod_ok
 
 
 def spfl_aggregate(grads: Tensor, gbar: Tensor, q: Tensor, p: Tensor,
@@ -501,7 +543,7 @@ def dds_aggregate(grads: Tensor, beta: Tensor, gains: Tensor, p_w: Tensor,
     n_bits = l * (fl.quant_bits + 1) + fl.b0_bits
     q = single_packet_success_prob(beta, p_w, gains, n_bits, fl)
     ok = _baseline_packet_fate(draws.fate_u, q, n_bits, fl.channel)
-    vals = qg.sign.to(torch.float32) * dequantize_modulus(qg)
+    vals = dequantize(qg)
     return _received_mean(vals, ok), _baseline_telemetry(ok, ok, K * n_bits)
 
 
@@ -540,7 +582,7 @@ def scheduling_aggregate(grads: Tensor, gains: Tensor, p_w: Tensor,
     n_bits = l * (fl.quant_bits + 1) + fl.b0_bits
     q = single_packet_success_prob(beta, p_w, gains, n_bits, fl)
     ok = _baseline_packet_fate(draws.fate_u, q, n_bits, fl.channel) & sched
-    vals = qg.sign.to(torch.float32) * dequantize_modulus(qg)
+    vals = dequantize(qg)
     return _received_mean(vals, ok), _baseline_telemetry(ok, ok, m * n_bits)
 
 
@@ -588,8 +630,7 @@ def error_free_aggregate(grads: Tensor, fl: FLConfig, draws: Draws,
     else:
         qg = _per_client_quantize(grads, fl.quant_bits, draws.rand)
         payload = float(K * (l * (fl.quant_bits + 1) + fl.b0_bits))
-        ghat = _seq_client_mean(qg.sign.to(torch.float32)
-                                * dequantize_modulus(qg))
+        ghat = _seq_client_mean(dequantize(qg))
     return ghat, RoundTelemetry(ok, ok, ok, _scalar(payload, dev),
                                 _scalar(0.0, dev), **extras)
 
@@ -691,9 +732,9 @@ def tree_client_stats(grads_tree) -> dict:
 
 def delta_sq_tree(stats: dict, bits: int) -> Tensor:
     """Per-client quantization error bound delta^2 (Lemma 2, eq. (25))
-    from the tree stats: l (g_max - g_min)^2 / (4 (2^b - 1))."""
-    spread = stats['dim'] * (stats['g_max'] - stats['g_min']) ** 2
-    return true_div(spread, 4.0 * (2 ** bits - 1))
+    from the tree stats."""
+    return quantization_error_bound(stats['g_min'], stats['g_max'],
+                                    stats['dim'], bits)
 
 
 def _bitlevel_tree_pass(seeds: Tensor, word_leaves, ber: Tensor,
@@ -1022,8 +1063,7 @@ def error_free_aggregate_tree(grads_tree, fl: FLConfig, draws: TreeDraws,
         else:
             qg = stochastic_quantize(flat, bits, draws.rand[i],
                                      g_min[:, None], g_max[:, None])
-            mean = _seq_client_mean(qg.sign.to(torch.float32)
-                                    * dequantize_modulus(qg))
+            mean = _seq_client_mean(dequantize(qg))
         out.append(mean.reshape(lf.shape[1:]))
     if wire == 'packed':
         payload = K * wire_fmt.WORD_BITS * (

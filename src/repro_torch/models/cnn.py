@@ -137,3 +137,10 @@ def cnn_loss(logits: Tensor, labels: Tensor) -> Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
     return torch.mean(logz - gold)
+
+
+def cnn_accuracy(model, images: Tensor, labels: Tensor) -> Tensor:
+    """Top-1 accuracy (f32 scalar) of ``model`` (the CNN, or any callable
+    from NCHW images to logits) on ``images`` against ``labels``."""
+    pred = torch.argmax(model(images), dim=-1)
+    return (pred == labels).to(torch.float32).mean()

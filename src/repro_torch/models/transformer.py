@@ -225,6 +225,11 @@ def embed_tokens(params, cfg: ModelConfig, tokens: Tensor,
     return x
 
 
+def group_slice(params, g: int):
+    """The g-th group's parameter tree of the stacked ``params['groups']``."""
+    return tree.map(lambda a: a[g], params['groups'])
+
+
 def group_params(params, cfg: ModelConfig) -> list:
     """The groups' parameter trees, one a group: each leaf unbound once
     along its group axis (its gradient then stacks once)."""

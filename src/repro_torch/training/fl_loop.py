@@ -127,7 +127,9 @@ from repro_torch.core import threefry
 from repro_torch.core.quantize import expected_quant_mse
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops
-from repro_torch.models.cnn import CNN, cnn_loss, init_params, module_params
+from repro_torch.models.cnn import (
+    CNN, cnn_accuracy, cnn_loss, init_params, module_params,
+)
 from repro_torch.obs import ringbuf as obs_ring
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.record import RoundTelemetry, to_row
@@ -419,8 +421,7 @@ class FLSimulator:
         logits = logits.reshape(k, b, -1)
         loss = torch.stack([cnn_loss(logits[i], self.client_y[i])
                             for i in range(k)]).mean()
-        pred = torch.argmax(self.logits(self.test_x), dim=-1)
-        acc = (pred == self.test_y).to(torch.float32).mean()
+        acc = cnn_accuracy(self.logits, self.test_x, self.test_y)
         return float(loss), float(acc)
 
     def allocate(self, grads: torch.Tensor, gbar: torch.Tensor,

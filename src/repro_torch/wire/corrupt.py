@@ -51,14 +51,16 @@ def _fmix32(x: Tensor) -> Tensor:
     return x ^ (x >> 16)
 
 
-def hash_bits(word_idx: Tensor, plane: int, seed0: int, seed1: int
-              ) -> Tensor:
+def hash_bits(word_idx: Tensor, plane, seed0, seed1) -> Tensor:
     """Counter PRF: (uint32 word index, bit plane 0..31) -> uint32 hash,
-    as int64 in [0, 2^32)."""
+    as int64 in [0, 2^32).  ``plane`` is an int or an int64 tensor that
+    broadcasts against ``word_idx``.  One expression, so the first
+    round's hash is freed before the second round runs (the materialized
+    form's peak memory)."""
     p = (plane * _PLANE_SALT) & MASK32
-    h = _fmix32(((word_idx.to(torch.int64) + _GOLDEN) & MASK32)
-                ^ (seed0 & MASK32))
-    return _fmix32(h ^ (seed1 & MASK32) ^ p)
+    return _fmix32(_fmix32(((word_idx.to(torch.int64) + _GOLDEN) & MASK32)
+                           ^ (seed0 & MASK32))
+                   ^ (seed1 & MASK32) ^ p)
 
 
 def flip_threshold(ber) -> Tuple[Tensor, Tensor]:
@@ -117,6 +119,25 @@ def flip_mask(seeds, shape, ber, word0: int = 0,
     return threshold_mask(seeds, shape, thresh, allf, word0, device)
 
 
+def flip_mask_ref(seeds, shape, ber, word0: int = 0,
+                  device=None) -> Tensor:
+    """Materialized ``(..., W, 32)`` form of :func:`flip_mask`: every
+    bit's hash and threshold test drawn as one tensor over a lane axis,
+    then shifted into place and summed.  A second derivation of the mask
+    (no loop over planes), kept to prove the live paths against it."""
+    seed0, seed1 = seed_pair(seeds)
+    thresh, allf = flip_threshold(ber)
+    thresh, allf = thresh.to(device), allf.to(device)
+    shape = tuple(shape)
+    bshape = thresh.shape + (1,) * (len(shape) + 1 - thresh.dim())
+    lane = torch.arange(WORD_BITS, dtype=torch.int64, device=device)
+    idx = _word_index(shape, word0, device)[..., None].expand(
+        shape + (WORD_BITS,))
+    bits = ((hash_bits(idx, lane, seed0, seed1) < thresh.reshape(bshape))
+            | allf.reshape(bshape)).to(torch.int64)
+    return torch.sum(bits << lane, dim=-1)
+
+
 def count_flips(mask: Tensor) -> Tensor:
     """Flipped bits per buffer: popcount of the mask, summed over words."""
     m = mask.to(torch.int64) & MASK32
@@ -126,11 +147,19 @@ def count_flips(mask: Tensor) -> Tensor:
     return count.sum(dim=-1).to(torch.int32)
 
 
+def corrupt_words(seeds, words: Tensor, ber,
+                  word0: int = 0) -> Tuple[Tensor, Tensor]:
+    """Transmit ``words`` through the bit-flip channel -> (received
+    ``words ^ mask``, the mask), int32 word patterns."""
+    mask = to_words(flip_mask(seeds, tuple(words.shape), ber, word0,
+                              words.device))
+    return to_words(words) ^ mask, mask
+
+
 def corrupt_fold(seeds, words: Tensor, ber,
                  word0: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Transmit (K, W) buffers through the bit-flip channel ->
     (received words, per-client xor-fold of the flip mask, per-client
     flip count), all int32."""
-    mask = flip_mask(seeds, tuple(words.shape), ber, word0, words.device)
-    rx = to_words(words) ^ to_words(mask)
+    rx, mask = corrupt_words(seeds, words, ber, word0)
     return rx, xor_fold(mask), count_flips(mask)

@@ -1,10 +1,11 @@
-"""Whole-packet encode/decode for the K-client uplink batch (the port of
-``repro.wire.packets``).
+"""Whole-packet encode/decode for one client's uplink and the K-client
+batch (the port of ``repro.wire.packets``).
 
-Exactly one sign packet and one modulus packet per client per round;
-client ids are the row indices.  ``frame_uplink_batch`` frames payload
-words that are already packed — the live transport packs with the
-``quantize_pack`` kernel, which is bit-identical to
+Exactly one sign packet and one modulus packet per client per round; in
+the batch forms the client ids are the row indices, and row k equals
+``encode_client_uplink`` of client k.  ``frame_uplink_batch`` frames
+payload words that are already packed — the live transport packs with
+the ``quantize_pack`` kernel, which is bit-identical to
 ``encode_uplink_batch``'s reference packers.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ Tensor = torch.Tensor
 
 
 class DecodedUplink(NamedTuple):
-    """PS-side view of one round's uplink (batched over clients)."""
+    """PS-side view of one client's round (or of the K batch)."""
     sign: Tensor          # int8 in {-1, +1}
     qidx: Tensor          # int32 knob index
     g_min: Tensor         # float32 (b0 side-channel)
@@ -28,6 +29,21 @@ class DecodedUplink(NamedTuple):
     round_idx: Tensor     # uint32 (int64), from the header
     sign_ok: Tensor       # bool — sign packet framing + checksum valid
     mod_ok: Tensor        # bool — modulus packet framing + checksum valid
+
+
+def encode_client_uplink(sign: Tensor, qidx: Tensor, g_min, g_max,
+                         client_id, *, bits: int, round_idx=0):
+    """One client's sign (n,) and knobs (n,) with its range -> (sign_words,
+    mod_words), the two framed 1-D buffers as int32 patterns.  Sign 0
+    goes over the wire as +1."""
+    n = sign.shape[0]
+    sign_words = fmt.frame(
+        fmt.sign_header(client_id, round_idx, n),
+        fmt.pack_bits_ref(fmt.sign_to_bits(sign), 1))
+    mod_words = fmt.frame(
+        fmt.modulus_header(client_id, round_idx, n, bits, g_min, g_max),
+        fmt.pack_bits_ref(qidx, bits))
+    return sign_words, mod_words
 
 
 def frame_uplink_batch(sign_payload: Tensor, qidx_payload: Tensor,
@@ -99,9 +115,11 @@ def restamp_sign_retx(sign_words: Tensor, attempt: int) -> Tensor:
                             fmt.stamp_round(fmt.round_of(old), attempt))
 
 
-def decode_uplink_batch(sign_words: Tensor, mod_words: Tensor, *, n: int,
-                        bits: int) -> DecodedUplink:
-    """Parse + verify both packets of every client."""
+def decode_client_uplink(sign_words: Tensor, mod_words: Tensor, *, n: int,
+                         bits: int) -> DecodedUplink:
+    """Parse + verify one client's two packets (1-D buffers; leading
+    axes batch).  Payloads decode whatever the flags say; the *_ok flags
+    say whether they can be trusted."""
     sign = fmt.bits_to_sign(fmt.unpack_bits_ref(sign_payload(sign_words),
                                                 n, 1))
     qidx = fmt.unpack_bits_ref(mod_payload(mod_words), n, bits).to(
@@ -113,3 +131,9 @@ def decode_uplink_batch(sign_words: Tensor, mod_words: Tensor, *, n: int,
         round_idx=fmt.round_of(sign_words[..., 2]),
         sign_ok=verify_sign_words(sign_words, n=n),
         mod_ok=verify_mod_words(mod_words, n=n, bits=bits))
+
+
+def decode_uplink_batch(sign_words: Tensor, mod_words: Tensor, *, n: int,
+                        bits: int) -> DecodedUplink:
+    """Parse + verify both packets of every client ((K, W) buffers)."""
+    return decode_client_uplink(sign_words, mod_words, n=n, bits=bits)

@@ -185,8 +185,8 @@ def test_error_free_matches_reference(wire, k, l):
         sw_r, mw_r, bits_r = TR.encode_wire(
             TR._per_client_quantize(jnp.asarray(grads), fl.quant_bits, key),
             3)
-        sw, mw, bits = TTR.encode_wire(torch.as_tensor(grads), draws.rand,
-                                       fl.quant_bits, 3)
+        sw, mw, bits = TTR.quantize_encode_wire(
+            torch.as_tensor(grads), draws.rand, fl.quant_bits, 3)
         np.testing.assert_array_equal(words_np(sw), np.asarray(sw_r))
         np.testing.assert_array_equal(words_np(mw), np.asarray(mw_r))
         assert bits == bits_r == float(tel.payload_bits)
